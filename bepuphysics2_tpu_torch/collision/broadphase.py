@@ -1,14 +1,21 @@
 """Broad phase: speculative AABB overlap → fixed-capacity candidate pair list.
 
-Counterpart of ``brute_force`` in ``bepuphysics2_tpu/collision/broadphase.py``: the exact
-N×N AABB test with per-row top-k compaction (``torch.topk`` for ``lax.top_k``). Masked
-scores are distinct (negated column index), so the top-k columns of every row are the
-same as the JAX package's. The sorted-grid and sweep broad phases are not ported yet.
+Counterpart of ``brute_force`` and ``grid2`` in ``bepuphysics2_tpu/collision/broadphase.py``,
+pair for pair and in the same order (the pair store admits pairs in list order, which
+fixes their slots, colors and so the solve order):
+
+- ``brute_force``: the exact N×N AABB test with per-row top-k compaction (``torch.topk``
+  for ``lax.top_k``). Masked scores are distinct (negated column index), so the top-k
+  columns of every row are the JAX package's.
+- ``grid2``: replicated cell entries sorted by cell key; the structure above 8,192 bodies.
+
+The stencil ``grid`` and the ``sweep`` broad phases are not ported.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..bodies import KIND_DYNAMIC, KIND_EMPTY
@@ -91,4 +98,181 @@ def brute_force(
     return PairList(
         bi.to(torch.int32), ai.to(torch.int32), valid, overflow,
         _demand(dev, pairs=row_counts.sum(), max_row=row_counts.max()),
+    )
+
+
+def _round_up_int(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def _nanmedian(x):
+    """``jnp.nanmedian`` of a 1-D tensor as the JAX package computes it: the midpoint
+    ``(lo + hi) * 0.5`` of the two middle live values (``torch.nanmedian`` returns the
+    lower one), with the live count kept on the device."""
+    s = torch.sort(x).values  # NaNs last
+    count = (~torch.isnan(x)).sum()
+    lo = torch.div(count - 1, 2, rounding_mode="floor").clamp_min(0)
+    hi = torch.div(count, 2, rounding_mode="floor")
+    mid = s.index_select(0, torch.stack([lo, hi]))  # a tensor index: no host read
+    return (mid[0] + mid[1]) * 0.5
+
+
+def grid2(
+    aabb_min: Vec3,
+    aabb_max: Vec3,
+    kind,
+    awake,
+    group,
+    max_pairs: int,
+    cell_size: float = 0.0,
+    cell_capacity: int = 16,
+    max_large: int = 64,
+    entry_factor: int = 7,
+    cell_factor: float = 1.2,
+    pair_k: int = 8,
+) -> PairList:
+    """Replicated-cell-entry broad phase. Each small body inserts an entry into every cell
+    its AABB overlaps (at most 8 when its extent is at most the cell size); entries sort
+    stably by cell key, and candidate pairs are entries within ``cell_capacity`` positions
+    of each other with equal keys. A pair sharing several cells is emitted only from the
+    cell holding max(min_a, min_b), the min corner of the AABB intersection. Bodies larger
+    than a cell (``max_large`` of them) are tested against everyone and keep their first
+    ``max(pair_k, 8)`` partners per body.
+
+    Capacities, all reported as overflow: ``entry_factor * N`` sorted entries, the same-cell
+    window, the large set and its per-body budget, ``max_pairs``. ``cell_size <= 0`` means
+    adaptive: ``cell_factor`` times the median live AABB extent, at least the extent of
+    the ``max_large // 2``-th largest body."""
+    n = kind.shape[0]
+    dev = kind.device
+    i32 = torch.int32
+    exists = kind != KIND_EMPTY
+    active_dynamic = (kind == KIND_DYNAMIC) & awake
+
+    ext = aabb_max - aabb_min
+    max_ext = torch.maximum(ext.x, torch.maximum(ext.y, ext.z))
+    if cell_size and cell_size > 0:
+        cs = torch.full((), cell_size, dtype=torch.float32, device=dev)
+    else:
+        live_ext = torch.where(exists, max_ext, float("nan"))
+        cs = torch.clamp_min(_nanmedian(live_ext) * float(np.float32(cell_factor)), 1e-3)
+        k_lim = max(2, min(max_large // 2, n))
+        top_ext = torch.topk(torch.where(exists, max_ext, float("-inf")), k_lim).values
+        cs = torch.maximum(cs, top_ext[k_lim - 1])
+    large = exists & (max_ext > cs)
+    small = exists & ~large
+    inv_cs = 1.0 / cs
+
+    def cell(v):
+        return torch.floor(v * inv_cs).to(i32)
+
+    c0x, c0y, c0z = cell(aabb_min.x), cell(aabb_min.y), cell(aabb_min.z)
+    ox = (cell(aabb_max.x) > c0x) & small
+    oy = (cell(aabb_max.y) > c0y) & small
+    oz = (cell(aabb_max.z) > c0z) & small
+
+    def cell_key(ix, iy, iz):
+        return ((ix & 1023) << 20) | ((iy & 1023) << 10) | (iz & 1023)
+
+    BIGKEY = 2**31 - 1
+    j8 = torch.arange(8, dtype=i32, device=dev)
+    dx, dy, dz = j8 & 1, (j8 >> 1) & 1, (j8 >> 2) & 1
+    evalid = (small[:, None]
+              & ((dx[None, :] == 0) | ox[:, None])
+              & ((dy[None, :] == 0) | oy[:, None])
+              & ((dz[None, :] == 0) | oz[:, None]))
+    ekey = torch.where(
+        evalid,
+        cell_key(c0x[:, None] + dx[None, :], c0y[:, None] + dy[None, :],
+                 c0z[:, None] + dz[None, :]),
+        BIGKEY,
+    ).reshape(-1)
+
+    entry_count = evalid.sum()
+    E_CAP = min(_round_up_int(entry_factor * n, 128), 8 * n)
+    # Stable: same-cell entries stay in (body, slot) order.
+    skey, sidx = torch.sort(ekey, stable=True)
+    skey = skey[:E_CAP]
+    sbody = torch.div(sidx[:E_CAP], 8, rounding_mode="floor").to(i32)
+    overflow_entries = entry_count > E_CAP
+
+    flags = active_dynamic.float()
+    feat = torch.stack([aabb_min.x, aabb_min.y, aabb_min.z, aabb_max.x, aabb_max.y,
+                        aabb_max.z, group.float(), flags], -1)  # (N, 8)
+    f = feat[sbody.long()]  # (E_CAP, 8)
+    fmin_x, fmin_y, fmin_z = f[:, 0], f[:, 1], f[:, 2]
+    fmax_x, fmax_y, fmax_z = f[:, 3], f[:, 4], f[:, 5]
+    fgroup = f[:, 6]
+    factive = f[:, 7] >= 1.0
+
+    W = cell_capacity
+    pos_e = torch.arange(E_CAP, dtype=i32, device=dev)
+
+    def rolled(x, d):
+        return torch.roll(x, -d, 0)
+
+    ok_cols = []
+    for d in range(1, W + 1):
+        in_range = (pos_e + d) < E_CAP
+        same_cell = (skey == rolled(skey, d)) & (skey != BIGKEY) & in_range
+        r_min_x, r_min_y, r_min_z = rolled(fmin_x, d), rolled(fmin_y, d), rolled(fmin_z, d)
+        overlap = ((fmin_x <= rolled(fmax_x, d)) & (fmax_x >= r_min_x)
+                   & (fmin_y <= rolled(fmax_y, d)) & (fmax_y >= r_min_y)
+                   & (fmin_z <= rolled(fmax_z, d)) & (fmax_z >= r_min_z))
+        either_active = factive | rolled(factive, d)
+        rgroup = rolled(fgroup, d)
+        group_ok = (fgroup != rgroup) | (fgroup == 0.0)
+        home_here = cell_key(cell(torch.maximum(fmin_x, r_min_x)),
+                             cell(torch.maximum(fmin_y, r_min_y)),
+                             cell(torch.maximum(fmin_z, r_min_z))) == skey
+        ok_cols.append(same_cell & overlap & either_active & group_ok & home_here)
+    ok = torch.stack(ok_cols, 1)  # (E_CAP, W)
+    # A cell with more than W + 1 entries may hold pairs farther apart than the window.
+    overflow_window = ((skey == rolled(skey, W)) & (skey != BIGKEY) & ((pos_e + W) < E_CAP)).any()
+    pb_dense = torch.stack([rolled(sbody, d) for d in range(1, W + 1)], 1)
+    row_counts = ok.sum(1)
+
+    # Large bodies against everything (N × max_large), packed rows.
+    groupf = group.float()
+    me = torch.arange(n, device=dev)[:, None]
+    large_count = large.sum()
+    large_idx, _ = compact_true(large, max_large)
+    large_live = torch.arange(max_large, device=dev) < large_count
+    gl = feat[large_idx.long()]  # (max_large, 8)
+    lg_ok = (large_live[None, :]
+             & exists[:, None]
+             & (large_idx[None, :] != me)
+             & (active_dynamic[:, None] | (gl[None, :, 7] >= 1.0))
+             & ((groupf[:, None] != gl[None, :, 6]) | (group == 0)[:, None])
+             & (aabb_min.x[:, None] <= gl[None, :, 3]) & (aabb_max.x[:, None] >= gl[None, :, 0])
+             & (aabb_min.y[:, None] <= gl[None, :, 4]) & (aabb_max.y[:, None] >= gl[None, :, 1])
+             & (aabb_min.z[:, None] <= gl[None, :, 5]) & (aabb_max.z[:, None] >= gl[None, :, 2])
+             & (~large[:, None] | (me < large_idx[None, :])))  # large-large: i < j only
+    KL = min(max(pair_k, 8), max_large)
+    lidx_dense = large_idx[None, :].expand(n, max_large)
+    lbk = torch.topk(torch.where(lg_ok, lidx_dense, -1), KL, dim=1).values  # (N, KL)
+    valid_lk = lbk >= 0
+    lrow_counts = lg_ok.sum(1)
+    overflow_lk = (lrow_counts > KL).any()
+
+    # One compaction over both candidate sets (smalls first), one payload row gather.
+    count = row_counts.sum() + torch.clamp_max(lrow_counts, KL).sum()
+    pay_small = torch.stack([sbody[:, None].expand(E_CAP, W), pb_dense], -1).reshape(E_CAP * W, 2)
+    pay_large = torch.stack(
+        [torch.arange(n, dtype=i32, device=dev)[:, None].expand(n, KL), lbk.to(i32)], -1,
+    ).reshape(n * KL, 2)
+    payload = torch.cat([pay_small, pay_large])
+    flat_valid = torch.cat([ok.reshape(-1), valid_lk.reshape(-1)])
+    fi, _ = compact_true(flat_valid, max_pairs)
+    pr = payload[fi.long()]
+    pa, pb = pr[:, 0], pr[:, 1]
+    valid = torch.arange(max_pairs, device=dev) < count
+    overflow = ((count > max_pairs) | overflow_entries | overflow_window
+                | (large_count > max_large) | overflow_lk)
+    return PairList(
+        torch.minimum(pa, pb), torch.maximum(pa, pb), valid, overflow,
+        _demand(dev, pairs=row_counts.sum() + lrow_counts.sum(), entries=entry_count,
+                large=large_count,
+                max_row=torch.maximum(row_counts.max(), lrow_counts.max()),
+                window_hit=overflow_window, rowk_hit=overflow_lk),
     )

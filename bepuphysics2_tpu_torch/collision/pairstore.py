@@ -478,3 +478,100 @@ def store_claims(bodies, colors, valid, n_bodies: int, num_colors: int):
     for j in range(k):
         out = _add(out, torch.clamp_max(bodies[:, j], n_bodies), bit)
     return out
+
+
+def migrate(store: PairStore, new_capacity: int, n_bodies: int, new_page: int,
+            num_colors: int, kind=None) -> PairStore:
+    """Host-side store resize that keeps every live pair's color, features and
+    accumulated impulses (reference Simulation.EnsureCapacity moves its caches). Runs
+    between steps in numpy, as the JAX package's ``migrate`` does: live rows re-place into
+    fresh color-homogeneous pages in color order, the hash re-inserts them with the
+    device's bucket function, and the claim and valence tables rebuild from the carried
+    rows. Rows past the new capacity, or past a full hash bucket, drop; the broad phase
+    re-admits them. ``kind`` (host array) decides which endpoints claim colors: only
+    dynamic ones, as in ``update``. The result lies on the store's device."""
+    import numpy as np
+
+    assert new_capacity % new_page == 0
+    P = new_capacity // new_page
+    hb = max(8, _next_pow2(-(-new_capacity // 2)))
+    C = num_colors
+    host = lambda t: t.detach().cpu().numpy()
+
+    idx = np.nonzero(host(store.live))[0]
+    a = host(store.body_a)[idx]
+    b = host(store.body_b)[idx]
+    color = np.minimum(host(store.color)[idx], C)
+    feature = host(store.feature)[idx]
+    imp_pen = host(store.imp_pen)[idx]
+    imp_tx = host(store.imp_tx)[idx]
+    imp_ty = host(store.imp_ty)[idx]
+    imp_tw = host(store.imp_tw)[idx]
+    active_prev = host(store.active_prev)[idx]
+
+    # Place rows grouped by color into fresh pages.
+    slots = np.full(len(idx), -1, np.int64)
+    page_color = np.full(P, -1, np.int32)
+    kept = np.zeros(len(idx), bool)
+    next_slot = 0
+    for j in np.argsort(color, kind="stable"):
+        c = int(color[j])
+        if next_slot % new_page == 0:
+            if next_slot // new_page >= P:
+                break
+            page_color[next_slot // new_page] = c
+        elif page_color[next_slot // new_page] != c:  # color change mid-page: next page
+            next_slot = (next_slot // new_page + 1) * new_page
+            if next_slot // new_page >= P:
+                break
+            page_color[next_slot // new_page] = c
+        slots[j] = next_slot
+        kept[j] = True
+        next_slot += 1
+
+    bucket = _hash_bucket(torch.from_numpy(a), torch.from_numpy(b), hb).numpy()
+    body_a2 = np.zeros(new_capacity, np.int32)
+    body_b2 = np.zeros(new_capacity, np.int32)
+    live2 = np.zeros(new_capacity, bool)
+    ap2 = np.zeros(new_capacity, bool)
+    color2 = np.zeros(new_capacity, np.int32)
+    hpos2 = np.zeros(new_capacity, np.int32)
+    feature2 = np.full((new_capacity, 4), -1, np.int32)
+    pen2 = np.zeros((new_capacity, 4), np.float32)
+    tx2 = np.zeros(new_capacity, np.float32)
+    ty2 = np.zeros(new_capacity, np.float32)
+    tw2 = np.zeros(new_capacity, np.float32)
+    used2 = np.zeros(n_bodies + 1, np.int32)
+    jacv2 = np.zeros(n_bodies + 1, np.float32)
+    ht2 = np.full((hb * LANES, 3), -1, np.int32)
+    lane_fill = np.zeros(hb, np.int32)
+    kind_np = np.asarray(kind) if kind is not None else np.ones(n_bodies, np.int32)
+    for j in np.nonzero(kept)[0]:
+        s, bi = int(slots[j]), int(bucket[j])
+        ln = int(lane_fill[bi])
+        if ln >= LANES:  # hash bucket full in the new table: drop (re-admitted later)
+            continue
+        lane_fill[bi] = ln + 1
+        hp = bi * LANES + ln
+        body_a2[s], body_b2[s], live2[s], ap2[s] = a[j], b[j], True, active_prev[j]
+        color2[s], hpos2[s], feature2[s] = color[j], hp, feature[j]
+        pen2[s], tx2[s], ty2[s], tw2[s] = imp_pen[j], imp_tx[j], imp_ty[j], imp_tw[j]
+        ht2[hp] = (a[j], b[j], s)
+        c = int(color[j])
+        if c < C:
+            if kind_np[a[j]] == KIND_DYNAMIC:
+                used2[a[j]] |= 1 << c
+            if kind_np[b[j]] == KIND_DYNAMIC:
+                used2[b[j]] |= 1 << c
+        else:
+            jacv2[a[j]] += 1.0
+            jacv2[b[j]] += 1.0
+
+    dev = store.body_a.device
+    t = lambda x: torch.from_numpy(x).to(dev)
+    return PairStore(
+        body_a=t(body_a2), body_b=t(body_b2), live=t(live2), active_prev=t(ap2),
+        color=t(color2), hpos=t(hpos2), feature=t(feature2), imp_pen=t(pen2), imp_tx=t(tx2),
+        imp_ty=t(ty2), imp_tw=t(tw2), used=t(used2), jacv=t(jacv2), ht=t(ht2),
+        page_color=t(page_color),
+    )

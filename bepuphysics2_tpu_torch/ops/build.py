@@ -1,9 +1,9 @@
 """Build the port's CUDA kernels into plain-C shared libraries and load them with ctypes.
 
 ``nvcc`` compiles each ``csrc/*.cu`` file at first use into ``build/kernels/`` at the root
-of the checkout (listed in ``.gitignore``), keyed by a hash of the source and the flags,
-so a rebuilt or edited source never loads a stale library. Nothing but the repository's
-sources goes into the build.
+of the checkout (listed in ``.gitignore``), keyed by a hash of the source, of every
+``csrc/*.cuh`` header and of the flags, so an edited source or shared header never loads a
+stale library. Nothing but the repository's sources goes into the build.
 """
 from __future__ import annotations
 
@@ -34,30 +34,51 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+def source_key(name: str, csrc: Path = CSRC) -> str:
+    """Build key of ``<csrc>/<name>.cu``: a hash of that source, of every header in
+    ``csrc`` (name and bytes, in name order) and of the compiler flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def load_all(names):
+    """Build (where needed) and load ``csrc/<name>.cu`` for every name, one ``nvcc`` per
+    source, all started together. Returns {name: (ctypes.CDLL, build seconds)}; the
+    seconds are 0.0 for a library that was already built or loaded."""
+    procs, out = {}, {}
+    for name in names:
+        if name in _loaded or name in procs:
+            continue
+        key = source_key(name)
+        lib_path = BUILD_DIR / f"{name}-{key}.so"
+        if lib_path.exists():
+            out[name] = (lib_path, 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), lib_path, tmp, key, time.perf_counter())
+    for name, (proc, lib_path, tmp, key, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        (BUILD_DIR / f"{name}-{key}.log").write_text(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        os.replace(tmp, lib_path)
+        out[name] = (lib_path, seconds)
+    for name, (lib_path, seconds) in out.items():
+        _loaded[name] = ctypes.CDLL(str(lib_path))
+    return {name: (_loaded[name], out[name][1] if name in out else 0.0) for name in names}
+
+
 def load(name: str):
     """Build (if needed) and load ``csrc/<name>.cu``. Returns (ctypes.CDLL, build seconds;
     0.0 when the library was already built or loaded)."""
-    if name in _loaded:
-        return _loaded[name], 0.0
-    src = CSRC / f"{name}.cu"
-    text = src.read_bytes()
-    key = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{key}.so"
-    seconds = 0.0
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        (BUILD_DIR / f"{name}-{key}.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    _loaded[name] = lib
-    return lib, seconds
+    return load_all([name])[name]
 
 
 def build_log(name: str) -> str:

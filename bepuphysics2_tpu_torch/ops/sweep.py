@@ -1,12 +1,14 @@
-"""K1, the whole-solve contact kernel, and its packed row contract.
+"""K1 and K2, the whole-solve contact kernels, and their packed row contract.
 
-Counterpart of ``solve_substeps_contacts`` in ``bepuphysics2_tpu/ops/sweep.py``: the whole
-substepped contact solve (incremental depth update, pose/velocity/world-inertia block,
-warm start, velocity iterations) over slices taken in page-execution order. On a CUDA
-tensor the wrapper launches the hand-written kernel ``csrc/substeps_contacts.cu``; on a
-CPU tensor it runs the plain PyTorch version written below, which the kernel is held
-against. The TPU layout tricks of the JAX kernel (bf16x3 one-hot routing, the transposed
-body state, ``nch``) are not carried over: bodies are packed rows read by index.
+Counterparts of ``solve_substeps_contacts`` and ``solve_substeps_contacts_win`` in
+``bepuphysics2_tpu/ops/sweep.py``: the whole substepped contact solve (incremental depth
+update, pose/velocity/world-inertia block, warm start, velocity iterations) over slices
+taken in page-execution order (K1) or over the windowed Morton layout of
+``solver/windowing.py`` (K2). On a CUDA tensor each wrapper launches its hand-written
+kernel (``csrc/substeps_contacts.cu``, ``csrc/substeps_contacts_win.cu``); on a CPU
+tensor it runs the plain PyTorch version written below, which the kernel is held against.
+The TPU layout tricks of the JAX kernels (bf16x3 one-hot routing, the transposed body
+state, ``nch``) are not carried over: bodies are packed rows read by index.
 
 Jacobi pages (color C) carry a mass-splitting scale per row side: the side's inertia is
 multiplied by it at gather, and its velocity deltas are divided by it at scatter. Every
@@ -272,30 +274,26 @@ def _pose_vel_inertia_block(V, W, pos, orn, inv_mass, loc, gmask, imask, h, lin_
     return pos, orn
 
 
-def _solve_substeps_contacts_plain(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask,
-                                   integ_mask, ps_t, imp_t, idx2, scale, h, inv_h,
-                                   lin_scale, ang_scale, *, sb, n_substeps, n_iters,
-                                   angular_mode, gravity):
-    """Plain PyTorch K1: the grid's (substep, phase, slice) order as Python loops. Per
-    slice it gathers, computes every row, then applies ``index_add_`` of the deltas.
-    Slices without a valid row are skipped, as the kernel skips them: their rows move
-    no body and keep their impulses."""
-    B = ps_t.shape[1]
-    n_slices = B // sb
-    live = (ps_t[PS_VALID].reshape(n_slices, sb) > 0.5).any(dim=1).tolist()
-    live_slices = [sl for sl in range(n_slices) if live[sl]]
+def _vel_of(rows):
+    return BodyVel(Vec3(rows[:, 0], rows[:, 1], rows[:, 2]),
+                   Vec3(rows[:, 3], rows[:, 4], rows[:, 5]))
+
+
+def _walk_plain(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask, ps_t, imp,
+                dep, idx, sc, live, h, inv_h, lin_scale, ang_scale, *, sb, n_substeps,
+                n_iters, angular_mode, gravity):
+    """The grid's (substep, phase, slice) order as Python loops, shared by the plain K1
+    and K2. ``idx`` and ``sc`` are (n_slices, 2 * sb): each slice's body rows and
+    mass-split scales, A sides then B sides; ``live`` (n_slices,) marks the slices that
+    run (the others move no body and keep their impulses and depths). Per slice it
+    gathers, computes every row, then ``index_add_``s the deltas. ``imp`` (8, B) and
+    ``dep`` (4, B) are updated in place. Returns (v6', pos', orn')."""
     V = v6.clone()
     W = torch.zeros((v6.shape[0], 7), dtype=torch.float32, device=v6.device)
-    IMP = imp_t.clone()
-    idx = idx2.reshape(n_slices, 2 * sb).long()
-    sc = scale.reshape(n_slices, 2 * sb).float()
+    live_slices = [sl for sl, x in enumerate(live.tolist()) if x]
+    live_col = live.repeat_interleave(sb)
     ia_all = idx[:, :sb].reshape(-1)
     ib_all = idx[:, sb:].reshape(-1)
-    dep = ps_t[PS_DEPTH:PS_DEPTH + 4].clone()
-
-    def vel_of(rows):
-        return BodyVel(Vec3(rows[:, 0], rows[:, 1], rows[:, 2]),
-                       Vec3(rows[:, 3], rows[:, 4], rows[:, 5]))
 
     def slice_pass(sl, solve):
         cols = slice(sl * sb, (sl + 1) * sb)
@@ -306,21 +304,22 @@ def _solve_substeps_contacts_plain(v6, pos, orn, inv_mass, local_inv_inertia, gr
         ia_im, ia_ii = wa[:, 0], Sym3(*wa[:, 1:].unbind(-1))
         ib_im, ib_ii = wb[:, 0], Sym3(*wb[:, 1:].unbind(-1))
         ps = ps_t[:, cols]
-        imp = IMP[:, cols]
         if solve:
             new_imp, dva, dvb = _solve_contact_rows(
-                ps, dep[:, cols], imp, ia_im, ia_ii, ib_im, ib_ii,
-                vel_of(V[ia]), vel_of(V[ib]), inv_h)
-            IMP[:, cols] = torch.stack(new_imp)
+                ps, dep[:, cols], imp[:, cols], ia_im, ia_ii, ib_im, ib_ii,
+                _vel_of(V[ia]), _vel_of(V[ib]), inv_h)
+            imp[:, cols] = torch.stack(new_imp)
         else:
-            dva, dvb = _warm_start_rows(ps, dep[:, cols], imp, ia_im, ia_ii, ib_im, ib_ii)
+            dva, dvb = _warm_start_rows(ps, dep[:, cols], imp[:, cols], ia_im, ia_ii, ib_im,
+                                        ib_ii)
         d = torch.cat([torch.stack([*dva[0], *dva[1]], -1),
                        torch.stack([*dvb[0], *dvb[1]], -1)]) / sc[sl][:, None]
         V.index_add_(0, idx[sl], d)
 
     for s in range(n_substeps):
-        if s > 0:  # phase 0 reads velocities only: every slice at once
-            dep = _inc_depth_rows(ps_t, dep, vel_of(V[ia_all]), vel_of(V[ib_all]), h)
+        if s > 0:  # phase 0 reads velocities only: every live slice at once
+            new_dep = _inc_depth_rows(ps_t, dep, _vel_of(V[ia_all]), _vel_of(V[ib_all]), h)
+            dep.copy_(torch.where(live_col, new_dep, dep))
         pos, orn = _pose_vel_inertia_block(
             V, W, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask, h,
             lin_scale, ang_scale, gravity, angular_mode, s)
@@ -329,7 +328,25 @@ def _solve_substeps_contacts_plain(v6, pos, orn, inv_mass, local_inv_inertia, gr
         for _ in range(n_iters):
             for sl in live_slices:
                 slice_pass(sl, True)
-    return V, pos, orn, IMP
+    return V, pos, orn
+
+
+def _solve_substeps_contacts_plain(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask,
+                                   integ_mask, ps_t, imp_t, idx2, scale, h, inv_h,
+                                   lin_scale, ang_scale, *, sb, n_substeps, n_iters,
+                                   angular_mode, gravity):
+    """Plain PyTorch K1. Slices without a valid row are skipped, as the kernel skips
+    them: their rows move no body and keep their impulses."""
+    n_slices = ps_t.shape[1] // sb
+    live = (ps_t[PS_VALID].reshape(n_slices, sb) > 0.5).any(dim=1)
+    imp = imp_t.clone()
+    dep = ps_t[PS_DEPTH:PS_DEPTH + 4].clone()
+    V, pos, orn = _walk_plain(
+        v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask, ps_t, imp, dep,
+        idx2.reshape(n_slices, 2 * sb).long(), scale.reshape(n_slices, 2 * sb).float(), live,
+        h, inv_h, lin_scale, ang_scale, sb=sb, n_substeps=n_substeps, n_iters=n_iters,
+        angular_mode=angular_mode, gravity=gravity)
+    return V, pos, orn, imp
 
 
 def _check(name, t, shape, dtype, device):
@@ -341,6 +358,39 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
+
+
+def _check_bodies(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask):
+    nb, dev, f32 = v6.shape[0], v6.device, torch.float32
+    _check("v6", v6, (nb, 6), f32, dev)
+    for name, t in [("pos", pos), ("orn", orn), ("local_inv_inertia", local_inv_inertia)]:
+        for c in t:
+            _check(name, c, (nb,), f32, dev)
+    _check("inv_mass", inv_mass, (nb,), f32, dev)
+    _check("grav_mask", grav_mask, (nb,), torch.bool, dev)
+    _check("integ_mask", integ_mask, (nb,), torch.bool, dev)
+
+
+def _pack_bodies(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask):
+    """The kernels' packed body rows: bg (n, 16) velocity and world inertia, pose (n, 8),
+    aux (n, 8) inverse mass, local inverse inertia and mask code."""
+    bg = torch.zeros((v6.shape[0], 16), dtype=torch.float32, device=v6.device)
+    bg[:, :6] = v6
+    pose = torch.stack([*pos, *orn, torch.zeros_like(pos.x)], -1).contiguous()
+    mcode = grav_mask.float() + 2.0 * integ_mask.float()
+    aux = torch.stack([inv_mass, *lii, mcode], -1).contiguous()
+    return bg, pose, aux
+
+
+def _unpack_bodies(bg, pose):
+    col = lambda t, c: t[:, c].contiguous()
+    return (bg[:, :6].contiguous(), Vec3(col(pose, 0), col(pose, 1), col(pose, 2)),
+            Quat(col(pose, 3), col(pose, 4), col(pose, 5), col(pose, 6)))
+
+
+def _step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale):
+    return [angular_mode, float(gravity[0]), float(gravity[1]), float(gravity[2]), float(h),
+            float(inv_h), float(lin_scale), float(ang_scale)]
 
 
 def _launch_kernel(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask, ps_t, imp_t, idx2,
@@ -358,32 +408,23 @@ def _launch_kernel(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask, ps_t, imp
     B = ps_t.shape[1]
     n_slices = B // sb
     dev = v6.device
-    f32 = torch.float32
-    bg = torch.zeros((nb, 16), dtype=f32, device=dev)
-    bg[:, :6] = v6
-    pose = torch.stack([*pos, *orn, torch.zeros_like(pos.x)], -1).contiguous()
-    mcode = grav_mask.float() + 2.0 * integ_mask.float()
-    aux = torch.stack([inv_mass, *lii, mcode], -1).contiguous()
+    bg, pose, aux = _pack_bodies(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask)
     imp = imp_t.clone()
-    dep = torch.empty((4, B), dtype=f32, device=dev)
+    dep = torch.empty((4, B), dtype=torch.float32, device=dev)
     idx = idx2.to(torch.int32).contiguous()
-    sc = scale.to(f32).contiguous()
+    sc = scale.to(torch.float32).contiguous()
     order = torch.sort(idx.view(n_slices, 2 * sb), dim=1, stable=True).indices
     order = order.to(torch.int32).contiguous()
     slive = (ps_t[PS_VALID].view(n_slices, sb) > 0.5).any(dim=1).to(torch.int32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(bg.data_ptr(), pose.data_ptr(), aux.data_ptr(), ps_t.data_ptr(), imp.data_ptr(),
              dep.data_ptr(), idx.data_ptr(), sc.data_ptr(), order.data_ptr(), slive.data_ptr(),
-             nb, B, sb, n_substeps, n_iters, angular_mode,
-             float(gravity[0]), float(gravity[1]), float(gravity[2]),
-             float(h), float(inv_h), float(lin_scale), float(ang_scale), stream)
+             nb, B, sb, n_substeps, n_iters,
+             *_step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale), stream)
     if err != 0:
         raise RuntimeError(f"substeps_contacts kernel launch failed: CUDA error {err}")
     solve_substeps_contacts.launches += 1
-    col = lambda t, c: t[:, c].contiguous()
-    pos_n = Vec3(col(pose, 0), col(pose, 1), col(pose, 2))
-    orn_n = Quat(col(pose, 3), col(pose, 4), col(pose, 5), col(pose, 6))
-    return bg[:, :6].contiguous(), pos_n, orn_n, imp
+    return (*_unpack_bodies(bg, pose), imp)
 
 
 def solve_substeps_contacts(
@@ -415,13 +456,7 @@ def solve_substeps_contacts(
     if sb <= 0 or B % sb:
         raise ValueError(f"bank of {B} rows does not split into slices of {sb}")
     f32 = torch.float32
-    _check("v6", v6, (nb, 6), f32, dev)
-    for name, t in [("pos", pos), ("orn", orn), ("local_inv_inertia", local_inv_inertia)]:
-        for c in t:
-            _check(name, c, (nb,), f32, dev)
-    _check("inv_mass", inv_mass, (nb,), f32, dev)
-    _check("grav_mask", grav_mask, (nb,), torch.bool, dev)
-    _check("integ_mask", integ_mask, (nb,), torch.bool, dev)
+    _check_bodies(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask)
     _check("ps_t", ps_t, (PS_ROWS, B), f32, dev)
     _check("imp_t", imp_t, (IMP_ROWS, B), f32, dev)
     _check("idx2", idx2, (2 * B,), torch.int32, dev)
@@ -438,6 +473,126 @@ def solve_substeps_contacts(
 
 
 solve_substeps_contacts.launches = 0
+
+
+# --- K2: the windowed whole solve (above 8,192 bodies) -----------------------------------
+# Bodies sit in the Morton layout of ``solver/windowing.py``; each 256-row slice names its
+# bodies through four 1,024-body window segments.
+
+IMPD_ROWS = 16  # K2 per-row state: 8 impulse rows + 4 depth rows + 4 unused
+L = 8  # bodies per window column: a side's window-relative body is whi2 * L + wlo2
+WSEG = 4  # window segments per slice
+WSEG_COLS = 128  # window columns per segment (WSEG_COLS * L = 1,024 bodies)
+NWIN = WSEG * WSEG_COLS  # window columns per slice
+
+
+def window_positions(whi2, wlo2, wseg, sb: int):
+    """(n_slices, 2 * sb) int64 layout position of every row side of a K2 bank: the side's
+    window-relative body ``rel = whi2 * L + wlo2`` lies in segment ``rel >> 10`` at offset
+    ``rel & 1023``, and that segment starts at body ``wseg[slice, seg] * L``."""
+    n_slices = wseg.shape[0]
+    rel = (whi2.long() * L + wlo2.long()).reshape(n_slices, 2 * sb)
+    seg_start = wseg.long().clamp_min(0).gather(1, rel // (WSEG_COLS * L))
+    return seg_start * L + rel % (WSEG_COLS * L)
+
+
+def _solve_substeps_contacts_win_plain(v6p, pos_p, orn_p, inv_mass_p, local_inv_inertia_p,
+                                       grav_mask_p, integ_mask_p, ps_t, imp_t, whi2, wlo2,
+                                       scale, wseg, h, inv_h, lin_scale, ang_scale, *, sb,
+                                       n_substeps, n_iters, angular_mode, gravity):
+    """Plain PyTorch K2: K1's walk over the layout positions the windows name. Dead slices
+    (``wseg[:, 0] < 0``) are skipped; depths live in rows 8-11 of the state."""
+    n_slices = ps_t.shape[1] // sb
+    imp = imp_t.clone()
+    V, pos, orn = _walk_plain(
+        v6p, pos_p, orn_p, inv_mass_p, local_inv_inertia_p, grav_mask_p, integ_mask_p, ps_t,
+        imp[:IMP_ROWS], imp[IMP_ROWS:IMP_ROWS + 4], window_positions(whi2, wlo2, wseg, sb),
+        scale.reshape(n_slices, 2 * sb).float(), wseg[:, 0] >= 0, h, inv_h, lin_scale,
+        ang_scale, sb=sb, n_substeps=n_substeps, n_iters=n_iters, angular_mode=angular_mode,
+        gravity=gravity)
+    return V, pos, orn, imp
+
+
+def _launch_win_kernel(v6p, pos_p, orn_p, inv_mass_p, lii_p, grav_mask_p, integ_mask_p, ps_t,
+                       imp_t, whi2, wlo2, scale, wseg, h, inv_h, lin_scale, ang_scale, sb,
+                       n_substeps, n_iters, angular_mode, gravity):
+    from . import build
+
+    lib, _ = build.load("substeps_contacts_win")
+    fn = lib.substeps_contacts_win_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 7 + [
+        ctypes.c_void_p]
+
+    bg, pose, aux = _pack_bodies(v6p, pos_p, orn_p, inv_mass_p, lii_p, grav_mask_p,
+                                 integ_mask_p)
+    imp = imp_t.clone()
+    order = torch.sort(window_positions(whi2, wlo2, wseg, sb), dim=1, stable=True).indices
+    order = order.to(torch.int32).contiguous()
+    stream = torch.cuda.current_stream(v6p.device).cuda_stream
+    err = fn(bg.data_ptr(), pose.data_ptr(), aux.data_ptr(), ps_t.data_ptr(), imp.data_ptr(),
+             whi2.data_ptr(), wlo2.data_ptr(), scale.data_ptr(), wseg.data_ptr(),
+             order.data_ptr(), v6p.shape[0], ps_t.shape[1], sb, n_substeps, n_iters,
+             *_step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale), stream)
+    if err != 0:
+        raise RuntimeError(f"substeps_contacts_win kernel launch failed: CUDA error {err}")
+    solve_substeps_contacts_win.launches += 1
+    return (*_unpack_bodies(bg, pose), imp)
+
+
+def solve_substeps_contacts_win(
+    v6p,  # (NP, 6) velocities in the windowed layout
+    pos_p, orn_p,  # Vec3, Quat of (NP,)
+    inv_mass_p,  # (NP,)
+    local_inv_inertia_p,  # Sym3 of (NP,)
+    grav_mask_p,  # (NP,) bool
+    integ_mask_p,  # (NP,) bool
+    ps_t,  # (PS_ROWS, B) windowed execution order
+    imp_t,  # (IMPD_ROWS, B): rows 0-7 impulses, 8-11 initial depths
+    whi2,  # (n_slices * 2SB,) int32 window-relative column of each side (A sides, B sides)
+    wlo2,  # (n_slices * 2SB,) int32 lane
+    scale,  # (n_slices * 2SB,) mass-split scales
+    wseg,  # (n_slices, WSEG) int32 segment start columns; [:, 0] < 0 = dead slice
+    h, inv_h, lin_scale, ang_scale,
+    *,
+    sb: int,
+    n_substeps: int,
+    n_iters: int,
+    angular_mode: int,
+    gravity: tuple,
+):
+    """The windowed variant of ``solve_substeps_contacts``: the ENTIRE substepped contact
+    solve over the layout of ``solver/windowing.py``. Returns layout-order (v6', pos',
+    orn', impd_t'); the impulses are rows 0-7 of impd_t'. The windows must lie inside the
+    layout, as ``row_windows`` builds them.
+
+    CUDA tensors go through the CUDA kernel (one launch, counted in
+    ``solve_substeps_contacts_win.launches``); CPU tensors through the plain version."""
+    dev = v6p.device
+    B = ps_t.shape[1]
+    if sb <= 0 or B % sb:
+        raise ValueError(f"bank of {B} rows does not split into slices of {sb}")
+    f32 = torch.float32
+    _check_bodies(v6p, pos_p, orn_p, inv_mass_p, local_inv_inertia_p, grav_mask_p,
+                  integ_mask_p)
+    _check("ps_t", ps_t, (PS_ROWS, B), f32, dev)
+    _check("imp_t", imp_t, (IMPD_ROWS, B), f32, dev)
+    _check("whi2", whi2, (2 * B,), torch.int32, dev)
+    _check("wlo2", wlo2, (2 * B,), torch.int32, dev)
+    _check("scale", scale, (2 * B,), f32, dev)
+    _check("wseg", wseg, (B // sb, WSEG), torch.int32, dev)
+    args = (v6p, pos_p, orn_p, inv_mass_p, local_inv_inertia_p, grav_mask_p, integ_mask_p,
+            ps_t, imp_t, whi2, wlo2, scale, wseg, h, inv_h, lin_scale, ang_scale)
+    if dev.type == "cuda":
+        return _launch_win_kernel(*args, sb, n_substeps, n_iters, angular_mode, gravity)
+    if dev.type != "cpu":
+        raise ValueError(f"solve_substeps_contacts_win runs on cuda or cpu, not {dev.type}")
+    return _solve_substeps_contacts_win_plain(
+        *args, sb=sb, n_substeps=n_substeps, n_iters=n_iters, angular_mode=angular_mode,
+        gravity=gravity)
+
+
+solve_substeps_contacts_win.launches = 0
 
 
 def synthetic_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: int,
@@ -539,3 +694,139 @@ def bank_args(bank: dict, device):
             t(bank["inv_mass"]), Sym3(*cols(bank["local_inv_inertia"])),
             t(bank["grav_mask"]), t(bank["integ_mask"]), t(bank["ps_t"]), t(bank["imp_t"]),
             t(bank["idx2"]), t(bank["scale"]), bank["h"], bank["inv_h"], 1.0, 1.0)
+
+
+def synthetic_win_bank(nb: int, n_rows: int, num_colors: int, seed: int,
+                       dt: float = 1.0 / 60.0, substeps: int = 4, wide_frac: float = 0.0,
+                       wide_cap_rows: int = 0, fill: float = 0.9):
+    """A seeded K2 input with the structure the windowed solve hands it, as numpy arrays.
+    Body 0 is a static ground under a jittered cubic lattice of the other bodies, about 2%
+    of which are static and 5% asleep. Rows join lattice neighbours (along the axes and
+    the face diagonals) and the bottom layer to the ground, ``wide_frac`` of them instead
+    join random far bodies, and they fill at most ``fill`` of the ``n_rows`` slots,
+    scattered among invalid ones. Rows take the lowest color free
+    at both dynamic ends (the Jacobi color ``num_colors`` when none is). The bank then goes
+    through the port's own windowed layout (``solver.solve.win_pack``), so the result is
+    what K2 receives: its positional arguments in layout order, plus ``sb``,
+    ``n_substeps``, ``nb``, ``bp``, ``live_slices`` and ``wide_rows``."""
+    from ..bodies import KIND_DYNAMIC, KIND_STATIC
+    from ..solver.solve import SB_WIN, _round_up, win_pack
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    C = num_colors
+    n_lat = nb - 1
+    side = max(1, int(np.ceil(n_lat ** (1 / 3) - 1e-9)))
+    ijk = np.stack(np.unravel_index(np.arange(n_lat), (side, side, side)), -1)
+    pos = np.zeros((nb, 3))
+    pos[0] = (0.0, -0.5, 0.0)
+    pos[1:] = ijk - np.array([side / 2, -0.5, side / 2]) + rng.uniform(-0.05, 0.05, (n_lat, 3))
+    pos = pos.astype(f32)
+    kind = np.full(nb, KIND_DYNAMIC, np.int32)
+    kind[0] = KIND_STATIC
+    kind[1 + rng.choice(n_lat, max(1, n_lat // 50), replace=False)] = KIND_STATIC
+    dyn = kind == KIND_DYNAMIC
+
+    slot_of = np.full((side, side, side), -1, np.int64)
+    slot_of[ijk[:, 0], ijk[:, 1], ijk[:, 2]] = np.arange(1, nb)
+    pairs = []
+    steps = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (1, 1, 0), (1, -1, 0), (1, 0, 1), (1, 0, -1),
+             (0, 1, 1), (0, 1, -1)]
+    for step in np.array(steps):
+        nxt = ijk + step
+        ok = ((nxt >= 0) & (nxt < side)).all(1)
+        b = slot_of[nxt[ok, 0], nxt[ok, 1], nxt[ok, 2]]
+        a = np.arange(1, nb)[ok]
+        pairs.append(np.stack([a[b >= 0], b[b >= 0]], -1))
+    bottom = np.arange(1, nb)[ijk[:, 1] == 0]
+    pairs.append(np.stack([np.zeros_like(bottom), bottom], -1))
+    pairs = np.concatenate(pairs)
+    pairs = pairs[rng.permutation(len(pairs))]
+    n_valid = min(len(pairs), int(fill * n_rows))
+    pairs = pairs[:n_valid]
+    far = rng.uniform(size=n_valid) < wide_frac
+    dyn_slots = np.nonzero(dyn)[0]
+    pairs[far] = rng.choice(dyn_slots, (int(far.sum()), 2))
+    pairs = pairs[(pairs[:, 0] != pairs[:, 1]) & (dyn[pairs[:, 0]] | dyn[pairs[:, 1]])]
+    n_valid = len(pairs)
+
+    color = np.zeros(n_valid, np.int32)
+    used = np.zeros(nb, np.int64)
+    for r, (a, b) in enumerate(pairs):
+        taken = (used[a] if dyn[a] else 0) | (used[b] if dyn[b] else 0)
+        c = next((c for c in range(C) if not taken >> c & 1), C)
+        color[r] = c
+        if c < C:
+            used[a] |= dyn[a] << c
+            used[b] |= dyn[b] << c
+    slots = rng.choice(n_rows, n_valid, replace=False)
+    body_a = np.zeros(n_rows, np.int32)
+    body_b = np.zeros(n_rows, np.int32)
+    col = np.zeros(n_rows, np.int32)
+    valid = np.zeros(n_rows, bool)
+    body_a[slots], body_b[slots], col[slots], valid[slots] = pairs[:, 0], pairs[:, 1], color, True
+    jac = valid & (col == C)
+    jacv = (np.bincount(body_a[jac], minlength=nb + 1)
+            + np.bincount(body_b[jac], minlength=nb + 1)).astype(f32)
+
+    h = f32(dt) / f32(substeps)
+    w = f32(30.0 * 2 * np.pi)
+    extra = f32(1.0) / (w * h * (w * h + f32(2.0)))
+    cfm = f32(1.0) / (f32(1.0) + extra)
+    normal = rng.normal(size=(n_rows, 3)) + np.array([0.0, 3.0, 0.0])
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    mask = rng.uniform(size=(n_rows, 4)) < 0.7
+    mask[:, 0] = True
+    M = np.zeros((n_rows, PS_ROWS + IMP_ROWS), f32)
+    M[:, PS_N:PS_N + 3] = normal
+    M[:, PS_AX:PS_AX + 12] = rng.uniform(-0.5, 0.5, (n_rows, 12))
+    M[:, PS_B:PS_B + 3] = pos[body_b] - pos[body_a]
+    M[:, PS_DEPTH:PS_DEPTH + 4] = rng.uniform(-0.01, 0.01, (n_rows, 4))
+    M[:, PS_MASK:PS_MASK + 4] = mask
+    M[:, PS_FRICTION] = rng.uniform(0.5, 1.0, n_rows)
+    M[:, PS_ERRVEL] = w / (w * h + f32(2.0))
+    M[:, PS_CFM] = cfm
+    M[:, PS_SOFT] = extra * cfm
+    M[:, PS_MAXREC] = 2.0
+    M[:, PS_VALID] = valid
+    M[:, PS_ROWS:PS_ROWS + 4] = rng.uniform(0.0, 0.02, (n_rows, 4)) * mask
+    M[:, PS_ROWS + 4:PS_ROWS + 7] = rng.uniform(-0.02, 0.02, (n_rows, 3))
+    M[~valid] = 0.0
+
+    q = rng.normal(size=(nb, 4))
+    orn = (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(f32)
+    v6 = np.where(dyn[:, None], rng.uniform(-0.5, 0.5, (nb, 6)), 0.0).astype(f32)
+    inv_mass = np.where(dyn, rng.uniform(0.5, 2.0, nb), 0.0).astype(f32)
+    lii = np.zeros((nb, 6), f32)
+    lii[:, [0, 2, 5]] = rng.uniform(1.0, 4.0, (nb, 3))
+    lii[:, [1, 3, 4]] = rng.uniform(-0.2, 0.2, (nb, 3))
+    lii[~dyn] = 0.0
+    grav = dyn & (rng.uniform(size=nb) >= 0.05)
+
+    t = torch.from_numpy
+    wide_cap = max(SB_WIN, _round_up(wide_cap_rows or n_rows // 8, SB_WIN))
+    wp = win_pack(Vec3(*(t(pos[:, k].copy()) for k in range(3))), t(kind), t(body_a),
+                  t(body_b), t(valid), t(col), t(jacv), t(M), C, wide_cap)
+    pos_slot = wp["lay"]["pos_slot"].long()
+    perm = lambda x: np.concatenate([x, np.zeros((1,) + x.shape[1:], x.dtype)])[pos_slot]
+    return dict(
+        v6=perm(v6), pos=perm(pos), orn=perm(orn), inv_mass=perm(inv_mass),
+        local_inv_inertia=perm(lii), grav_mask=perm(grav), integ_mask=perm(grav),
+        ps_t=wp["ps_t"].numpy(), imp_t=wp["imp_t"].numpy(), whi2=wp["whi2"].numpy(),
+        wlo2=wp["wlo2"].numpy(), scale=wp["scale"].numpy(), wseg=wp["wseg"].numpy(),
+        h=float(h), inv_h=float(f32(substeps) / f32(dt)), sb=SB_WIN, n_substeps=substeps,
+        nb=nb, bp=wp["rw"]["bp"], live_slices=int((wp["wseg"][:, 0] >= 0).sum()),
+        wide_rows=int(wp["rw"]["wide"].sum()),
+    )
+
+
+def win_bank_args(bank: dict, device):
+    """``solve_substeps_contacts_win`` positional arguments (v6p … ang_scale) from a
+    ``synthetic_win_bank`` on ``device``."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    cols = lambda x: [t(x[:, j]) for j in range(x.shape[1])]
+    return (t(bank["v6"]), Vec3(*cols(bank["pos"])), Quat(*cols(bank["orn"])),
+            t(bank["inv_mass"]), Sym3(*cols(bank["local_inv_inertia"])),
+            t(bank["grav_mask"]), t(bank["integ_mask"]), t(bank["ps_t"]), t(bank["imp_t"]),
+            t(bank["whi2"]), t(bank["wlo2"]), t(bank["scale"]), t(bank["wseg"]),
+            bank["h"], bank["inv_h"], 1.0, 1.0)

@@ -3,13 +3,15 @@
 Counterpart of ``bepuphysics2_tpu/simulation.py`` (reference Simulation.cs:106 Create,
 Simulation.cs:316 Timestep). One step is, in order:
 
-    bounds → brute-force broad phase → pair store update → narrow phase (+ warm-start
-    carry) → wake → substepped TGS solve (kernel K1) → island sleep
+    bounds → broad phase (brute force, or grid2 above 8,192 bodies) → pair store update →
+    narrow phase (+ warm-start carry) → wake → substepped TGS solve (kernel K1, or the
+    windowed K2 above 8,192 bodies) → island sleep
 
 Topology mutation (add/remove bodies, statics, shapes) happens host-side between steps and
-marks the device state dirty; the next timestep pushes the merged state. The port carries
-the pair-store path for sphere and box scenes up to 8,192 bodies; a configuration or scene
-that needs anything else is refused with the ROADMAP item that brings it.
+marks the device state dirty; the next timestep pushes the merged state. ``reconfigure``
+and ``autosize`` resize capacities between steps, migrating the pair store. The port
+carries the pair-store path for sphere and box scenes; a configuration or scene that needs
+anything else is refused with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ from .utils.vec import Vec3
 class SimConfig:
     """Static configuration; the same fields as the JAX package's SimConfig, so configs
     carry across unchanged. Fields of paths the port does not have yet must keep their
-    defaults (see ``_check_supported``)."""
+    defaults (see ``_check_supported``). ``solver_backend="pallas_win"`` forces the
+    windowed solve (K2) at any size; every other value takes K1 up to 8,192 bodies."""
 
     body_capacity: int = 1024
     max_pairs: int = 4096
@@ -128,20 +131,22 @@ class StepDiagnostics(NamedTuple):
 DEMAND_LEN = 12
 
 
+def _broadphase_method(config: SimConfig) -> str:
+    if config.broadphase == "auto":
+        return "brute" if config.body_capacity <= 8192 else "grid2"
+    return config.broadphase
+
+
 def _check_supported(config: SimConfig, present_types) -> None:
     """Refuse, before stepping, a configuration that needs a path the port lacks."""
     if not config.use_pair_store:
         raise NotImplementedError("the legacy per-frame cache path is not ported")
-    method = config.broadphase
-    if method == "auto":
-        method = "brute" if config.body_capacity <= 8192 else "grid2"
-    if method != "brute":
+    if _broadphase_method(config) not in ("brute", "grid2"):
         raise NotImplementedError(
-            f"broad phase {method!r} is not ported yet (ROADMAP queue 1 item 12)")
+            f"broad phase {config.broadphase!r} is not ported (ROADMAP queue 1, "
+            "'Not to port'): use 'brute' or 'grid2'")
     if config.max_ccd_pairs > 0:
         raise NotImplementedError("CCD is not ported yet (ROADMAP queue 1 item 19)")
-    if config.solver_backend == "pallas_win":
-        raise NotImplementedError("the windowed solve (K2) is not ported yet (ROADMAP queue 2)")
     if present_types is not None and any(t > CONVEX_HULL for t in present_types):
         raise NotImplementedError("compounds and meshes are not ported yet (ROADMAP queue 1 item 18)")
 
@@ -166,8 +171,16 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
     aabb_max = aabb_max.where(has_shape, Vec3.full(has_shape.shape, -big, -big, -big, device=dev))
 
     # --- Broad phase.
-    pairs = bp.brute_force(aabb_min, aabb_max, bodies.kind, bodies.awake,
-                           bodies.collision_group, config.max_pairs)
+    if _broadphase_method(config) == "brute":
+        pairs = bp.brute_force(aabb_min, aabb_max, bodies.kind, bodies.awake,
+                               bodies.collision_group, config.max_pairs)
+    else:
+        pairs = bp.grid2(
+            aabb_min, aabb_max, bodies.kind, bodies.awake, bodies.collision_group,
+            config.max_pairs, config.grid_cell_size, config.grid_cell_capacity,
+            config.grid_max_large, config.grid_entry_factor, config.grid_cell_factor,
+            config.grid_pair_k,
+        )
 
     # --- Pair store + narrow phase. Only convex-capable pairs live in the store.
     def _shape_type(body):
@@ -271,6 +284,88 @@ class Simulation:
         self._next_collision_group += 1
         return g
 
+    def reconfigure(self, **overrides) -> None:
+        """Change the static configuration in place (reference Simulation.EnsureCapacity /
+        Resize, Simulation.cs:332-415). A change of the pair store's capacity or page
+        migrates the store host-side, keeping every live pair's record. ``body_capacity``
+        is not resizable: the store's per-body tables are sized by it."""
+        if "body_capacity" in overrides and overrides["body_capacity"] != self.config.body_capacity:
+            raise ValueError("body_capacity is not resizable (pair keys encode it)")
+        self._sync_from_device()
+        self.config = dataclasses.replace(self.config, **overrides)
+        cfg = self.config
+        if self._state is not None:
+            store = self._state.store
+            cap, page = cfg.store_layout()
+            if store.capacity != cap or store.page != page:
+                store = pairstore.migrate(store, cap, cfg.body_capacity, page, cfg.num_colors,
+                                          kind=self._host.kind)
+            self._state = self._state._replace(store=store)
+        self._dirty = True
+
+    def autosize(self, dt: float = 1.0 / 60.0, probe_steps: int = 16,
+                 headroom: float = 2.0, max_rounds: int = 3,
+                 pairs_headroom: float = None) -> dict:
+        """Demand-driven capacity derivation, as the JAX package's ``autosize`` does it
+        (the reference sizes every structure from live counts,
+        SimulationAllocationSizes.cs): probe-run the scene, read the peak demand counters
+        (``StepDiagnostics.demand``) to the host, reconfigure capacities to demand ×
+        ``headroom``, and repeat while an overflow bit is still set. After a change of
+        ``max_pairs`` the next round first runs ``probe_steps`` to let the migrated store
+        refill before it measures. Returns {"demand", "overflow", "rounds"}."""
+        d = None
+        rounds = 0
+        resized_store = False
+        for rounds in range(1, max_rounds + 1):
+            if resized_store:
+                self.run(probe_steps, dt, chunk=probe_steps)
+                resized_store = False
+            self.run(probe_steps, dt, chunk=probe_steps)
+            diag = self.last_diag
+            d = diag.demand.cpu().numpy()
+            n = self.config.body_capacity
+
+            def up(x, mult=256, floor=512):
+                want = int(int(x) * headroom)
+                return max(floor, ((want + mult - 1) // mult) * mult)
+
+            new = {}
+            # The pair world (broad-phase candidates and store slots share max_pairs),
+            # with slack for one partial color-homogeneous page per color.
+            ph = pairs_headroom if pairs_headroom is not None else headroom
+            pg = 512 if max(d[D_PAIRS], d[D_LIVE]) * ph >= 8192 else 128
+            frag = (self.config.num_colors + 1) * pg
+            want_pairs = max(1024, ((int(max(d[D_PAIRS], d[D_LIVE]) * ph) + frag + 511)
+                                    // 512) * 512)
+            if want_pairs != self.config.max_pairs:
+                new["max_pairs"] = want_pairs
+            # Store churn caps, bounded by a quarter of the pair world.
+            bank = new.get("max_pairs", self.config.max_pairs)
+            new["store_churn"] = min(up(d[D_ADMIT], 128, 256), max(256, bank // 4))
+            new["store_dead"] = min(up(d[D_DEAD], 128, 256), max(256, bank // 4))
+            new["store_repair"] = min(up(d[D_JACOBI], 64, 128), max(128, bank // 8))
+            # Windowed wide rows (Morton-seam crossings).
+            new["wide_cap_rows"] = up(d[D_WIDE], 256, 256)
+            # Grid structures (only when the grid broad phase ran).
+            if d[D_ENTRIES] > 0:
+                new["grid_entry_factor"] = max(2, -(-int(d[D_ENTRIES] * headroom) // max(n, 1)))
+            if d[D_LARGE] > 0:
+                new["grid_max_large"] = up(d[D_LARGE], 64, 64)
+            # Caps without a cheap exact count grow geometrically on their flags.
+            if d[D_WINHIT]:
+                new["grid_cell_capacity"] = 2 * self.config.grid_cell_capacity
+            if d[D_ROWKHIT]:
+                new["grid_pair_k"] = min(
+                    2 * self.config.grid_pair_k,
+                    new.get("grid_cell_capacity", self.config.grid_cell_capacity))
+            changed = {k: v for k, v in new.items() if v != getattr(self.config, k)}
+            if changed:
+                self.reconfigure(**changed)
+                resized_store = "max_pairs" in changed
+            if not bool(diag.overflow) or not changed:
+                break
+        return {"demand": d, "overflow": bool(self.last_diag.overflow), "rounds": rounds}
+
     # --- shape / body management -------------------------------------------------------
     def add_shape(self, shape) -> int:
         return self.shapes.add(shape)
@@ -371,8 +466,6 @@ class Simulation:
 # The rest of the JAX Simulation's methods, refused by name until their ROADMAP item
 # lands, so that a script written for the JAX package fails with the reason.
 _NOT_PORTED = {
-    "reconfigure": "queue 1 item 11 (capacity management)",
-    "autosize": "queue 1 item 11 (capacity management)",
     "set_pose": "queue 1 item 11 (host-side setters)",
     "set_velocity": "queue 1 item 11 (host-side setters)",
     "set_local_inertia": "queue 1 item 11 (host-side setters)",

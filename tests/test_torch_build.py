@@ -1,0 +1,51 @@
+"""The port's kernel build key (``ops/build.py``), on the CPU: no ``nvcc`` is needed to
+compute it. A library is keyed by its source, every shared header and the flags, so an
+edit to a header the kernels include rebuilds them instead of loading a stale library."""
+import re
+import shutil
+
+import pytest
+
+from bepuphysics2_tpu_torch.ops import build
+
+KERNELS = ("substeps_contacts", "substeps_contacts_win")
+
+
+@pytest.fixture
+def csrc_copy(tmp_path):
+    dst = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, dst)
+    return dst
+
+
+def test_key_is_stable_and_distinct(csrc_copy):
+    keys = {name: build.source_key(name) for name in KERNELS}
+    assert len(set(keys.values())) == len(KERNELS)
+    for name in KERNELS:
+        assert build.source_key(name, csrc_copy) == keys[name]  # content, not location
+
+
+def test_header_edit_changes_every_key(csrc_copy):
+    before = {name: build.source_key(name, csrc_copy) for name in KERNELS}
+    header = csrc_copy / "contact_rows.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name in KERNELS:
+        assert build.source_key(name, csrc_copy) != before[name], name
+
+
+def test_source_edit_changes_only_its_key(csrc_copy):
+    before = {name: build.source_key(name, csrc_copy) for name in KERNELS}
+    src = csrc_copy / "substeps_contacts_win.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert build.source_key("substeps_contacts_win", csrc_copy) != before["substeps_contacts_win"]
+    assert build.source_key("substeps_contacts", csrc_copy) == before["substeps_contacts"]
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_kernel_includes_resolve_inside_csrc(name):
+    """Every quoted include of a kernel is a header in ``csrc`` (so it is in the key)."""
+    text = (build.CSRC / f"{name}.cu").read_text()
+    includes = re.findall(r'#include "([^"]+)"', text)
+    assert "contact_rows.cuh" in includes
+    for inc in includes:
+        assert (build.CSRC / inc).is_file(), inc

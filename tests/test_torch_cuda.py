@@ -1,5 +1,5 @@
-"""The port on a CUDA card: kernel K1 against its plain PyTorch version, and whole steps
-on the card against the CPU. Every test needs the card and skips without one; this file
+"""The port on a CUDA card: kernels K1 and K2 against their plain PyTorch versions, and
+whole steps on the card (the K1 path and the windowed K2 path) against the CPU. Every test needs the card and skips without one; this file
 imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -49,9 +49,32 @@ def test_kernel_matches_plain_on_card(cuda_device, angular_mode):
         np.testing.assert_array_equal(g, a)  # deterministic run to run
 
 
-def _pile(device):
+@pytest.mark.parametrize("angular_mode", [0, 1, 2])
+def test_k2_matches_plain_on_card(cuda_device, angular_mode):
+    """K2 on a windowed bank with narrow, wide, Jacobi and padding rows (2,600 bodies,
+    three Morton blocks): 1e-4 absolute, as K1; bit-identical run to run."""
+    bank = sweep.synthetic_win_bank(2600, 4096, 4, seed=9, substeps=SUBSTEPS, wide_frac=0.05)
+    assert bank["wide_rows"] > 0
+    kw = dict(sb=bank["sb"], n_substeps=SUBSTEPS, n_iters=ITERS, angular_mode=angular_mode,
+              gravity=GRAVITY)
+    before = sweep.solve_substeps_contacts_win.launches
+    got = _outputs(sweep.solve_substeps_contacts_win(
+        *sweep.win_bank_args(bank, cuda_device), **kw))
+    assert sweep.solve_substeps_contacts_win.launches == before + 1
+    want = _outputs(sweep._solve_substeps_contacts_win_plain(
+        *sweep.win_bank_args(bank, cuda_device), **kw))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+    again = _outputs(sweep.solve_substeps_contacts_win(
+        *sweep.win_bank_args(bank, cuda_device), **kw))
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g, a)
+
+
+def _pile(device, **cfg):
     sim = tbp.Simulation(tbp.SimConfig(body_capacity=64, max_pairs=256, substeps=2,
-                                       num_colors=4, velocity_iterations=2), device=device)
+                                       num_colors=4, velocity_iterations=2, **cfg),
+                         device=device)
     ground = sim.add_shape(tbp.Box(20.0, 0.5, 20.0))
     sim.add_static(tbp.StaticDescription(position=(0, -0.5, 0), shape=ground))
     s, b = tbp.Sphere(0.5), tbp.Box(0.4, 0.4, 0.4)
@@ -85,3 +108,23 @@ def test_pile_on_card_matches_cpu_and_repeats(cuda_device):
     np.testing.assert_array_equal(card, card2)
     diff = np.abs(card - cpu)
     assert diff.max() < 5e-3 and np.median(diff) < 1e-4
+
+
+def test_windowed_pile_on_card_matches_cpu_and_repeats(cuda_device):
+    """The windowed path (grid2, K2) for 20 frames on the card and on the CPU, within the
+    JAX package's envelope for its windowed kernel (2e-2 max, 1e-3 median); K2 launches
+    once per step and K1 not at all; two card runs are bit-identical."""
+    runs = []
+    for dev in (cuda_device, cuda_device, "cpu"):
+        sim = _pile(dev, solver_backend="pallas_win", broadphase="grid2")
+        k1, k2 = sweep.solve_substeps_contacts.launches, sweep.solve_substeps_contacts_win.launches
+        sim.run(20, DT)
+        if dev != "cpu":
+            assert sweep.solve_substeps_contacts_win.launches == k2 + 20
+            assert sweep.solve_substeps_contacts.launches == k1
+        runs.append((_positions(sim), sim.state_hash()))
+    (card, h1), (card2, h2), (cpu, _) = runs
+    assert h1 == h2
+    np.testing.assert_array_equal(card, card2)
+    diff = np.abs(card - cpu)
+    assert diff.max() < 2e-2 and np.median(diff) < 1e-3

@@ -7,6 +7,7 @@ slice order is the page-execution order that the port's K1 walks, so one solve a
 1e-5; over 20 frames f32 reordering grows chaotically in a stacked pile, and both are held
 to the envelope the JAX package holds its own XLA and kernel paths to (5e-3 max, 1e-4
 median, ``tests/test_pallas_sweep.py``)."""
+import dataclasses
 import pkgutil
 import subprocess
 import sys
@@ -208,6 +209,39 @@ def test_each_stage_of_one_step_matches_jax(jax_pile, frame):
 
 
 @pytest.mark.parametrize("frame", FRAMES)
+def test_one_windowed_solve_matches_jax(jax_pile, frame):
+    """The windowed branch (K2's plain version) from a carried state, against the JAX
+    package's windowed branch with its kernel in interpret mode: the same layout, slice
+    order and row math, so one solve agrees to 1e-5."""
+    from bepuphysics2_tpu.solver import solve as jsolve
+
+    jcfg, present = jax_pile["config"], jax_pile["present"]
+    cfg = _port_config(jcfg)
+    before, _ = jax_pile[frame]
+    jstate = jax.tree_util.tree_map(jnp.asarray, before)
+    jshapes = jax.tree_util.tree_map(jnp.asarray, jax_pile["shapes"])
+    js = jax.jit(_jax_stages, static_argnums=(2, 3))(jstate, jshapes, jcfg, present)
+    jbank = dict(store=js["store"], ps=js["ps"], imp=js["imp"], active=js["active"])
+    jscfg = dataclasses.replace(jcfg.solve_config(), backend="pallas_win")
+    want_b, want_imp, _, want_ovf, _, _, want_d = jsolve._solve_store_fast(
+        js["bodies"], jbank, jcfg.integrator, jscfg, jnp.float32(DT), True, use_win=True)
+
+    got = _port_stages(state_from_numpy(before, "cpu"), shapes_from_numpy(jax_pile["shapes"], "cpu"),
+                       cfg, present)
+    bodies, imps, _, ovf, _, _, demand = solve_all(
+        got["bodies"], [], {}, cfg.integrator,
+        dataclasses.replace(cfg.solve_config(), backend="pallas_win"), float(np.float32(DT)),
+        store_bank=dict(store=got["store"], ps=got["ps"], imp=got["imp"], active=got["active"]))
+    for f in ("pos", "orn", "vel", "omega"):
+        _check(getattr(bodies, f), _np(getattr(want_b, f)), 1e-5)
+    _check(imps[0], _np(want_imp[0]), 1e-5)
+    assert bool(ovf) == bool(want_ovf)
+    np.testing.assert_array_equal(demand.numpy(), np.asarray(want_d))
+    moved = np.abs(np.stack(_np(want_b.pos)) - np.stack(before.bodies.pos)).max()
+    assert moved > 1e-5
+
+
+@pytest.mark.parametrize("frame", FRAMES)
 def test_port_step_matches_jax_step(jax_pile, frame):
     cfg = _port_config(jax_pile["config"])
     before, want = jax_pile[frame]
@@ -266,8 +300,8 @@ def _tiny(**cfg):
 
 @pytest.mark.parametrize("case,item", [
     ("capsule", "item 17"), ("compound", "item 18"), ("jax_shape", "item 17"),
-    ("grid_broadphase", "item 12"), ("ccd", "item 19"), ("joint", "items 15-16"),
-    ("autosize", "item 11"), ("ray_cast", "item 20"),
+    ("sweep_broadphase", "Not to port"), ("ccd", "item 19"), ("joint", "items 15-16"),
+    ("set_pose", "item 11"), ("ray_cast", "item 20"),
 ])
 def test_unported_paths_are_refused_by_name(case, item):
     """A scene or call the port cannot carry raises, naming the ROADMAP item; it is never
@@ -279,13 +313,124 @@ def test_unported_paths_are_refused_by_name(case, item):
             _tiny().add_shape(tbp.Compound.build([(0, (0.0, 0.0, 0.0))]))
         elif case == "jax_shape":
             _tiny().add_shape(jbp.Cylinder(0.5, 1.0))
-        elif case == "grid_broadphase":
-            _tiny(broadphase="grid2").timestep(DT)
+        elif case == "sweep_broadphase":
+            _tiny(broadphase="sweep").timestep(DT)
         elif case == "ccd":
             _tiny(max_ccd_pairs=8).timestep(DT)
         elif case == "joint":
             _tiny().add_constraint("ball_socket", [0, 1])
-        elif case == "autosize":
-            _tiny().autosize()
+        elif case == "set_pose":
+            _tiny().set_pose(0, (0, 2, 0))
         else:
             _tiny().ray_cast((0, 5, 0), (0, -1, 0))
+
+
+# --- slice 2: grid2, the windowed solve, migrate, reconfigure, autosize ------------------
+
+@pytest.fixture(scope="module")
+def windowed_runs():
+    """The pile through the port with the windowed path forced (K2's plain version), with
+    the brute-force broad phase for 20 frames and with grid2 for 3 and 20 frames, and the
+    K1 path with grid2 for 3 frames."""
+    def sim(**kw):
+        out = _pile(tbp)
+        out.config = dataclasses.replace(out.config, **kw)
+        return out
+
+    win, win_grid, k1_grid = (sim(solver_backend="pallas_win"),
+                              sim(solver_backend="pallas_win", broadphase="grid2"),
+                              sim(broadphase="grid2"))
+    win.run(20, DT)
+    win_grid.run(3, DT)
+    k1_grid.run(3, DT)
+    out = dict(win20=_positions(win), win_grid3=_positions(win_grid), k1_grid3=_positions(k1_grid))
+    win_grid.run(17, DT)
+    out.update(win_grid20=_positions(win_grid), diag=win_grid.last_diag)
+    return out
+
+
+def test_windowed_path_over_twenty_frames(windowed_runs, port_p20):
+    """The windowed path against the K1 path. K2 regroups rows by (color, Morton block),
+    so the Gauss-Seidel order differs: with the same broad phase the two are held to the
+    JAX package's envelope for its own windowed kernel against its XLA path
+    (``tests/test_pallas_sweep.py``: 2e-3 after 3 frames; 2e-2 max, 1e-3 median after
+    20). grid2 lists the same pairs as brute force in another order, so the store gives
+    them other slots and colors; in this pile (bodies overlap at the start) that alone
+    moves a box by ~0.14 after 20 frames, in the JAX package as in the port, so the
+    grid2 run is held to the K1 path with grid2 over 3 frames, and to physical bounds
+    over 20."""
+    diff = np.abs(windowed_runs["win20"] - port_p20[0])
+    assert diff.max() < 2e-2, diff.max()
+    assert np.median(diff) < 1e-3
+    diff3 = np.abs(windowed_runs["win_grid3"] - windowed_runs["k1_grid3"])
+    assert diff3.max() < 2e-3, diff3.max()
+    pw = windowed_runs["win_grid20"]
+    assert np.isfinite(pw).all() and (pw[1][1:25] > -0.2).all()
+    d = windowed_runs["diag"]
+    assert not bool(d.overflow) and int(d.demand[tsim.D_ENTRIES]) > 0  # grid2 ran
+
+
+@pytest.mark.parametrize("new_cap,new_page", [(128, 16), (32, 8), (64, 8)])
+def test_migrate_matches_jax(new_cap, new_page):
+    """``pairstore.migrate`` against the JAX package's, exactly, on the store of
+    ``tests/test_pairstore.py``'s migrate case: grow, shrink and page change."""
+    import test_pairstore as tp
+    from bepuphysics2_tpu_torch.interop import _to_torch
+
+    store = jstore.PairStore.empty(64, tp.NB, 8)
+    ca = jnp.arange(0, 24, 2, dtype=jnp.int32)
+    store, _, _, _ = tp._update(store, (ca, ca + 1), churn=16)
+    rng = np.random.default_rng(4)
+    live = np.asarray(store.live)
+    pen = np.where(live[:, None], rng.uniform(0, 1, (64, 4)), 0).astype(np.float32)
+    feat = np.where(live[:, None], rng.integers(0, 90, (64, 4)), -1).astype(np.int32)
+    store = store._replace(imp_pen=jnp.asarray(pen), feature=jnp.asarray(feat),
+                           imp_tx=jnp.asarray(pen[:, 1]), active_prev=store.live)
+    kind = np.ones(tp.NB, np.int32)
+    kind[::5] = 3  # static endpoints claim no color
+    want = jstore.migrate(store, new_cap, tp.NB, new_page, tp.C, kind=kind)
+    got = pairstore.migrate(_to_torch(_np(store), "cpu"), new_cap, tp.NB, new_page, tp.C,
+                            kind=kind)
+    assert int(np.asarray(want.live).sum()) >= min(12, new_cap // 2)
+    for f in want._fields:
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)),
+                                      err_msg=f)
+
+
+def _pair_records(store):
+    live = np.nonzero(store.live.numpy())[0]
+    return {(int(store.body_a[i]), int(store.body_b[i])): (
+        tuple(store.imp_pen[i].tolist()), float(store.imp_tx[i]), float(store.imp_ty[i]),
+        float(store.imp_tw[i]), tuple(store.feature[i].tolist()), int(store.color[i]))
+        for i in live}
+
+
+def test_reconfigure_migrates_the_store_and_keeps_body_capacity():
+    sim = _pile(tbp)
+    sim.run(12, DT)
+    before = _pair_records(sim.state.store)
+    assert len(before) > 20 and any(r[0][0] > 0 for r in before.values())
+    sim.reconfigure(max_pairs=512, num_colors=4)
+    store = sim.state.store
+    assert store.capacity == 512 and store.page == 32
+    assert _pair_records(store) == before  # every live pair's impulses, features, color
+    with pytest.raises(ValueError, match="body_capacity"):
+        sim.reconfigure(body_capacity=128)
+    sim.run(2, DT)
+    assert not bool(sim.last_diag.overflow)
+
+
+def test_autosize_clears_overflow():
+    """The pile on a pair world too small for it overflows; autosize reads the demand,
+    grows max_pairs (migrating the store) and the overflow clears."""
+    sim = _pile(tbp)
+    sim.config = dataclasses.replace(sim.config, max_pairs=32)
+    sim.run(10, DT)
+    assert bool(sim.last_diag.overflow)
+    out = sim.autosize(DT, probe_steps=4)
+    assert not out["overflow"] and not bool(sim.last_diag.overflow)
+    assert sim.config.max_pairs >= int(out["demand"][tsim.D_LIVE])
+    assert sim.state.store.capacity == sim.config.store_layout()[0]
+    assert sim.config.wide_cap_rows == 256 and out["rounds"] >= 1
+    live = _pair_records(sim.state.store)
+    assert len(live) > 40 and any(r[0][0] > 0 for r in live.values())

@@ -1,41 +1,116 @@
-"""Narrow phase: type-pair dispatch → manifolds → contact prestep records with row-local
-warm-start carry from the pair store.
+"""Narrow phase: type-pair dispatch → manifolds → contact prestep records, with
+row-local warm-start carry from the pair store and keyed carry for compound children.
 
-Counterpart of ``run_convex_testers``, ``convex_pair_records`` and ``narrow_phase_store``
-in ``bepuphysics2_tpu/collision/narrowphase.py`` for sphere and box shapes. The port has
-no CCD, no compound or mesh path, no generic GJK/MPR fallback and no legacy per-frame
-cache path yet (ROADMAP queue 1 items 17-19); a scene that would need them is refused
-before it is stepped.
+Counterpart of ``run_convex_testers``, ``convex_pair_records``, ``narrow_phase_store``,
+``PairCache``, ``narrow_phase_compound``, ``update_cache_keyed`` and ``retain_sleeping``
+in ``bepuphysics2_tpu/collision/narrowphase.py``, for sphere, capsule and box shapes and
+compounds of them. The port has no CCD, no mesh or compound-vs-compound path, no generic
+GJK/MPR fallback and no legacy per-frame cache path yet (ROADMAP queue 1 items 17-19); a
+scene that would need them is refused before it is stepped. The JAX package's runtime
+``lax.cond`` skips become unconditional passes whose result is selected by the same
+predicate, so nothing waits for the device.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..bodies import BodyState
+from ..bodies import BodyState, KIND_DYNAMIC
 from ..constraints.contact import ContactImpulses, ContactPrestep
-from ..shapes.registry import BOX, SPHERE, ShapeData
+from ..shapes.registry import BOX, CAPSULE, SPHERE, TRIANGLE, ShapeData
+from ..utils.packing import compact_true, gather_rows
 from ..utils.spring import SpringSettings
 from ..utils.vec import Quat, Vec2, Vec3
 from . import testers
+from .compound import expand_compound_pairs
 from .manifold import Manifold
+
+_BIG = 2**31 - 1
+
+
+class PairCache(NamedTuple):
+    """Last frame's contact records for keyed warm starting (reference PairCache.cs:102)."""
+
+    key: torch.Tensor  # (MP,) int32 record key; dead rows +BIG (sort last)
+    feature: torch.Tensor  # (MP, 4) int32
+    penetration: torch.Tensor  # (MP, 4)
+    tangent: Vec2  # (MP,)
+    twist: torch.Tensor  # (MP,)
+    valid: torch.Tensor  # (MP,) bool
+    color: torch.Tensor  # (MP,) int32 solver color carried across frames; -1 = none
+    body_a: torch.Tensor  # (MP,) int32 (color-claim accounting in the pair store)
+    body_b: torch.Tensor  # (MP,) int32
+
+    @staticmethod
+    def empty(capacity: int, device=None) -> "PairCache":
+        f = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+        i = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+        return PairCache(
+            key=torch.full((capacity,), _BIG, dtype=torch.int32, device=device),
+            feature=i(capacity, 4), penetration=f(capacity, 4),
+            tangent=Vec2(f(capacity), f(capacity)), twist=f(capacity),
+            valid=torch.zeros(capacity, dtype=torch.bool, device=device),
+            color=torch.full((capacity,), -1, dtype=torch.int32, device=device),
+            body_a=i(capacity), body_b=i(capacity),
+        )
+
+    def resized(self, capacity: int) -> "PairCache":
+        """Grow (dead rows appended) or shrink (the lowest keys kept, so dead rows drop
+        first) the bank (reference Simulation.Resize, Simulation.cs:332-415)."""
+        cur = self.key.shape[0]
+        if capacity == cur:
+            return self
+        if capacity > cur:
+            pad = PairCache.empty(capacity - cur, device=self.key.device)
+            return _tree_map2(lambda a, b: torch.cat([a, b]), self, pad)
+        order = torch.sort(self.key, stable=True).indices[:capacity]
+        return gather_rows(self, order)
+
+
+def _tree_map2(fn, a, b):
+    if isinstance(a, torch.Tensor):
+        return fn(a, b)
+    return type(a)(*(_tree_map2(fn, x, y) for x, y in zip(a, b)))
+
+
+def pair_key(body_a, body_b, n_bodies: int):
+    """Pair identity for the warm-start caches: b-major (b = the larger slot)."""
+    return body_b * n_bodies + body_a
 
 
 def _sphere_sphere(pos_ab, orn_a, orn_b, pa, pb):
     return testers.sphere_sphere(pos_ab, pa, pb)
 
 
+def _sphere_capsule(pos_ab, orn_a, orn_b, pa, pb):
+    return testers.sphere_capsule(pos_ab, orn_b, pa, pb)
+
+
 def _sphere_box(pos_ab, orn_a, orn_b, pa, pb):
     return testers.sphere_box(pos_ab, orn_b, pa, pb)
+
+
+def _capsule_capsule(pos_ab, orn_a, orn_b, pa, pb):
+    return testers.capsule_capsule(pos_ab, orn_a, orn_b, pa, pb)
 
 
 def _box_box(pos_ab, orn_a, orn_b, pa, pb):
     return testers.box_box(pos_ab, orn_a, orn_b, pa, pb)
 
 
-# Registered convex type-pair testers (canonical order: type_a <= type_b).
+def _capsule_box(pos_ab, orn_a, orn_b, pa, pb):
+    return testers.capsule_box(pos_ab, orn_a, orn_b, pa, pb)
+
+
+# Registered convex type-pair testers (canonical order: type_a <= type_b). The triangle
+# families of the JAX registry are not ported (ROADMAP queue 1 item 17).
 TESTER_REGISTRY = [
     (SPHERE, SPHERE, _sphere_sphere),
+    (SPHERE, CAPSULE, _sphere_capsule),
     (SPHERE, BOX, _sphere_box),
+    (CAPSULE, CAPSULE, _capsule_capsule),
+    (CAPSULE, BOX, _capsule_box),
     (BOX, BOX, _box_box),
 ]
 
@@ -195,3 +270,210 @@ def narrow_phase_store(
         twist=torch.where(matched, store.imp_tw, 0.0),
     )
     return prestep, imp, t_eval
+
+
+def narrow_phase_compound(
+    state: BodyState,
+    shapes: ShapeData,
+    pairs,
+    cache: PairCache,
+    dt,
+    max_compound_pairs: int,
+    children_per_pair: int,
+    child_window: int,
+    present_types: tuple = None,
+    max_cc_pairs: int = 0,
+    cc_children_per_side: int = 4,
+    sleep_bank: PairCache = None,
+    pair_t=None,
+):
+    """Compound pair path: expand compound-vs-convex pairs into child convex records and
+    build a second contact bank (``collision/compound.py``). Cache keys combine the pair
+    key with the child slot. Returns (prestep, impulses, carried colors, keys, overflow).
+    ``max_cc_pairs > 0`` (compound-vs-compound expansion) is not ported."""
+    if max_cc_pairs > 0:
+        raise NotImplementedError(
+            "compound-vs-compound expansion (max_cc_pairs > 0) is not ported yet "
+            "(ROADMAP queue 1 item 18, expand_compound_compound)")
+    n_bodies = state.pos.x.shape[0]
+    cp = expand_compound_pairs(
+        state, shapes, pairs.a, pairs.b, pairs.valid, max_compound_pairs, children_per_pair,
+        child_window, flag_both_comp=True, pair_t=pair_t, dt=dt,
+    )
+    sub = cp.slot % children_per_pair
+    sub_cap = children_per_pair
+
+    manifold = run_convex_testers(
+        shapes, cp.type_i, cp.type_j, cp.params_i, cp.params_j, cp.pos_i, cp.pos_j,
+        cp.orn_i, cp.orn_j, cp.shape_i, cp.shape_j, cp.valid, present_types,
+        include_triangles=True,
+    )
+
+    # Rebase offsets from the i-side pose to scene body_a's center (advanced to the
+    # record's evaluation time); flip the normal when the i side is scene body_b.
+    a, b = cp.body_a.long(), cp.body_b.long()
+    rebase = cp.pos_i - (state.pos[a] + state.vel[a] * cp.t)
+    manifold = manifold._replace(
+        offset_a=Vec3(manifold.offset_a.x + rebase.x[:, None],
+                      manifold.offset_a.y + rebase.y[:, None],
+                      manifold.offset_a.z + rebase.z[:, None]),
+        normal=manifold.normal.where(~cp.swapped, -1.0 * manifold.normal),
+    )
+
+    # Mesh triangles are one-sided, with near-face normals snapped onto the face
+    # (reference MeshReduction.cs). Without meshes no record is a triangle, and this
+    # leaves every record as it is.
+    tri_i = (cp.type_i == TRIANGLE) & (cp.shape_i == -1)
+    tri_j = (cp.type_j == TRIANGLE) & (cp.shape_j == -1)
+    is_mesh_tri = tri_i | tri_j
+    params_t = torch.where(tri_i[:, None], cp.params_i, cp.params_j)
+    orn_t = cp.orn_i.where(tri_i, cp.orn_j)
+    va = Vec3(params_t[:, 0], params_t[:, 1], params_t[:, 2])
+    vb_ = Vec3(params_t[:, 3], params_t[:, 4], params_t[:, 5])
+    vc = Vec3(params_t[:, 6], params_t[:, 7], params_t[:, 8])
+    face_w = orn_t.rotate((vb_ - va).cross(vc - va).normalize())
+    toward_conv = manifold.normal.where(cp.conv_is_a, -1.0 * manifold.normal)
+    dotf = toward_conv.dot(face_w)
+    front = ~is_mesh_tri | (dotf > -0.01)
+    snap = is_mesh_tri & (dotf > 0.7) & (dotf < 0.99999)
+    snapped_toward = face_w.where(snap, toward_conv)
+    manifold = manifold._replace(
+        normal=snapped_toward.where(cp.conv_is_a, -1.0 * snapped_toward),
+        depth=torch.where(snap[:, None], manifold.depth * dotf[:, None], manifold.depth),
+    )
+
+    # CCD warp-back: depth(0) = depth(t) + n·(v_a − v_b)·t (t is 0 without CCD).
+    vn = manifold.normal.dot(state.vel[a] - state.vel[b])
+    manifold = manifold._replace(depth=manifold.depth + (vn * cp.t)[:, None])
+    rel_speed = (state.vel[a] - state.vel[b]).length()
+    pair_min = 0.5 * (state.spec_margin_min[a] + state.spec_margin_min[b])
+    pair_max = torch.minimum(state.spec_margin_max[a], state.spec_margin_max[b])
+    margin = torch.clamp(rel_speed * dt + pair_min, min=torch.zeros_like(pair_min),
+                         max=torch.maximum(pair_min, pair_max))
+    contact_ok = (cp.valid[:, None] & front[:, None] & manifold.contact_mask
+                  & (manifold.depth > -margin[:, None]))
+    record_valid = cp.valid & front & contact_ok.any(dim=-1)
+
+    prestep = ContactPrestep(
+        body_a=cp.body_a,
+        body_b=cp.body_b,
+        normal=manifold.normal,
+        offset_a=manifold.offset_a,
+        offset_b=state.pos[b] - state.pos[a],
+        depth=manifold.depth,
+        contact_mask=contact_ok,
+        valid=record_valid,
+        friction=torch.sqrt(state.friction[a] * state.friction[b]),
+        spring=SpringSettings.make(torch.minimum(state.spring_frequency[a], state.spring_frequency[b]),
+                                   torch.maximum(state.spring_damping[a], state.spring_damping[b])),
+        max_recovery_velocity=torch.minimum(state.max_recovery_velocity[a],
+                                            state.max_recovery_velocity[b]),
+        feature=manifold.feature,
+    )
+    # Composite key = pair_key · sub_cap + child slot (int32; NB² · sub_cap < 2³¹).
+    key = pair_key(cp.body_a, cp.body_b, n_bodies) * sub_cap + sub
+    imp, carried_color = _warm_start_from_cache_keyed(prestep, cache, key, sleep_bank=sleep_bank)
+    return prestep, imp, carried_color, key, cp.overflow
+
+
+def _warm_start_from_cache_keyed(prestep: ContactPrestep, cache: PairCache, key,
+                                 presorted: bool = False, sleep_bank: PairCache = None):
+    """Keyed cache carry: sorted-key lookup, then feature-id impulse redistribution
+    (reference NarrowPhaseConstraintUpdate, PairCache.cs:78). Pairs missing from the
+    active cache match against ``sleep_bank`` (reference PairCache_Activity); the JAX
+    package skips that join when the bank holds no row, and then it matches nothing, so
+    the port always runs it. Returns (impulses, carried colors)."""
+    if presorted:
+        sorted_keys, sort_idx = cache.key, None
+    else:
+        sorted_keys, sort_idx = torch.sort(cache.key, stable=True)
+    pos_c = torch.searchsorted(sorted_keys, key).clamp_max(sorted_keys.shape[0] - 1)
+    hit_slot = pos_c if sort_idx is None else sort_idx[pos_c]
+    hit = gather_rows(dict(feature=cache.feature, penetration=cache.penetration,
+                           tx=cache.tangent.x, ty=cache.tangent.y, twist=cache.twist,
+                           valid=cache.valid, color=cache.color), hit_slot)
+    matched = (sorted_keys[pos_c] == key) & prestep.valid & hit["valid"]
+
+    if sleep_bank is not None:
+        spos_c = torch.searchsorted(sleep_bank.key, key).clamp_max(sleep_bank.key.shape[0] - 1)
+        shit = gather_rows(dict(feature=sleep_bank.feature, penetration=sleep_bank.penetration,
+                                tx=sleep_bank.tangent.x, ty=sleep_bank.tangent.y,
+                                twist=sleep_bank.twist, valid=sleep_bank.valid), spos_c)
+        # Colors do not survive sleep: the slept pair's (body, color) slots may have been
+        # claimed meanwhile, so a woken record re-proposes (-1).
+        shit["color"] = torch.full_like(hit["color"], -1)
+        smatched = (sleep_bank.key[spos_c] == key) & prestep.valid & shit["valid"] & ~matched
+        hit = {k: torch.where(smatched.reshape((-1,) + (1,) * (v.dim() - 1)), shit[k], v)
+               for k, v in hit.items()}
+        matched = matched | smatched
+
+    eq = (prestep.feature[:, :, None] == hit["feature"][:, None, :]) & prestep.contact_mask[:, :, None]
+    pen = torch.where(eq, hit["penetration"][:, None, :], 0.0).sum(dim=-1)
+    pen = torch.where(matched[:, None], pen, 0.0)
+    tangent = Vec2(torch.where(matched, hit["tx"], 0.0), torch.where(matched, hit["ty"], 0.0))
+    twist = torch.where(matched, hit["twist"], 0.0)
+    return ContactImpulses(pen, tangent, twist), torch.where(matched, hit["color"], -1)
+
+
+def update_cache_keyed(prestep: ContactPrestep, imp: ContactImpulses, key, color) -> PairCache:
+    return PairCache(
+        key=torch.where(prestep.valid, key, _BIG).to(torch.int32),
+        feature=prestep.feature,
+        penetration=imp.penetration,
+        tangent=imp.tangent,
+        twist=imp.twist,
+        valid=prestep.valid,
+        color=color,
+        body_a=prestep.body_a,
+        body_b=prestep.body_b,
+    )
+
+
+def retain_sleeping(sleep_bank: PairCache, new_cache: PairCache, kind, awake, n_bodies: int,
+                    sub_cap: int = 1):
+    """End-of-step migration of contact records into and out of the sleep bank
+    (reference PairCache_Activity.cs): a bank row stays while its pair is frozen (no
+    awake dynamic endpoint) and was not re-absorbed into the active cache; active rows
+    whose pairs froze this step join it. The merged set compacts into the bank capacity
+    in ascending key order. Returns (bank, overflow)."""
+    S = sleep_bank.key.shape[0]
+    active_dyn = (kind == KIND_DYNAMIC) & awake
+
+    def frozen_of(key, live):
+        pk = torch.div(key, sub_cap, rounding_mode="floor")
+        a = torch.remainder(pk, n_bodies).clamp(0, n_bodies - 1).long()
+        b = torch.div(pk, n_bodies, rounding_mode="floor").clamp(0, n_bodies - 1).long()
+        exists = (kind[a] != 0) & (kind[b] != 0)
+        return live & exists & ~(active_dyn[a] | active_dyn[b])
+
+    sorted_new = torch.sort(torch.where(new_cache.valid, new_cache.key, _BIG)).values
+    pos = torch.searchsorted(sorted_new, sleep_bank.key).clamp_max(sorted_new.shape[0] - 1)
+    in_new = sorted_new[pos] == sleep_bank.key
+
+    frozen_bank = frozen_of(sleep_bank.key, sleep_bank.valid)
+    # Wake grace: the bank's color field counts unfrozen frames (colors never survive
+    # sleep); an unfrozen row not re-absorbed survives one frame.
+    grace = sleep_bank.valid & ~in_new & ~frozen_bank & (sleep_bank.color < 1)
+    keep = (frozen_bank & ~in_new) | grace
+    add = frozen_of(new_cache.key, new_cache.valid)
+
+    age_bank = torch.where(frozen_bank, -1, sleep_bank.color + 1).to(torch.int32)
+    merged = _tree_map2(lambda s, n: torch.cat([s, n]), sleep_bank._replace(color=age_bank),
+                        new_cache._replace(color=torch.full_like(new_cache.color, -1)))
+    sel, count = compact_true(torch.cat([keep, add]), S)
+    live_out = torch.arange(S, device=sel.device) < count
+    bank = gather_rows(merged, sel.long())
+    bank = bank._replace(key=torch.where(live_out, bank.key, _BIG).to(torch.int32),
+                         valid=live_out & bank.valid)
+    # compact_true selects in concatenation order; one sort restores ascending keys.
+    return gather_rows(bank, torch.sort(bank.key, stable=True).indices), count > S
+
+
+def retain_sleeping_when(pred, sleep_bank: PairCache, new_cache: PairCache, kind, awake,
+                         n_bodies: int, sub_cap: int = 1):
+    """``retain_sleeping`` where ``pred`` holds, the bank unchanged (and no overflow)
+    where it does not: the JAX package's ``lax.cond`` without a host sync."""
+    bank, ovf = retain_sleeping(sleep_bank, new_cache, kind, awake, n_bodies, sub_cap)
+    bank = _tree_map2(lambda new, old: torch.where(
+        pred.reshape((1,) * new.dim()), new, old), bank, sleep_bank)
+    return bank, pred & ovf

@@ -1,8 +1,9 @@
 """Vectorized convex pair testers — speculative contact manifold generation.
 
-Counterpart of ``sphere_sphere``, ``sphere_box`` and ``box_box`` in
-``bepuphysics2_tpu/collision/testers.py`` (reference CollisionTasks/SpherePairTester.cs,
-SphereBoxTester.cs, BoxPairTester.cs). Each tester processes every pair record at once and
+Counterpart of ``sphere_sphere``, ``sphere_capsule``, ``sphere_box``, ``capsule_capsule``,
+``capsule_box`` and ``box_box`` in ``bepuphysics2_tpu/collision/testers.py`` (reference
+CollisionTasks/SpherePairTester.cs, SphereCapsuleTester.cs, SphereBoxTester.cs,
+CapsulePairTester.cs, CapsuleBoxTester.cs, BoxPairTester.cs). Each tester processes every pair record at once and
 always produces a manifold (negative depth when separated); the caller masks records.
 
 Conventions: the normal points from B to A; contact offsets are world-space relative to
@@ -99,6 +100,271 @@ def sphere_box(pos_ab: Vec3, orn_b: Quat, params_a, params_b) -> Manifold:
     contact = normal * -(r - 0.5 * depth.clamp_min(0.0))
     contact = contact.where(depth < r, contact_world_rel_a)
     return _single_contact(contact, depth, normal)
+
+
+def _closest_on_segment(p: Vec3, half_length, axis: Vec3):
+    """t of the closest point on the segment {t·axis, |t| ≤ hl} to point p."""
+    t = p.dot(axis)
+    return torch.minimum(torch.maximum(t, -half_length), half_length)
+
+
+def _up(n, device):
+    return Vec3.full((n,), 0.0, 1.0, 0.0, device=device)
+
+
+def _cols2(n, c0, c1, fill, dtype, device):
+    """(n, 4) tensor of ``fill`` with columns 0 and 1 set to ``c0`` and ``c1``."""
+    out = torch.full((n, 4), fill, dtype=dtype, device=device)
+    out[:, 0] = c0
+    out[:, 1] = c1
+    return out
+
+
+def _two_contacts(p0: Vec3, p1: Vec3, depth0, depth1, normal: Vec3, second) -> Manifold:
+    n = depth0.shape[0]
+    dev = depth0.device
+    f32 = torch.float32
+    return Manifold(
+        normal=normal,
+        offset_a=Vec3(_cols2(n, p0.x, p1.x, 0.0, f32, dev), _cols2(n, p0.y, p1.y, 0.0, f32, dev),
+                      _cols2(n, p0.z, p1.z, 0.0, f32, dev)),
+        depth=_cols2(n, depth0, depth1, 0.0, f32, dev),
+        feature=_cols2(n, 0, 1, 0, torch.int32, dev),
+        contact_mask=_cols2(n, True, second, False, torch.bool, dev),
+    )
+
+
+def sphere_capsule(pos_ab: Vec3, orn_b: Quat, params_a, params_b) -> Manifold:
+    """Sphere A vs capsule B (reference: CollisionTasks/SphereCapsuleTester.cs)."""
+    ra = params_a[:, 0]
+    rb = params_b[:, 0]
+    hl = params_b[:, 1]
+    axis = orn_b.rotate(_up(ra.shape[0], ra.device))
+    t = _closest_on_segment(-pos_ab, hl, axis)
+    closest = pos_ab + axis * t  # from A's center to the closest segment point
+    d = closest.length()
+    inv_d = torch.where(d > _EPS, 1.0 / d.clamp_min(_EPS), 0.0)
+    dir_ab = (closest * inv_d).where(d > _EPS, _up(d.shape[0], d.device))
+    depth = ra + rb - d
+    normal = -dir_ab
+    contact = dir_ab * (ra - 0.5 * depth)
+    return _single_contact(contact, depth, normal)
+
+
+def capsule_capsule(pos_ab: Vec3, orn_a: Quat, orn_b: Quat, params_a, params_b) -> Manifold:
+    """Capsule-capsule via segment-segment closest points; a second contact when the
+    segments are near-parallel (reference: CollisionTasks/CapsulePairTester.cs:16)."""
+    ra, hla = params_a[:, 0], params_a[:, 1]
+    rb, hlb = params_b[:, 0], params_b[:, 1]
+    n = ra.shape[0]
+    dev = ra.device
+    clip = lambda x, lo, hi: torch.minimum(torch.maximum(x, lo), hi)
+    da = orn_a.rotate(_up(n, dev))
+    db = orn_b.rotate(_up(n, dev))
+    r = pos_ab
+    a_dot_b = da.dot(db)
+    da_r = da.dot(r)
+    db_r = db.dot(r)
+    denom = 1.0 - a_dot_b * a_dot_b
+    ta = torch.where(denom > 1e-7,
+                     clip((da_r - a_dot_b * db_r) / denom.clamp_min(1e-7), -hla, hla), 0.0)
+    tb = clip(db.dot(da * ta - r), -hlb, hlb)
+    ta = clip(da.dot(r + db * tb), -hla, hla)
+
+    pa = da * ta
+    pb = r + db * tb
+    d_vec = pb - pa
+    d = d_vec.length()
+    inv_d = torch.where(d > _EPS, 1.0 / d.clamp_min(_EPS), 0.0)
+    dir_ab = (d_vec * inv_d).where(d > _EPS, da.cross(_up(n, dev)).normalize())
+    normal = -dir_ab
+    depth0 = ra + rb - d
+    contact0 = pa + dir_ab * (ra - 0.5 * depth0)
+
+    # Parallel case: a second contact from the overlap of the segments' intervals.
+    parallel = denom <= 1e-3
+    e0 = db_r - a_dot_b * hlb
+    e1 = db_r + a_dot_b * hlb
+    lo = torch.maximum(-hla, torch.minimum(e0, e1))
+    hi = torch.minimum(hla, torch.maximum(e0, e1))
+    pa1 = da * hi
+    tb1 = clip(db.dot(pa1 - r), -hlb, hlb)
+    d1 = (r + db * tb1 - pa1).length()
+    depth1 = ra + rb - d1
+    contact1 = pa1 + dir_ab * (ra - 0.5 * depth1)
+    pa0 = da * lo
+    tb0 = clip(db.dot(pa0 - r), -hlb, hlb)
+    d0 = (r + db * tb0 - pa0).length()
+    depth0p = ra + rb - d0
+    contact0p = pa0 + dir_ab * (ra - 0.5 * depth0p)
+
+    use0 = contact0p.where(parallel, contact0)
+    dep0 = torch.where(parallel, depth0p, depth0)
+    return _two_contacts(use0, contact1, dep0, depth1, normal, parallel & (hi > lo))
+
+
+def _capsule_box_edge(au, av, aw, du, dv, dw, hl, eu, ev, hu, hv, hw):
+    """Closest-approach candidate between the capsule segment and one representative box
+    edge, in a (u, v, w) permutation of the box frame where the edge runs along w through
+    (eu, ev, 0). Returns (ta, depth_core, nu, nv, nw), the normal unit and pointing toward
+    the capsule center (reference capability: CollisionTasks/CapsuleBoxTester.cs)."""
+    clip = lambda x, lo, hi: torch.minimum(torch.maximum(x, lo), hi)
+    ab_u = eu - au
+    ab_v = ev - av
+    d_dot_ab = du * ab_u + dv * ab_v - dw * aw
+    denom = torch.clamp_min(1.0 - dw * dw, 1e-15)
+    ta = (d_dot_ab + aw * dw) / denom
+    tb = ta * dw + aw
+
+    absdadb = dw.abs()
+    b_onto_a = hw * absdadb
+    a_onto_b = hl * absdadb
+    ta_min = torch.maximum(-hl, torch.minimum(hl, d_dot_ab - b_onto_a))
+    ta_max = torch.minimum(hl, torch.maximum(-hl, d_dot_ab + b_onto_a))
+    tb_min = torch.maximum(-hw, torch.minimum(hw, aw - a_onto_b))
+    tb_max = torch.minimum(hw, torch.maximum(-hw, aw + a_onto_b))
+    ta = clip(ta, ta_min, ta_max)
+    tb = clip(tb, tb_min, tb_max)
+
+    cu = au + ta * du
+    cv = av + ta * dv
+    cw = aw + ta * dw
+    nu = cu - eu
+    nv = cv - ev
+    nw = cw - tb
+    len2 = nu * nu + nv * nv + nw * nw
+    # Degenerate (segment meets the edge): cross(d, edge_w) = (dv, -du, 0); doubly
+    # degenerate (parallel): (1, 0, 0).
+    fb2 = du * du + dv * dv
+    use_fb = len2 < 1e-10
+    use_fb2 = use_fb & (fb2 < 1e-10)
+    len2 = torch.where(use_fb2, 1.0, torch.where(use_fb, fb2, len2))
+    nu = torch.where(use_fb2, 1.0, torch.where(use_fb, dv, nu))
+    nv = torch.where(use_fb2, 0.0, torch.where(use_fb, -du, nv))
+    nw = torch.where(use_fb2, 0.0, torch.where(use_fb, 0.0, nw))
+    calib = nu * au + nv * av + nw * aw
+    sgn = torch.where(calib < 0.0, -1.0, 1.0)
+    inv_len = sgn / torch.sqrt(len2)
+    nu, nv, nw = nu * inv_len, nv * inv_len, nw * inv_len
+    box_extreme = nu.abs() * hu + nv.abs() * hv + nw.abs() * hw
+    cap_extreme = nu * cu + nv * cv + nw * cw
+    return ta, box_extreme - cap_extreme, nu, nv, nw
+
+
+def capsule_box(pos_ab: Vec3, orn_a: Quat, orn_b: Quat, params_a, params_b) -> Manifold:
+    """Capsule A vs box B: 3 representative-edge + 3 face candidates, then a 2-contact
+    manifold by clipping the capsule axis against the representative face in its tangent
+    plane; per-contact depths from the unprojection separation (reference capability:
+    CollisionTasks/CapsuleBoxTester.cs)."""
+    r, hl = params_a[:, 0], params_a[:, 1]
+    hb = Vec3(params_b[:, 0], params_b[:, 1], params_b[:, 2])
+    N = r.shape[0]
+    dev = r.device
+    clip = lambda x, lo, hi: torch.minimum(torch.maximum(x, lo), hi)
+
+    a = orn_b.rotate_inverse(-1.0 * pos_ab)  # capsule center in the box frame
+    d = orn_b.rotate_inverse(orn_a.rotate(_up(N, dev)))  # capsule axis
+
+    t_star = clip(-a.dot(d), -hl, hl)
+    p_star = a + d * t_star
+    ex = torch.where(p_star.x < 0.0, -hb.x, hb.x)
+    ey = torch.where(p_star.y < 0.0, -hb.y, hb.y)
+    ez = torch.where(p_star.z < 0.0, -hb.z, hb.z)
+
+    ta_z, dep_z, nzx, nzy, nzz = _capsule_box_edge(
+        a.x, a.y, a.z, d.x, d.y, d.z, hl, ex, ey, hb.x, hb.y, hb.z)
+    ta_x, dep_x, nxy, nxz, nxx = _capsule_box_edge(
+        a.y, a.z, a.x, d.y, d.z, d.x, hl, ey, ez, hb.y, hb.z, hb.x)
+    ta_y, dep_y, nyz, nyx, nyy = _capsule_box_edge(
+        a.z, a.x, a.y, d.z, d.x, d.y, hl, ez, ex, hb.z, hb.x, hb.y)
+
+    depth, ta, n = dep_x, ta_x, Vec3(nxx, nxy, nxz)
+
+    def pick(dep_c, ta_c, n_c, depth, ta, n):
+        better = dep_c < depth
+        return torch.where(better, dep_c, depth), torch.where(better, ta_c, ta), n_c.where(better, n)
+
+    depth, ta, n = pick(dep_y, ta_y, Vec3(nyx, nyy, nyz), depth, ta, n)
+    depth, ta, n = pick(dep_z, ta_z, Vec3(nzx, nzy, nzz), depth, ta, n)
+
+    fsx = torch.where(a.x > 0.0, 1.0, -1.0)
+    fsy = torch.where(a.y > 0.0, 1.0, -1.0)
+    fsz = torch.where(a.z > 0.0, 1.0, -1.0)
+    zero = torch.zeros((N,), dtype=torch.float32, device=dev)
+    fdx = hb.x + d.x.abs() * hl - fsx * a.x
+    fdy = hb.y + d.y.abs() * hl - fsy * a.y
+    fdz = hb.z + d.z.abs() * hl - fsz * a.z
+    depth, ta, n = pick(fdx, ta, Vec3(fsx, zero, zero), depth, ta, n)
+    depth, ta, n = pick(fdy, ta, Vec3(zero, fsy, zero), depth, ta, n)
+    depth, ta, n = pick(fdz, ta, Vec3(zero, zero, fsz), depth, ta, n)
+
+    # Representative face: the one whose outward normal best matches the winning normal.
+    xd = n.x * fsx
+    yd = n.y * fsy
+    zd = n.z * fsz
+    use_x = xd > torch.maximum(yd, zd)
+    use_y = (~use_x) & (yd > zd)
+    use_z = ~(use_x | use_y)
+    sel = lambda x, y, z: torch.where(use_x, x, torch.where(use_y, y, z))
+
+    fn_dot_n = sel(xd, yd, zd)
+    inv_fn_dot_n = 1.0 / torch.clamp_min(fn_dot_n, 1e-15)
+    axis_dot_fn = sel(d.x * fsx, d.y * fsy, d.z * fsz)
+    center_dot_fn = sel(a.x * fsx, a.y * fsy, a.z * fsz)
+    face_offset = sel(hb.x, hb.y, hb.z)
+    t_axis = axis_dot_fn * inv_fn_dot_n
+    t_center = (center_dot_fn - face_offset) * inv_fn_dot_n
+
+    unproj_axis = d - n * t_axis
+    unproj_center = a - n * t_center
+    ts_ax = torch.where(use_x, unproj_axis.y, unproj_axis.x)
+    ts_ay = torch.where(use_z, unproj_axis.y, unproj_axis.z)
+    ts_cx = torch.where(use_x, unproj_center.y, unproj_center.x)
+    ts_cy = torch.where(use_z, unproj_center.y, unproj_center.z)
+    eps_scale = torch.minimum(torch.maximum(hb.x, torch.maximum(hb.y, hb.z)),
+                              torch.maximum(hl, r))
+    eps = eps_scale * 1e-3
+    half_u = eps + torch.where(use_x, hb.y, hb.x)
+    half_v = eps + torch.where(use_z, hb.y, hb.z)
+
+    inv_ax = -1.0 / torch.where(ts_ax.abs() < 1e-15, 1e-15, ts_ax)
+    inv_ay = -1.0 / torch.where(ts_ay.abs() < 1e-15, 1e-15, ts_ay)
+    tx0 = (ts_cx - half_u) * inv_ax
+    tx1 = (ts_cx + half_u) * inv_ax
+    ty0 = (ts_cy - half_v) * inv_ay
+    ty1 = (ts_cy + half_v) * inv_ay
+    min_x = torch.minimum(tx0, tx1)
+    max_x = torch.maximum(tx0, tx1)
+    min_y = torch.minimum(ty0, ty1)
+    max_y = torch.maximum(ty0, ty1)
+    big = 3.0e38
+    fb_x = ts_ax.abs() < 1e-15
+    fb_y = ts_ay.abs() < 1e-15
+    in_x = ts_cx.abs() <= half_u
+    in_y = ts_cy.abs() <= half_v
+    min_x = torch.where(fb_x, torch.where(in_x, -big, big), min_x)
+    max_x = torch.where(fb_x, torch.where(in_x, big, -big), max_x)
+    min_y = torch.where(fb_y, torch.where(in_y, -big, big), min_y)
+    max_y = torch.where(fb_y, torch.where(in_y, big, -big), max_y)
+    face_min = torch.maximum(min_x, min_y)
+    face_max = torch.minimum(max_x, max_y)
+    t_min = clip(face_min, -hl, hl)
+    t_max = clip(face_max, -hl, hl)
+    has_interval = face_max >= face_min
+    t_min = torch.where(has_interval, torch.minimum(t_min, ta), ta)
+    t_max = torch.where(has_interval, torch.maximum(t_max, ta), ta)
+
+    sep_min = t_center + t_axis * t_min
+    sep_max = t_center + t_axis * t_max
+    depth0 = r - sep_min
+    depth1 = r - sep_max
+
+    normal = orn_b.rotate(n)
+    p0 = orn_b.rotate(d * t_min)
+    p1 = orn_b.rotate(d * t_max)
+    p0 = p0 + normal * (depth0 * 0.5 - r)
+    p1 = p1 + normal * (depth1 * 0.5 - r)
+    return _two_contacts(p0, p1, depth0, depth1, normal, t_max - t_min > 1e-7 * hl)
 
 
 def _pick(vecs, k):

@@ -1,9 +1,11 @@
 """State carried between the JAX package and the port, as numpy arrays.
 
 ``state_from_numpy`` turns a JAX ``SimState`` whose leaves are numpy arrays (for example
-``jax.tree_util.tree_map(np.asarray, sim.state)``) into the port's ``SimState``; only its
-``bodies`` and ``store`` are read, since the store path never reads the caches or the
-sleep banks. ``shapes_from_numpy`` does the same for ``ShapeData`` and
+``jax.tree_util.tree_map(np.asarray, sim.state)``) into the port's ``SimState``: bodies,
+the compound child caches, joint impulses and colors, and the pair store (the legacy
+convex caches are not read by the store path). ``shapes_from_numpy`` does the same for
+``ShapeData`` (its compound child and cluster tables included), ``joint_banks_from_numpy``
+for the joint banks a step takes (``JointTypeStore.device()`` dicts), and
 ``state_to_numpy`` goes the other way. Neither package is imported here: NamedTuples are
 matched by class and field name, so one identical state can feed both packages.
 """
@@ -13,39 +15,52 @@ import numpy as np
 import torch
 
 from .bodies import BodyState
+from .collision.narrowphase import PairCache
 from .collision.pairstore import PairStore
+from .constraints.contact import ContactImpulses, ContactPrestep
 from .shapes.registry import ShapeData
-from .utils.vec import Quat, Sym3, Vec3
+from .utils.spring import SpringSettings
+from .utils.vec import Quat, Sym3, Vec2, Vec3
 
-_TYPES = {c.__name__: c for c in (BodyState, PairStore, ShapeData, Vec3, Quat, Sym3)}
+_TYPES = {c.__name__: c for c in (BodyState, ContactImpulses, ContactPrestep, PairCache,
+                                  PairStore, ShapeData, SpringSettings, Vec2, Vec3, Quat, Sym3)}
 
 
 def _to_torch(src, device):
-    """A NamedTuple tree of numpy arrays → the port's NamedTuple of tensors, by name."""
+    """A NamedTuple or dict tree of numpy arrays → the port's tree of tensors, by name."""
     if hasattr(src, "_fields"):
         cls = _TYPES[type(src).__name__]
         return cls(*(_to_torch(getattr(src, f), device) for f in cls._fields))
+    if isinstance(src, dict):
+        return {k: _to_torch(v, device) for k, v in src.items()}
     return torch.from_numpy(np.array(src)).to(device)
 
 
 def _to_numpy(src):
     if hasattr(src, "_fields"):
         return type(src)(*(_to_numpy(v) for v in src))
+    if isinstance(src, dict):
+        return {k: _to_numpy(v) for k, v in src.items()}
     return src.detach().cpu().numpy()
 
 
 def state_from_numpy(tree, device):
-    """The port's ``SimState`` (bodies, store) from a JAX ``SimState`` of numpy leaves."""
+    """The port's ``SimState`` from a JAX ``SimState`` of numpy leaves."""
     from .simulation import SimState
 
-    return SimState(_to_torch(tree.bodies, device), _to_torch(tree.store, device))
+    return SimState(*(_to_torch(getattr(tree, f), device) for f in SimState._fields))
 
 
 def shapes_from_numpy(tree, device) -> ShapeData:
-    """The port's ``ShapeData`` (type, params, max_radius) from the JAX one's numpy leaves."""
+    """The port's ``ShapeData`` from the JAX one's numpy leaves (the hull pool dropped)."""
     return _to_torch(tree, device)
 
 
+def joint_banks_from_numpy(banks: dict, device) -> dict:
+    """{name: {bodies, valid, prestep[, impulse]}} of numpy arrays → tensors on ``device``."""
+    return _to_torch(banks, device)
+
+
 def state_to_numpy(state):
-    """The port's ``SimState`` (or any NamedTuple tree of tensors) with numpy leaves."""
+    """The port's ``SimState`` (or any NamedTuple or dict tree of tensors) with numpy leaves."""
     return _to_numpy(state)

@@ -1,0 +1,5 @@
+"""Scene models built through the public ``Simulation`` API."""
+from .ragdoll import add_ragdoll
+from .scenes import build_ragdoll_tube_sim
+
+__all__ = ["add_ragdoll", "build_ragdoll_tube_sim"]

@@ -1,12 +1,14 @@
-"""K1 and K2, the whole-solve contact kernels, and their packed row contract.
+"""K1, K2 and K3, the contact-solve kernels, and their packed row contract.
 
-Counterparts of ``solve_substeps_contacts`` and ``solve_substeps_contacts_win`` in
-``bepuphysics2_tpu/ops/sweep.py``: the whole substepped contact solve (incremental depth
-update, pose/velocity/world-inertia block, warm start, velocity iterations) over slices
-taken in page-execution order (K1) or over the windowed Morton layout of
-``solver/windowing.py`` (K2). On a CUDA tensor each wrapper launches its hand-written
-kernel (``csrc/substeps_contacts.cu``, ``csrc/substeps_contacts_win.cu``); on a CPU
-tensor it runs the plain PyTorch version written below, which the kernel is held against.
+Counterparts of ``solve_substeps_contacts``, ``solve_substeps_contacts_win`` and
+``contact_sweep`` in ``bepuphysics2_tpu/ops/sweep.py``. K1 and K2 run the whole substepped
+contact solve (incremental depth update, pose/velocity/world-inertia block, warm start,
+velocity iterations) over slices taken in page-execution order (K1) or over the windowed
+Morton layout of ``solver/windowing.py`` (K2). K3 runs one contact bank's velocity
+iterations within one substep of the general (jointed or compound) solve. On a CUDA
+tensor each wrapper launches its hand-written kernel (``csrc/substeps_contacts.cu``,
+``csrc/substeps_contacts_win.cu``, ``csrc/contact_sweep.cu``); on a CPU tensor it runs
+the plain PyTorch version written below, which the kernel is held against.
 The TPU layout tricks of the JAX kernels (bf16x3 one-hot routing, the transposed body
 state, ``nch``) are not carried over: bodies are packed rows read by index.
 
@@ -279,14 +281,38 @@ def _vel_of(rows):
                    Vec3(rows[:, 3], rows[:, 4], rows[:, 5]))
 
 
+def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h):
+    """One slice of a plain walk, warm start (``solve`` False) or one velocity iteration:
+    gather both sides from V (NB, 6) and W (NB, 7: inverse mass, world inverse inertia),
+    compute every row, then ``index_add_`` the deltas divided by the side's scale. ``idx``
+    and ``sc`` are (n_slices, 2 * sb); ``imp`` (8, B) is updated in place."""
+    cols = slice(sl * sb, (sl + 1) * sb)
+    ia, ib = idx[sl, :sb], idx[sl, sb:]
+    sa, sbs = sc[sl, :sb], sc[sl, sb:]
+    wa = W[ia] * sa[:, None]
+    wb = W[ib] * sbs[:, None]
+    ia_im, ia_ii = wa[:, 0], Sym3(*wa[:, 1:].unbind(-1))
+    ib_im, ib_ii = wb[:, 0], Sym3(*wb[:, 1:].unbind(-1))
+    ps = ps_t[:, cols]
+    if solve:
+        new_imp, dva, dvb = _solve_contact_rows(
+            ps, dep[:, cols], imp[:, cols], ia_im, ia_ii, ib_im, ib_ii,
+            _vel_of(V[ia]), _vel_of(V[ib]), inv_h)
+        imp[:, cols] = torch.stack(new_imp)
+    else:
+        dva, dvb = _warm_start_rows(ps, dep[:, cols], imp[:, cols], ia_im, ia_ii, ib_im, ib_ii)
+    d = torch.cat([torch.stack([*dva[0], *dva[1]], -1),
+                   torch.stack([*dvb[0], *dvb[1]], -1)]) / sc[sl][:, None]
+    V.index_add_(0, idx[sl], d)
+
+
 def _walk_plain(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask, ps_t, imp,
                 dep, idx, sc, live, h, inv_h, lin_scale, ang_scale, *, sb, n_substeps,
                 n_iters, angular_mode, gravity):
     """The grid's (substep, phase, slice) order as Python loops, shared by the plain K1
     and K2. ``idx`` and ``sc`` are (n_slices, 2 * sb): each slice's body rows and
     mass-split scales, A sides then B sides; ``live`` (n_slices,) marks the slices that
-    run (the others move no body and keep their impulses and depths). Per slice it
-    gathers, computes every row, then ``index_add_``s the deltas. ``imp`` (8, B) and
+    run (the others move no body and keep their impulses and depths). ``imp`` (8, B) and
     ``dep`` (4, B) are updated in place. Returns (v6', pos', orn')."""
     V = v6.clone()
     W = torch.zeros((v6.shape[0], 7), dtype=torch.float32, device=v6.device)
@@ -296,25 +322,7 @@ def _walk_plain(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask
     ib_all = idx[:, sb:].reshape(-1)
 
     def slice_pass(sl, solve):
-        cols = slice(sl * sb, (sl + 1) * sb)
-        ia, ib = idx[sl, :sb], idx[sl, sb:]
-        sa, sbs = sc[sl, :sb], sc[sl, sb:]
-        wa = W[ia] * sa[:, None]
-        wb = W[ib] * sbs[:, None]
-        ia_im, ia_ii = wa[:, 0], Sym3(*wa[:, 1:].unbind(-1))
-        ib_im, ib_ii = wb[:, 0], Sym3(*wb[:, 1:].unbind(-1))
-        ps = ps_t[:, cols]
-        if solve:
-            new_imp, dva, dvb = _solve_contact_rows(
-                ps, dep[:, cols], imp[:, cols], ia_im, ia_ii, ib_im, ib_ii,
-                _vel_of(V[ia]), _vel_of(V[ib]), inv_h)
-            imp[:, cols] = torch.stack(new_imp)
-        else:
-            dva, dvb = _warm_start_rows(ps, dep[:, cols], imp[:, cols], ia_im, ia_ii, ib_im,
-                                        ib_ii)
-        d = torch.cat([torch.stack([*dva[0], *dva[1]], -1),
-                       torch.stack([*dvb[0], *dvb[1]], -1)]) / sc[sl][:, None]
-        V.index_add_(0, idx[sl], d)
+        _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h)
 
     for s in range(n_substeps):
         if s > 0:  # phase 0 reads velocities only: every live slice at once
@@ -473,6 +481,124 @@ def solve_substeps_contacts(
 
 
 solve_substeps_contacts.launches = 0
+
+
+# --- K3: one bank's velocity iterations of one substep (the general path) -----------------
+
+def _contact_sweep_plain(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, *, sb, n_iters):
+    """Plain PyTorch K3: ``n_iters`` Gauss-Seidel sweeps over every slice of one contact
+    bank, depths from the prestep rows. Slices without a valid row are skipped, as the
+    kernel skips them: their rows move no body and keep their impulses."""
+    n_slices = ps_t.shape[1] // sb
+    live = (ps_t[PS_VALID].reshape(n_slices, sb) > 0.5).any(dim=1)
+    live_slices = [sl for sl, x in enumerate(live.tolist()) if x]
+    V = v6.clone()
+    imp = imp_t.clone()
+    dep = ps_t[PS_DEPTH:PS_DEPTH + 4]
+    idx = idx2.reshape(n_slices, 2 * sb).long()
+    sc = scale.reshape(n_slices, 2 * sb).float()
+    for _ in range(n_iters):
+        for sl in live_slices:
+            _slice_pass(V, inertia7, ps_t, imp, dep, idx, sc, sl, sb, True, inv_h)
+    return V, imp
+
+
+def _launch_sweep_kernel(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb, n_iters):
+    from . import build
+
+    lib, _ = build.load("contact_sweep")
+    fn = lib.contact_sweep_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    nb, B = v6.shape[0], ps_t.shape[1]
+    n_slices = B // sb
+    bg = torch.zeros((nb, 16), dtype=torch.float32, device=v6.device)
+    bg[:, :6] = v6
+    bg[:, 8:15] = inertia7
+    imp = imp_t.clone()
+    order = torch.sort(idx2.view(n_slices, 2 * sb), dim=1, stable=True).indices
+    order = order.to(torch.int32).contiguous()
+    slive = (ps_t[PS_VALID].view(n_slices, sb) > 0.5).any(dim=1).to(torch.int32)
+    stream = torch.cuda.current_stream(v6.device).cuda_stream
+    err = fn(bg.data_ptr(), ps_t.data_ptr(), imp.data_ptr(), idx2.data_ptr(), scale.data_ptr(),
+             order.data_ptr(), slive.data_ptr(), B, sb, n_iters, float(inv_h), stream)
+    if err != 0:
+        raise RuntimeError(f"contact_sweep kernel launch failed: CUDA error {err}")
+    contact_sweep.launches += 1
+    return bg[:, :6].contiguous(), imp
+
+
+def contact_sweep(
+    v6,  # (NB, 6) velocities
+    inertia7,  # (NB, 7) inverse mass and world inverse inertia (xx yx yy zx zy zz)
+    ps_t,  # (PS_ROWS, B) packed prestep, B = n_slices * sb
+    imp_t,  # (IMP_ROWS, B) impulses
+    idx2,  # (n_slices * 2sb,) int32 body row per side, per slice A sides then B sides
+    scale,  # (n_slices * 2sb,) mass-split scale per side (1 outside the Jacobi slices)
+    inv_h,
+    *,
+    sb: int,
+    n_iters: int,
+):
+    """Run ``n_iters`` Gauss-Seidel sweeps over all slices of one contact bank within one
+    substep: no integration, no warm start, depths from the prestep rows. Returns
+    (v6', imp_t').
+
+    CUDA tensors go through the CUDA kernel (one launch, counted in
+    ``contact_sweep.launches``); CPU tensors through the plain version."""
+    dev = v6.device
+    B = ps_t.shape[1]
+    nb = v6.shape[0]
+    if sb <= 0 or B % sb:
+        raise ValueError(f"bank of {B} rows does not split into slices of {sb}")
+    f32 = torch.float32
+    _check("v6", v6, (nb, 6), f32, dev)
+    _check("inertia7", inertia7, (nb, 7), f32, dev)
+    _check("ps_t", ps_t, (PS_ROWS, B), f32, dev)
+    _check("imp_t", imp_t, (IMP_ROWS, B), f32, dev)
+    _check("idx2", idx2, (2 * B,), torch.int32, dev)
+    _check("scale", scale, (2 * B,), f32, dev)
+    if dev.type == "cuda":
+        return _launch_sweep_kernel(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb, n_iters)
+    if dev.type != "cpu":
+        raise ValueError(f"contact_sweep runs on cuda or cpu, not {dev.type}")
+    return _contact_sweep_plain(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb=sb,
+                                n_iters=n_iters)
+
+
+contact_sweep.launches = 0
+
+
+def synthetic_sweep_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: int,
+                         dt: float = 1.0 / 60.0, substeps: int = 4):
+    """A seeded K3 input, as numpy arrays: ``synthetic_bank``'s velocities, rows and
+    structure (colored slices, Jacobi slices with mass-split scales, padding), with each
+    body's ``inertia7`` row (inverse mass and world inverse inertia; zero for the static
+    body 0)."""
+    bank = synthetic_bank(nb, sb, n_colored, n_jacobi, seed, dt=dt, substeps=substeps)
+    x, y, z, w = bank["orn"].astype(np.float64).T
+    rot = np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+    lii = bank["local_inv_inertia"].astype(np.float64)
+    loc = np.zeros((nb, 3, 3))
+    for (r, c), k in {(0, 0): 0, (1, 0): 1, (1, 1): 2, (2, 0): 3, (2, 1): 4, (2, 2): 5}.items():
+        loc[:, r, c] = loc[:, c, r] = lii[:, k]
+    world = rot @ loc @ np.transpose(rot, (0, 2, 1))
+    inertia7 = np.concatenate([bank["inv_mass"][:, None].astype(np.float64),
+                               world[:, [0, 1, 1, 2, 2, 2], [0, 0, 1, 0, 1, 2]]], 1)
+    return dict(v6=bank["v6"], inertia7=inertia7.astype(np.float32), ps_t=bank["ps_t"],
+                imp_t=bank["imp_t"], idx2=bank["idx2"], scale=bank["scale"], h=bank["h"],
+                inv_h=bank["inv_h"], sb=sb)
+
+
+def sweep_bank_args(bank: dict, device):
+    """``contact_sweep`` positional arguments (v6 … inv_h) from a ``synthetic_sweep_bank``."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return (t(bank["v6"]), t(bank["inertia7"]), t(bank["ps_t"]), t(bank["imp_t"]),
+            t(bank["idx2"]), t(bank["scale"]), bank["inv_h"])
 
 
 # --- K2: the windowed whole solve (above 8,192 bodies) -----------------------------------

@@ -1,5 +1,7 @@
 from .registry import (
     BOX,
+    CAPSULE,
+    COMPOUND,
     SHAPE_NONE,
     SPHERE,
     Box,
@@ -16,7 +18,7 @@ from .registry import (
 from .bounds import compute_body_bounds
 
 __all__ = [
-    "SHAPE_NONE", "SPHERE", "BOX", "ShapeData", "ShapeRegistry", "Sphere", "Box",
+    "SHAPE_NONE", "SPHERE", "CAPSULE", "BOX", "COMPOUND", "ShapeData", "ShapeRegistry", "Sphere", "Box",
     "Capsule", "Triangle", "Cylinder", "ConvexHull", "Compound", "Mesh",
     "compute_body_bounds",
 ]

@@ -1,4 +1,5 @@
-"""Speculative (velocity-expanded) world AABBs for every body, sphere and box shapes.
+"""Speculative (velocity-expanded) world AABBs for every body: spheres, capsules, boxes,
+and compounds (their bounding sphere).
 
 Counterpart of ``bepuphysics2_tpu/shapes/bounds.py`` (reference PoseIntegrator.cs:424
 PredictBoundingBoxes + BoundingBoxHelpers.ExpandBoundingBoxes): one masked pass over all
@@ -11,16 +12,20 @@ import math
 import torch
 
 from ..utils.vec import Vec3
-from .registry import BOX, SPHERE, ShapeData
+from .registry import BOX, CAPSULE, SPHERE, ShapeData
 
 
 def compute_shape_bounds(shape_type, params, max_radius, orn):
     """Local AABB half-extents for each body: (extent: Vec3, center_offset: Vec3).
-    Rows of other types read their bounding sphere (the registry refuses them)."""
+    Compounds, and the types the registry refuses, read their bounding sphere."""
     m = orn.to_matrix()
     zero = torch.zeros_like(params[:, 0])
     r = params[:, 0]
     sphere_ext = Vec3(r, r, r)
+    # Capsule: segment along local Y, endpoints ±half_length · ry, plus the radius.
+    hl = params[:, 1]
+    seg = Vec3(m.ry.x.abs(), m.ry.y.abs(), m.ry.z.abs()) * hl
+    capsule_ext = Vec3(seg.x + r, seg.y + r, seg.z + r)
     hx, hy, hz = params[:, 0], params[:, 1], params[:, 2]
     box_ext = Vec3(
         m.rx.x.abs() * hx + m.ry.x.abs() * hy + m.rz.x.abs() * hz,
@@ -30,6 +35,7 @@ def compute_shape_bounds(shape_type, params, max_radius, orn):
     ext = Vec3(max_radius, max_radius, max_radius)
     ext = box_ext.where(shape_type == BOX, ext)
     ext = sphere_ext.where(shape_type == SPHERE, ext)
+    ext = capsule_ext.where(shape_type == CAPSULE, ext)
     return ext, Vec3(zero, zero, zero)
 
 

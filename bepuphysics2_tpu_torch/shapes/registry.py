@@ -1,10 +1,13 @@
 """Shape registry: fixed-capacity packed shape parameter arrays (host-side storage +
-device snapshot). The port carries spheres and boxes; every other shape type of the JAX
-registry is refused with the ROADMAP item that brings it.
+device snapshot). The port carries spheres, capsules, boxes and compounds of them; every
+other shape type of the JAX registry is refused with the ROADMAP item that brings it.
 
 Packed parameter layout (``params`` row, float32 × 12), as in the JAX package:
-- SPHERE (id 0): [radius]
-- BOX    (id 2): [half_width, half_height, half_length]
+- SPHERE   (id 0): [radius]
+- CAPSULE  (id 1): [radius, half_length]  (axis = local Y)
+- BOX      (id 2): [half_width, half_height, half_length]
+- COMPOUND (id 6): none; its children live in the child pool (``ShapeData.child_*``),
+  Morton-ordered and grouped into bounding clusters (``ShapeData.cl_*``).
 """
 from __future__ import annotations
 
@@ -28,11 +31,9 @@ MESH = 8
 N_PARAMS = 12
 
 _LATER = {
-    CAPSULE: "ROADMAP queue 1 item 17 (other shapes and testers)",
     TRIANGLE: "ROADMAP queue 1 item 17 (other shapes and testers)",
     CYLINDER: "ROADMAP queue 1 item 17 (other shapes and testers)",
     CONVEX_HULL: "ROADMAP queue 1 item 17 (other shapes and testers)",
-    COMPOUND: "ROADMAP queue 1 item 18 (compounds and meshes)",
     BIG_COMPOUND: "ROADMAP queue 1 item 18 (compounds and meshes)",
     MESH: "ROADMAP queue 1 item 18 (compounds and meshes)",
 }
@@ -53,6 +54,35 @@ class Sphere:
 
     def maximum_radius(self):
         return self.radius
+
+
+@dataclasses.dataclass(frozen=True)
+class Capsule:
+    radius: float
+    half_length: float
+
+    def pack(self):
+        return CAPSULE, [self.radius, self.half_length]
+
+    def compute_inertia(self, mass: float):
+        """reference: Collidables/Capsule.cs:159 (cylinder + sphere-caps volume blend)."""
+        inv_mass = 1.0 / mass
+        r2 = self.radius * self.radius
+        h2 = self.half_length * self.half_length
+        cyl_vol = 2 * self.half_length * r2 * np.pi
+        sph_vol = (4.0 / 3.0) * r2 * self.radius * np.pi
+        inv_total = 1.0 / (cyl_vol + sph_vol)
+        cyl_vol *= inv_total
+        sph_vol *= inv_total
+        ixx = inv_mass / (
+            cyl_vol * ((3.0 / 12.0) * r2 + (4.0 / 12.0) * h2)
+            + sph_vol * ((2.0 / 5.0) * r2 + (6.0 / 8.0) * self.radius * self.half_length + h2)
+        )
+        iyy = inv_mass / (cyl_vol * 0.5 * r2 + sph_vol * (2.0 / 5.0) * r2)
+        return inv_mass, (ixx, iyy, ixx)
+
+    def maximum_radius(self):
+        return self.radius + self.half_length
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +114,34 @@ class Box:
         return float(np.sqrt(self.half_width**2 + self.half_height**2 + self.half_length**2))
 
 
+@dataclasses.dataclass(frozen=True)
+class Compound:
+    """A rigid collection of posed convex children (reference Collidables/Compound.cs).
+    ``children`` is a tuple of (shape_id, local_position(3), local_orientation(4))."""
+
+    children: tuple
+
+    @staticmethod
+    def build(children) -> "Compound":
+        norm = []
+        for c in children:
+            shape_id, pos = c[0], tuple(c[1])
+            orn = tuple(c[2]) if len(c) > 2 else (0.0, 0.0, 0.0, 1.0)
+            norm.append((int(shape_id), pos, orn))
+        return Compound(tuple(norm))
+
+    def pack(self):
+        return COMPOUND, []
+
+    def maximum_radius(self):
+        # The registry recomputes it with the children's radii.
+        return max((np.linalg.norm(c[1]) for c in self.children), default=0.0)
+
+
 class _NotPorted:
     """Stands in for a shape class of the JAX package that the port does not have yet:
-    constructing it, or reaching any of its attributes (``Compound.build``), raises with
-    the ROADMAP item that brings it."""
+    constructing it, or reaching any of its attributes (``Mesh.build``), raises with the
+    ROADMAP item that brings it."""
 
     def __init__(self, name: str, type_id: int):
         self._msg = f"{name} is not ported yet: {_LATER[type_id]}"
@@ -101,36 +155,118 @@ class _NotPorted:
         raise NotImplementedError(self._msg)
 
 
-Capsule = _NotPorted("Capsule", CAPSULE)
 Triangle = _NotPorted("Triangle", TRIANGLE)
 Cylinder = _NotPorted("Cylinder", CYLINDER)
 ConvexHull = _NotPorted("ConvexHull", CONVEX_HULL)
-Compound = _NotPorted("Compound", COMPOUND)
 Mesh = _NotPorted("Mesh", MESH)
 
 
 class ShapeData(NamedTuple):
-    """Device snapshot of the registry."""
+    """Device snapshot of the registry (the JAX ShapeData's fields, less the hull pool)."""
 
     type: torch.Tensor  # (MS,) int32, SHAPE_NONE for empty rows
     params: torch.Tensor  # (MS, N_PARAMS) float32
     max_radius: torch.Tensor  # (MS,) float32 bounding-sphere radius
+    # Compound child pool: per child a shape row + local pose (-1 rows are mesh triangles,
+    # whose vertices live in child_tri; the port registers no mesh).
+    child_shape: torch.Tensor  # (CHILD_POOL,) int32
+    child_pos: torch.Tensor  # (CHILD_POOL, 3)
+    child_orn: torch.Tensor  # (CHILD_POOL, 4)
+    child_tri: torch.Tensor  # (CHILD_POOL, 9)
+    child_start: torch.Tensor  # (MS,) int32
+    child_count: torch.Tensor  # (MS,) int32
+    # Per-child conservative AABB in the compound's local frame.
+    child_aabb_min: torch.Tensor  # (CHILD_POOL, 3)
+    child_aabb_max: torch.Tensor  # (CHILD_POOL, 3)
+    # Child clusters of CLUSTER_SIZE Morton-ordered children: (NCOMP, CW[, 3]).
+    cl_min: torch.Tensor
+    cl_max: torch.Tensor
+    cl_first: torch.Tensor  # int32 first child-pool row
+    cl_count: torch.Tensor  # int32 children in the cluster (0 = dead)
+    shape_cluster_row: torch.Tensor  # (MS,) int32 row into cl_* (-1 = not a compound)
+
+
+def _morton_order(centroids: np.ndarray) -> np.ndarray:
+    """Stable Morton-code ordering of points over their bounding box (10 bits/axis)."""
+    lo = centroids.min(axis=0)
+    span = np.maximum(centroids.max(axis=0) - lo, 1e-9)
+    q = np.clip(((centroids - lo) / span) * 1023.0, 0, 1023).astype(np.uint64)
+
+    def spread(x):
+        x = (x | (x << np.uint64(16))) & np.uint64(0x0000FF0000FF)
+        x = (x | (x << np.uint64(8))) & np.uint64(0x00F00F00F00F)
+        x = (x | (x << np.uint64(4))) & np.uint64(0x0C30C30C30C3)
+        x = (x | (x << np.uint64(2))) & np.uint64(0x249249249249)
+        return x
+
+    code = spread(q[:, 0]) | (spread(q[:, 1]) << np.uint64(1)) | (
+        spread(q[:, 2]) << np.uint64(2)
+    )
+    return np.argsort(code, kind="stable")
+
+
+def _round_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _local_half_extents(type_id: int, params, max_radius: float) -> np.ndarray:
+    """Axis-aligned half extents of a shape in its own frame (bounding sphere for types
+    without a formula)."""
+    if type_id == BOX:
+        return np.asarray(params[:3], np.float64)
+    if type_id == CAPSULE:
+        r, hl = float(params[0]), float(params[1])
+        return np.array([r, hl + r, r])
+    if type_id == CYLINDER:
+        r, hl = float(params[0]), float(params[1])
+        return np.array([r, hl, r])
+    if type_id == SPHERE:
+        r = float(params[0])
+        return np.array([r, r, r])
+    return np.array([max_radius] * 3, np.float64)
+
+
+def _quat_abs_rot(q) -> np.ndarray:
+    """|R(q)| — elementwise absolute rotation matrix (conservative AABB rotation)."""
+    x, y, z, w = (float(v) for v in q)
+    r = np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+            [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+            [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+        ]
+    )
+    return np.abs(r)
 
 
 class ShapeRegistry:
     """Host-side shape storage with recycled rows."""
+
+    CHILD_POOL = 8192  # total compound children across all shapes
+    CLUSTER_SIZE = 16  # children per acceleration cluster (ShapeData.cl_*)
 
     def __init__(self, capacity: int = 256):
         self.capacity = capacity
         self.types = np.full(capacity, SHAPE_NONE, np.int32)
         self.params = np.zeros((capacity, N_PARAMS), np.float32)
         self.max_radius = np.zeros(capacity, np.float32)
+        self.child_shape = np.full(self.CHILD_POOL, -1, np.int32)
+        self.child_pos = np.zeros((self.CHILD_POOL, 3), np.float32)
+        self.child_orn = np.zeros((self.CHILD_POOL, 4), np.float32)
+        self.child_orn[:, 3] = 1.0
+        self.child_tri = np.zeros((self.CHILD_POOL, 9), np.float32)
+        self.child_aabb_min = np.zeros((self.CHILD_POOL, 3), np.float32)
+        self.child_aabb_max = np.zeros((self.CHILD_POOL, 3), np.float32)
+        self.child_start = np.zeros(capacity, np.int32)
+        self.child_count = np.zeros(capacity, np.int32)
+        self._child_used = 0
+        self._clusters = {}  # shape row -> (min (k,3), max (k,3), first (k,), count (k,))
         self.shapes = [None] * capacity
         self._free = list(range(capacity - 1, -1, -1))
         self._device = {}
 
     def add(self, shape) -> int:
-        if not isinstance(shape, (Sphere, Box)):
+        if not isinstance(shape, (Sphere, Capsule, Box, Compound)):
             type_id = shape.pack()[0] if hasattr(shape, "pack") else None
             raise NotImplementedError(
                 f"{type(shape).__name__} is not ported yet: "
@@ -144,13 +280,65 @@ class ShapeRegistry:
         self.params[idx, : len(packed)] = np.asarray(packed, np.float32)
         self.params[idx, len(packed):] = 0
         self.max_radius[idx] = shape.maximum_radius()
+        if type_id == COMPOUND:
+            self._add_children(idx, shape)
         self.shapes[idx] = shape
         self._device = {}
         return idx
 
+    def _add_children(self, idx: int, shape: Compound) -> None:
+        n = len(shape.children)
+        if self._child_used + n > self.CHILD_POOL:
+            raise RuntimeError("child pool full")
+        self.child_start[idx] = self._child_used
+        self.child_count[idx] = n
+        cent = np.array([c[1] for c in shape.children], np.float64).reshape(n, 3)
+        order = _morton_order(cent)
+        radius = 0.0
+        mins = np.zeros((n, 3))
+        maxs = np.zeros((n, 3))
+        for k, src in enumerate(order):
+            cs, cpos, corn = shape.children[src]
+            row = self._child_used + k
+            self.child_shape[row] = cs
+            self.child_pos[row] = cpos
+            self.child_orn[row] = corn
+            # Conservative local AABB: rotated child extents + offset.
+            e = _quat_abs_rot(corn) @ _local_half_extents(
+                int(self.types[cs]), self.params[cs], float(self.max_radius[cs])
+            )
+            mins[k] = np.asarray(cpos) - e
+            maxs[k] = np.asarray(cpos) + e
+            self.child_aabb_min[row] = mins[k]
+            self.child_aabb_max[row] = maxs[k]
+            radius = max(radius, float(np.linalg.norm(cpos)) + float(self.max_radius[cs]))
+        self.max_radius[idx] = radius
+        self._build_clusters(idx, mins, maxs)
+        self._child_used += n
+
+    def _build_clusters(self, idx: int, mins: np.ndarray, maxs: np.ndarray) -> None:
+        """Group the (Morton-ordered) children written for shape ``idx`` into
+        CLUSTER_SIZE-sized AABBs (union of member child AABBs, shape-local frame)."""
+        cs = self.CLUSTER_SIZE
+        n = mins.shape[0]
+        cl_min, cl_max, firsts, counts = [], [], [], []
+        for lo in range(0, n, cs):
+            hi = min(lo + cs, n)
+            cl_min.append(mins[lo:hi].min(axis=0))
+            cl_max.append(maxs[lo:hi].max(axis=0))
+            firsts.append(self._child_used + lo)
+            counts.append(hi - lo)
+        self._clusters[idx] = (
+            np.asarray(cl_min, np.float32).reshape(-1, 3),
+            np.asarray(cl_max, np.float32).reshape(-1, 3),
+            np.asarray(firsts, np.int32),
+            np.asarray(counts, np.int32),
+        )
+
     def remove(self, idx: int) -> None:
         self.types[idx] = SHAPE_NONE
         self.shapes[idx] = None
+        self._clusters.pop(idx, None)
         self._free.append(idx)
         self._device = {}
 
@@ -160,6 +348,29 @@ class ShapeRegistry:
     def device(self, device) -> ShapeData:
         key = str(torch.device(device))
         if key not in self._device:
-            t = lambda a: torch.from_numpy(a.copy()).to(device)
-            self._device[key] = ShapeData(t(self.types), t(self.params), t(self.max_radius))
+            # Clusters pad to (NCOMP, CW), both rounded up to powers of two, as in the
+            # JAX registry.
+            rows = sorted(self._clusters.keys())
+            ncomp = _round_pow2(max(1, len(rows)))
+            cw = _round_pow2(max(1, max((len(self._clusters[r][2]) for r in rows), default=1)))
+            cl_min = np.zeros((ncomp, cw, 3), np.float32)
+            cl_max = np.full((ncomp, cw, 3), -1.0, np.float32)  # dead: max < min
+            cl_first = np.zeros((ncomp, cw), np.int32)
+            cl_count = np.zeros((ncomp, cw), np.int32)
+            shape_cluster_row = np.full(self.capacity, -1, np.int32)
+            for slot, r in enumerate(rows):
+                mn, mx, fi, cnt = self._clusters[r]
+                k = len(fi)
+                cl_min[slot, :k] = mn
+                cl_max[slot, :k] = mx
+                cl_first[slot, :k] = fi
+                cl_count[slot, :k] = cnt
+                shape_cluster_row[r] = slot
+            t = lambda a: torch.from_numpy(np.array(a)).to(device)
+            self._device[key] = ShapeData(
+                t(self.types), t(self.params), t(self.max_radius), t(self.child_shape),
+                t(self.child_pos), t(self.child_orn), t(self.child_tri), t(self.child_start),
+                t(self.child_count), t(self.child_aabb_min), t(self.child_aabb_max),
+                t(cl_min), t(cl_max), t(cl_first), t(cl_count), t(shape_cluster_row),
+            )
         return self._device[key]

@@ -1,17 +1,20 @@
-"""Simulation facade — construction, body/static management, and the timestep.
+"""Simulation facade — construction, body/static/constraint management, and the timestep.
 
 Counterpart of ``bepuphysics2_tpu/simulation.py`` (reference Simulation.cs:106 Create,
 Simulation.cs:316 Timestep). One step is, in order:
 
     bounds → broad phase (brute force, or grid2 above 8,192 bodies) → pair store update →
-    narrow phase (+ warm-start carry) → wake → substepped TGS solve (kernel K1, or the
-    windowed K2 above 8,192 bodies) → island sleep
+    narrow phase (+ warm-start carry; compound children keyed through their cache) → wake
+    → substepped TGS solve (store-only scenes: kernel K1, or the windowed K2 above 8,192
+    bodies; scenes with joints: the general path over K3) → island sleep → compound
+    cache and sleep-bank update
 
-Topology mutation (add/remove bodies, statics, shapes) happens host-side between steps and
-marks the device state dirty; the next timestep pushes the merged state. ``reconfigure``
-and ``autosize`` resize capacities between steps, migrating the pair store. The port
-carries the pair-store path for sphere and box scenes; a configuration or scene that needs
-anything else is refused with the ROADMAP item that brings it.
+Topology mutation (bodies, statics, shapes, constraints, host setters) happens host-side
+between steps and marks the device state dirty; the next timestep pushes the merged state.
+``reconfigure`` and ``autosize`` resize capacities between steps, migrating the pair store
+and resizing the compound caches. The port carries the pair-store path for sphere,
+capsule, box and compound scenes with ball-socket and swing-limit joints; a configuration
+or scene that needs anything else is refused with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -22,14 +25,23 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .bodies import BodyBuffer, BodyDescription, BodyState, StaticDescription
+from .bodies import (
+    BodyBuffer, BodyDescription, BodyState, KIND_DYNAMIC, KIND_KINEMATIC, StaticDescription,
+)
 from .collision import broadphase as bp
 from .collision import pairstore
-from .collision.narrowphase import narrow_phase_store
+from .collision.narrowphase import (
+    PairCache, narrow_phase_compound, narrow_phase_store, retain_sleeping_when,
+    update_cache_keyed,
+)
 from .collision.pairstore import PairStore
+from .constraints.joints import (
+    JOINT_TYPES, ONE_BODY_NAMES, JointTypeStore, make_description,
+)
+from .constraints.joints.base import unpack_fields
 from .integrator import IntegratorConfig
 from .shapes import ShapeRegistry, compute_body_bounds
-from .shapes.registry import CONVEX_HULL
+from .shapes.registry import COMPOUND, CONVEX_HULL, MESH
 from .sleep import update_sleep, wake_touched
 from .solver.solve import SolveConfig, solve_all
 from .utils.vec import Vec3
@@ -92,6 +104,11 @@ class SimConfig:
         repair = self.store_repair or max(64, cap // 16)
         return churn, dead, repair
 
+    def compound_capacity(self) -> int:
+        """Rows of the compound child caches."""
+        return (self.max_compound_pairs * self.children_per_pair
+                + self.max_cc_pairs * self.cc_children_per_side ** 2)
+
     def solve_config(self) -> SolveConfig:
         return SolveConfig(
             substeps=self.substeps,
@@ -106,9 +123,14 @@ class SimConfig:
 
 
 class SimState(NamedTuple):
-    """Device-side state of the store path: bodies and the persistent pair store."""
+    """Device-side state: the JAX SimState's fields less the legacy convex caches
+    (``cache``, ``sleep_cache``), which the pair-store path never reads."""
 
     bodies: BodyState
+    ccache: PairCache  # compound child contact records
+    joint_impulses: dict  # name -> (M, N_IMPULSE)
+    joint_colors: dict  # name -> (M,) int32 persisted solver colors, -1 = none
+    sleep_ccache: PairCache  # sleeping compound child records
     store: PairStore
 
 
@@ -116,7 +138,8 @@ class StepDiagnostics(NamedTuple):
     pair_count: torch.Tensor
     contact_count: torch.Tensor
     overflow: torch.Tensor
-    # Which capacity tripped (bitmask): 1=broad phase, 2=solver buckets, 4=pair store.
+    # Which capacity tripped (bitmask): 1=broad phase, 2=solver buckets, 4=pair store,
+    # 8=compound children, 32=compound sleep retention.
     overflow_src: torch.Tensor = 0
     # (12,) int32 true demand counters:
     # [0 broad-phase candidate pairs, 1 grid entries, 2 grid large set,
@@ -147,18 +170,21 @@ def _check_supported(config: SimConfig, present_types) -> None:
             "'Not to port'): use 'brute' or 'grid2'")
     if config.max_ccd_pairs > 0:
         raise NotImplementedError("CCD is not ported yet (ROADMAP queue 1 item 19)")
-    if present_types is not None and any(t > CONVEX_HULL for t in present_types):
-        raise NotImplementedError("compounds and meshes are not ported yet (ROADMAP queue 1 item 18)")
+    if config.max_cc_pairs > 0:
+        raise NotImplementedError(
+            "compound-vs-compound expansion (max_cc_pairs > 0) is not ported yet "
+            "(ROADMAP queue 1 item 18, expand_compound_compound)")
+    if present_types is not None and any(t > CONVEX_HULL and t != COMPOUND for t in present_types):
+        raise NotImplementedError("meshes are not ported yet (ROADMAP queue 1 item 18)")
 
 
 def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, present_types=None):
     """One full timestep: (state, shapes, joints, dt) → (state', diagnostics)."""
     _check_supported(config, present_types)
-    if joint_banks:
-        raise NotImplementedError("joints are not ported yet (ROADMAP queue 1 items 15-16)")
     dt = float(np.float32(dt))  # the JAX step takes dt as float32
     bodies = state.bodies
     dev = bodies.kind.device
+    C = config.num_colors
 
     # --- Predict bounding boxes (speculative AABBs); no collidable, no overlap.
     aabb_min, aabb_max = compute_body_bounds(
@@ -182,32 +208,55 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
             config.grid_pair_k,
         )
 
-    # --- Pair store + narrow phase. Only convex-capable pairs live in the store.
+    # --- Pair store + narrow phase. Only convex-capable pairs live in the store;
+    # compound-endpoint pairs flow to the child expansion below.
     def _shape_type(body):
         s = bodies.shape[body.long()]
         return torch.where(s >= 0, shapes.type[s.clamp_min(0).long()], -1)
 
     ta_, tb_ = _shape_type(pairs.a), _shape_type(pairs.b)
     insertable = (ta_ >= 0) & (ta_ <= CONVEX_HULL) & (tb_ >= 0) & (tb_ <= CONVEX_HULL)
-    # No joint or compound bank holds color claims in the scenes the port carries.
-    ext_used = torch.zeros(config.body_capacity + 1, dtype=torch.int32, device=dev)
+    # Color claims held by the joint banks and the compound child records: the store
+    # must not admit a pair into a (body, color) slot one of them holds.
+    nb_cap = config.body_capacity
+    ext_used = torch.zeros(nb_cap + 1, dtype=torch.int32, device=dev)
+    for name in joint_banks:
+        bank = joint_banks[name]
+        ext_used = ext_used | pairstore.store_claims(
+            bank["bodies"], state.joint_colors[name], bank["valid"], nb_cap, C)
+    cc = state.ccache
+    ext_used = ext_used | pairstore.store_claims(
+        torch.stack([cc.body_a, cc.body_b], -1), cc.color, cc.valid, nb_cap, C)
     churn_cap, dead_cap, repair_cap = config.store_caps()
     store, sovfl, store_demand, active = pairstore.update(
         state.store, bodies.kind, bodies.awake, bodies.collision_group,
         aabb_min, aabb_max, pairs.a, pairs.b, pairs.valid, insertable,
-        config.num_colors, ext_used, churn_cap, dead_cap, repair_cap,
+        C, ext_used, churn_cap, dead_cap, repair_cap,
     )
     prestep, imp, _ = narrow_phase_store(bodies, shapes, store, active, dt,
                                          present_types=present_types)
+    has_compounds = present_types is None or COMPOUND in present_types or MESH in present_types
+    if has_compounds:
+        cprestep, cimp, cpcolor, ckey, covfl = narrow_phase_compound(
+            bodies, shapes, pairs, state.ccache, dt, config.max_compound_pairs,
+            config.children_per_pair, config.child_window, present_types=present_types,
+            max_cc_pairs=config.max_cc_pairs, cc_children_per_side=config.cc_children_per_side,
+            sleep_bank=state.sleep_ccache if config.enable_sleep else None,
+        )
 
     # --- Wake sleeping bodies touched by awake dynamics (whole stored islands).
     if config.enable_sleep:
         bodies = wake_touched(bodies, prestep)
+        if has_compounds:
+            bodies = wake_touched(bodies, cprestep)
 
     # --- Solve (substepped TGS; includes all pose/velocity integration).
+    banks = {name: dict(joint_banks[name], impulse=state.joint_impulses[name],
+                        color=state.joint_colors[name]) for name in joint_banks}
     store_bank = dict(store=store, ps=prestep, imp=imp, active=active)
-    bodies, imps, _, solver_overflow, _, _, solver_demand = solve_all(
-        bodies, [], {}, config.integrator, config.solve_config(), dt,
+    contact_banks = [(cprestep, cimp, cpcolor)] if has_compounds else []
+    bodies, imps, joint_imps, solver_overflow, ccolors, jcolors, solver_demand = solve_all(
+        bodies, contact_banks, banks, config.integrator, config.solve_config(), dt,
         store_bank=store_bank, base_used=store.used,
     )
     # Impulses return in slot order and persist only for rows that solved this frame;
@@ -229,7 +278,8 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
 
     # --- Island sleeping.
     if config.enable_sleep:
-        bodies = update_sleep(bodies, [prestep], {}, dt, config.sleep_time)
+        sleep_presteps = [prestep] + ([cprestep] if has_compounds else [])
+        bodies = update_sleep(bodies, sleep_presteps, banks, dt, config.sleep_time)
 
     def _src(flag, bit):
         return torch.where(flag, bit, 0).to(torch.int32)
@@ -237,6 +287,22 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
     overflow = pairs.overflow | solver_overflow | sovfl
     ovfl_src = _src(pairs.overflow, 1) | _src(solver_overflow, 2) | _src(sovfl, 4)
     contact_count = (prestep.contact_mask & prestep.valid[:, None]).sum().to(torch.int32)
+    ccache, sleep_ccache = state.ccache, state.sleep_ccache
+    if has_compounds:
+        ccache = update_cache_keyed(cprestep, imps[-1], ckey, ccolors[0])
+        overflow = overflow | covfl
+        ovfl_src = ovfl_src | _src(covfl, 8)
+        contact_count = contact_count + (
+            cprestep.contact_mask & cprestep.valid[:, None]).sum().to(torch.int32)
+        if config.enable_sleep:
+            # The JAX package runs the merge only when something sleeps or the bank holds
+            # rows; the port runs it always and keeps the bank where that is false.
+            asleep = ((bodies.kind == KIND_DYNAMIC) & ~bodies.awake).any()
+            sleep_ccache, scovfl = retain_sleeping_when(
+                asleep | state.sleep_ccache.valid.any(), state.sleep_ccache, ccache,
+                bodies.kind, bodies.awake, nb_cap, sub_cap=config.children_per_pair)
+            overflow = overflow | scovfl
+            ovfl_src = ovfl_src | _src(scovfl, 32)
     bd = pairs.demand
     diag = StepDiagnostics(
         pair_count=store.live.sum().to(torch.int32),
@@ -248,16 +314,19 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
             store_demand[1:2], bd[3:6], torch.zeros(1, dtype=torch.int32, device=dev),
         ]),
     )
-    return SimState(bodies, store), diag
+    return SimState(bodies, ccache, joint_imps, jcolors, sleep_ccache, store), diag
 
 
 step = _step_impl
 
 
 def _leaves(tree):
-    """Tensor leaves of a NamedTuple tree, in field order."""
+    """Tensor leaves of a NamedTuple tree, in field order (dicts in key order)."""
     if isinstance(tree, torch.Tensor):
         yield tree
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
     else:
         for x in tree:
             yield from _leaves(x)
@@ -265,13 +334,16 @@ def _leaves(tree):
 
 class Simulation:
     """Host-side facade (reference Simulation.Create; Simulation.cs:106). ``device``
-    places the state and every step on that torch device."""
+    places the state and every step on that torch device: the CUDA card unless the
+    caller asks for another (``device="cpu"``). Without a card, a default simulation
+    raises when it first touches the device."""
 
-    def __init__(self, config: SimConfig = SimConfig(), device="cpu"):
+    def __init__(self, config: SimConfig = SimConfig(), device="cuda"):
         self.config = config
         self.device = torch.device(device)
         self.shapes = ShapeRegistry(config.shape_capacity)
         self._host = BodyBuffer(config.body_capacity)
+        self.joints: dict = {}  # name -> JointTypeStore
         self._state: Optional[SimState] = None
         self._colors_stale = False
         self._dirty = True
@@ -287,8 +359,9 @@ class Simulation:
     def reconfigure(self, **overrides) -> None:
         """Change the static configuration in place (reference Simulation.EnsureCapacity /
         Resize, Simulation.cs:332-415). A change of the pair store's capacity or page
-        migrates the store host-side, keeping every live pair's record. ``body_capacity``
-        is not resizable: the store's per-body tables are sized by it."""
+        migrates the store host-side, keeping every live pair's record; the compound child
+        caches resize with their records kept. ``body_capacity`` is not resizable: the
+        store's per-body tables and the cache keys are sized by it."""
         if "body_capacity" in overrides and overrides["body_capacity"] != self.config.body_capacity:
             raise ValueError("body_capacity is not resizable (pair keys encode it)")
         self._sync_from_device()
@@ -300,7 +373,10 @@ class Simulation:
             if store.capacity != cap or store.page != page:
                 store = pairstore.migrate(store, cap, cfg.body_capacity, page, cfg.num_colors,
                                           kind=self._host.kind)
-            self._state = self._state._replace(store=store)
+            cc_cap = cfg.compound_capacity()
+            self._state = self._state._replace(
+                store=store, ccache=self._state.ccache.resized(cc_cap),
+                sleep_ccache=self._state.sleep_ccache.resized(cc_cap))
         self._dirty = True
 
     def autosize(self, dt: float = 1.0 / 60.0, probe_steps: int = 16,
@@ -312,7 +388,8 @@ class Simulation:
         (``StepDiagnostics.demand``) to the host, reconfigure capacities to demand ×
         ``headroom``, and repeat while an overflow bit is still set. After a change of
         ``max_pairs`` the next round first runs ``probe_steps`` to let the migrated store
-        refill before it measures. Returns {"demand", "overflow", "rounds"}."""
+        refill before it measures. Compound-child overflow (bit 8) has no demand counter
+        and doubles ``max_compound_pairs``. Returns {"demand", "overflow", "rounds"}."""
         d = None
         rounds = 0
         resized_store = False
@@ -323,6 +400,7 @@ class Simulation:
             self.run(probe_steps, dt, chunk=probe_steps)
             diag = self.last_diag
             d = diag.demand.cpu().numpy()
+            src = int(diag.overflow_src)
             n = self.config.body_capacity
 
             def up(x, mult=256, floor=512):
@@ -358,6 +436,8 @@ class Simulation:
                 new["grid_pair_k"] = min(
                     2 * self.config.grid_pair_k,
                     new.get("grid_cell_capacity", self.config.grid_cell_capacity))
+            if src & 8:
+                new["max_compound_pairs"] = 2 * self.config.max_compound_pairs
             changed = {k: v for k, v in new.items() if v != getattr(self.config, k)}
             if changed:
                 self.reconfigure(**changed)
@@ -392,19 +472,88 @@ class Simulation:
     def body_count(self) -> int:
         return self._host.count
 
+    # --- constraints -------------------------------------------------------------------
+    def add_constraint(self, type_name: str, bodies, **params):
+        """Add a joint (reference Solver.Add, Solver.cs:1208). ``bodies`` is a body handle
+        or a list of handles; ``params`` are the type's description fields. Returns a
+        handle (type_name, slot). Types the port does not carry yet raise."""
+        if type_name not in JOINT_TYPES:
+            raise KeyError(f"unknown constraint type '{type_name}'")
+        if type_name not in self.joints:
+            self.joints[type_name] = JointTypeStore(JOINT_TYPES[type_name],
+                                                    self.config.joint_capacity)
+        self._sync_from_device()
+        self._dirty = True
+        idx = self.joints[type_name].add(bodies, make_description(type_name, **params))
+        # New constraints wake their bodies (reference Solver.Add awakens islands).
+        for h in np.atleast_1d(bodies):
+            if self._host.kind[int(h)] == KIND_DYNAMIC:
+                self._host.awake[int(h)] = True
+                self._host.sleep_timer[int(h)] = 0.0
+        return (type_name, idx)
+
+    def remove_constraint(self, handle) -> None:
+        name, idx = handle
+        self._sync_from_device()
+        self._dirty = True
+        self.joints[name].remove(idx)
+
+    def update_constraint(self, handle, **params) -> None:
+        name, idx = handle
+        self._sync_from_device()
+        self._dirty = True
+        self.joints[name].update_description(idx, make_description(name, **params))
+
+    def get_constraint(self, handle):
+        """A constraint's body references, description fields and accumulated impulses
+        (reference Solver.GetDescription, Solver.cs:1413): (bodies, params, impulses)."""
+        name, idx = handle
+        store = self.joints[name]
+        if not store.valid[idx]:
+            raise KeyError(f"constraint {handle} was removed")
+        self._sync_from_device()
+        nb = 1 if name in ONE_BODY_NAMES else store.n_bodies
+        bodies = [int(b) for b in store.bodies[idx, :nb]]
+        return bodies, unpack_fields(store.cls, store.prestep[idx]), np.array(store.impulse[idx])
+
+    @property
+    def constraint_count(self) -> int:
+        return sum(s.count for s in self.joints.values())
+
     # --- state access ------------------------------------------------------------------
     def _sync_from_device(self) -> None:
         if self._state is not None and not self._dirty:
             self._host.load(self._state.bodies)
+            for name, imps in self._state.joint_impulses.items():
+                self.joints[name].load_impulses(imps)
+                if name in self._state.joint_colors:
+                    self.joints[name].load_colors(self._state.joint_colors[name])
             self._dirty = True  # host is now the source of truth
 
     def _push(self) -> None:
-        cap, page = self.config.store_layout()
-        store = self._state.store if self._state is not None else None
-        if store is None or self._colors_stale:
-            store = PairStore.empty(cap, self.config.body_capacity, page, device=self.device)
+        cfg = self.config
+        cap, page = cfg.store_layout()
+        cc_cap = cfg.compound_capacity()
+        st = self._state
+        stale = self._colors_stale
+        store = st.store if st is not None else None
+        ccache = st.ccache if st is not None else PairCache.empty(cc_cap, device=self.device)
+        if store is None or stale:
+            # A body's kind changed or a slot was recycled: every carried color and the
+            # store (its colors, claims and hash key off body slots) reset; constraints
+            # re-propose colors over the next frames.
+            store = PairStore.empty(cap, cfg.body_capacity, page, device=self.device)
+            ccache = ccache._replace(color=torch.full_like(ccache.color, -1))
+            for js in self.joints.values():
+                js.color[:] = -1
             self._colors_stale = False
-        self._state = SimState(self._host.device(self.device), store)
+        sleep_ccache = (st.sleep_ccache if st is not None and not stale
+                        else PairCache.empty(cc_cap, device=self.device))
+        t = lambda a: torch.from_numpy(np.array(a)).to(self.device)
+        live = {name: js for name, js in self.joints.items() if js.count > 0}
+        self._state = SimState(self._host.device(self.device), ccache,
+                               {n: t(js.impulse) for n, js in live.items()},
+                               {n: t(js.color) for n, js in live.items()}, sleep_ccache, store)
         self._dirty = False
 
     @property
@@ -424,6 +573,67 @@ class Simulation:
             np.array([h.wx[handle], h.wy[handle], h.wz[handle]]),
         )
 
+    # --- host-side setters (reference BodyReference; each wakes a dynamic body) --------
+    def _wake_host(self, handle: int) -> None:
+        if self._host.kind[handle] == KIND_DYNAMIC:
+            self._host.awake[handle] = True
+            self._host.sleep_timer[handle] = 0.0
+
+    def set_pose(self, handle: int, position=None, orientation=None) -> None:
+        """Teleport a body (reference BodyReference.Pose)."""
+        self._sync_from_device()
+        self._dirty = True
+        h = self._host
+        if position is not None:
+            h.px[handle], h.py[handle], h.pz[handle] = position
+        if orientation is not None:
+            h.qx[handle], h.qy[handle], h.qz[handle], h.qw[handle] = orientation
+        self._wake_host(handle)
+
+    def set_local_inertia(self, handle: int, inv_mass: float, inv_inertia) -> None:
+        """A body's inverse mass and local inverse inertia (xx, yx, yy, zx, zy, zz)
+        (reference BodyReference.SetLocalInertia)."""
+        self._sync_from_device()
+        self._dirty = True
+        h = self._host
+        h.inv_mass[handle] = inv_mass
+        h.ixx[handle], h.iyx[handle], h.iyy[handle], h.izx[handle], h.izy[handle], h.izz[handle] = inv_inertia
+        self._wake_host(handle)
+
+    def set_body_kind(self, handle: int, kind: int) -> None:
+        """Kinematic ↔ dynamic (reference Bodies.cs:504): becoming kinematic zeroes the
+        inverse mass and inertia; becoming dynamic needs a following
+        ``set_local_inertia``. Carried colors reset (the conflict structure changed)."""
+        if kind not in (KIND_DYNAMIC, KIND_KINEMATIC):
+            raise ValueError("set_body_kind supports dynamic/kinematic only")
+        self._sync_from_device()
+        self._dirty = True
+        self._colors_stale = True
+        h = self._host
+        h.kind[handle] = kind
+        if kind == KIND_KINEMATIC:
+            h.inv_mass[handle] = 0.0
+            h.ixx[handle] = h.iyx[handle] = h.iyy[handle] = 0.0
+            h.izx[handle] = h.izy[handle] = h.izz[handle] = 0.0
+        h.awake[handle] = True
+        h.sleep_timer[handle] = 0.0
+
+    def wake_body(self, handle: int) -> None:
+        """Explicit wake (reference Bodies.Awaken)."""
+        self._sync_from_device()
+        self._dirty = True
+        self._wake_host(handle)
+
+    def set_velocity(self, handle: int, linear=None, angular=None) -> None:
+        self._sync_from_device()
+        self._dirty = True
+        self._wake_host(handle)
+        h = self._host
+        if linear is not None:
+            h.vx[handle], h.vy[handle], h.vz[handle] = linear
+        if angular is not None:
+            h.wx[handle], h.wy[handle], h.wz[handle] = angular
+
     def state_hash(self) -> int:
         """Deterministic hash of the full device state (reference
         InvasiveHashDiagnostics.cs:10 — cross-run divergence bisection)."""
@@ -438,11 +648,18 @@ class Simulation:
     def _present_types(self):
         return tuple(sorted({int(t) for t in self.shapes.types if t >= 0}))
 
+    def _joint_banks(self, device=None) -> dict:
+        """The joint banks of every type with a live constraint, on ``device`` (the
+        simulation's by default); impulses ride in the state."""
+        dev = self.device if device is None else device
+        return {name: {k: v for k, v in js.device(dev).items() if k != "impulse"}
+                for name, js in self.joints.items() if js.count > 0}
+
     def timestep(self, dt: float = 1.0 / 60.0) -> None:
         if self._dirty:
             self._push()
         self._state, self.last_diag = _step_impl(
-            self._state, self.shapes.device(self.device), {}, dt, self.config,
+            self._state, self.shapes.device(self.device), self._joint_banks(), dt, self.config,
             self._present_types(),
         )
 
@@ -466,15 +683,6 @@ class Simulation:
 # The rest of the JAX Simulation's methods, refused by name until their ROADMAP item
 # lands, so that a script written for the JAX package fails with the reason.
 _NOT_PORTED = {
-    "set_pose": "queue 1 item 11 (host-side setters)",
-    "set_velocity": "queue 1 item 11 (host-side setters)",
-    "set_local_inertia": "queue 1 item 11 (host-side setters)",
-    "set_body_kind": "queue 1 item 11 (host-side setters)",
-    "wake_body": "queue 1 item 11 (host-side setters)",
-    "add_constraint": "queue 1 items 15-16 (joints)",
-    "remove_constraint": "queue 1 items 15-16 (joints)",
-    "update_constraint": "queue 1 items 15-16 (joints)",
-    "get_constraint": "queue 1 items 15-16 (joints)",
     "ray_cast": "queue 1 item 20 (queries)",
     "box_query": "queue 1 item 20 (queries)",
     "sweep": "queue 1 item 20 (queries)",

@@ -1,13 +1,18 @@
-"""Substepped TGS solver: the store fast path over kernels K1 and K2.
+"""Substepped TGS solver: the store fast path over kernels K1 and K2, and the general
+(bucketed) path over kernel K3.
 
-Counterpart of ``SolveConfig`` and ``_solve_store_fast`` in
-``bepuphysics2_tpu/solver/solve.py`` (reference Solver_Solve.cs:1415): the slot-order
-prestep and impulses pack once and move once into the execution layout, the whole
-substepped solve runs in one kernel, and a final pose integration follows. Up to 8,192
-bodies the layout is the page-execution order (pages by color, Jacobi pages last) and
-the kernel is K1; above that, or with ``backend="pallas_win"``, it is the windowed layout
-of ``windowing.py`` and the kernel is K2. The bucketed path and joints are not ported yet
-(ROADMAP queue 1), and ``solve_all`` refuses a scene that would need them.
+Counterpart of ``SolveConfig``, ``_solve_store_fast`` and the single-chip bucketed branch
+of ``solve_all`` in ``bepuphysics2_tpu/solver/solve.py`` (reference Solver_Solve.cs:1415).
+Store-only scenes take the fast path: the slot-order prestep and impulses pack once and
+move once into the execution layout, the whole substepped solve runs in one kernel, and a
+final pose integration follows. Up to 8,192 bodies the layout is the page-execution order
+(pages by color, Jacobi pages last) and the kernel is K1; above that, or with
+``backend="pallas_win"``, it is the windowed layout of ``windowing.py`` and the kernel is
+K2. Scenes with joints or a compound bank take the general path (``solve_bucketed``):
+per step a coloring over every bank and the color-bucket layout of ``buckets.py``; per
+substep the depth update, pose and velocity integration, one warm start of every bank,
+then per velocity iteration each contact bank through K3 and the joint bank's color
+sweep.
 """
 from __future__ import annotations
 
@@ -17,11 +22,16 @@ import numpy as np
 import torch
 
 from ..bodies import BodyState, KIND_DYNAMIC
+from ..collision import pairstore as _ps
 from ..collision.pairstore import _compact
-from ..integrator import IntegratorConfig, integrate_poses
+from ..constraints import contact as contact_mod
+from ..constraints.contact import BodyVel, GatheredInertia
+from ..constraints.joints import JOINT_TYPES, NOT_PORTED_ITEM, JointContext
+from ..integrator import IntegratorConfig, integrate_poses, integrate_velocities
 from ..ops import sweep as psweep
 from ..utils.spring import compute_springiness
 from ..utils.vec import Quat, Sym3, Vec3
+from . import buckets as bk_mod
 from . import windowing
 
 SB_WIN = 256  # rows per windowed slice
@@ -125,8 +135,6 @@ def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool)
     impulses into one (B, 40) matrix, move it once into the execution layout, run the
     whole substepped solve in one kernel, and bring the impulses back to slot order.
     ``use_win`` picks the windowed layout and K2 over the page order and K1."""
-    from ..collision import pairstore as _ps
-
     h, inv_h = substep_scalars(dt, cfg.substeps)
     C = cfg.num_colors
     st = store_bank["store"]
@@ -215,6 +223,235 @@ def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool)
     return state, [imp_slot], {}, overflow, [], {}, demand
 
 
+def _ctx14(state: BodyState, world_ii: Sym3) -> torch.Tensor:
+    """Packed per-substep body context (NB, 14): pos3 | orn4 | inv_mass | inertia6."""
+    return torch.stack([*state.pos, *state.orn, state.inv_mass, *world_ii], -1)
+
+
+def _split14(rows, scale=None):
+    """(m, 14) context rows → (pos, orn, GatheredInertia), inertia times ``scale``."""
+    im = rows[:, 7:14]
+    if scale is not None:
+        im = im * scale[:, None]
+    return (Vec3(rows[:, 0], rows[:, 1], rows[:, 2]),
+            Quat(rows[:, 3], rows[:, 4], rows[:, 5], rows[:, 6]),
+            GatheredInertia(im[:, 0], Sym3(*im[:, 1:].unbind(-1))))
+
+
+def _vel_pair(v6, idx2):
+    g = v6[idx2]
+    m = idx2.shape[0] // 2
+    return (BodyVel(Vec3(g[:m, 0], g[:m, 1], g[:m, 2]), Vec3(g[:m, 3], g[:m, 4], g[:m, 5])),
+            BodyVel(Vec3(g[m:, 0], g[m:, 1], g[m:, 2]), Vec3(g[m:, 3], g[m:, 4], g[m:, 5])))
+
+
+def _pack_dv(dv: BodyVel) -> torch.Tensor:
+    return torch.stack([*dv.linear, *dv.angular], -1)
+
+
+def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg, dt,
+                   store_bank: dict, base_used):
+    """The general solve for scenes with joints (and any compound bank) beside the pair
+    store, at most 8,192 bodies: the JAX package's bucketed ``substep_bucketed`` loop in
+    its Pallas form, with every contact bank through K3 (one launch per bank per velocity
+    iteration per substep). ``joint_banks`` is not empty. Returns as ``solve_all``."""
+    h, inv_h = substep_scalars(dt, cfg.substeps)
+    C = cfg.num_colors
+    n_bodies = state.pos.x.shape[0]
+    dev = state.kind.device
+    tb_names = sorted(joint_banks)
+    contact_banks = [(cb[0], cb[1], cb[2] if len(cb) > 2 and cb[2] is not None else
+                      torch.full((cb[0].body_a.shape[0],), -1, dtype=torch.int32, device=dev))
+                     for cb in contact_banks]
+
+    # The pair store in page-execution order (pages by color, Jacobi pages last).
+    st = store_bank["store"]
+    page = st.page
+    perm_pages, is_jac_pages, inv_perm = _ps.exec_order(st, C)
+    pp, ip = perm_pages.long(), inv_perm.long()
+    pg = lambda x: x.reshape((st.n_pages, page) + x.shape[1:])[pp].reshape(x.shape)
+    ipg = lambda x: x.reshape((st.n_pages, page) + x.shape[1:])[ip].reshape(x.shape)
+    tree = lambda f, t: f(t) if torch.is_tensor(t) else type(t)(*(tree(f, x) for x in t))
+    sps = tree(pg, store_bank["ps"])
+    jrow = is_jac_pages.repeat_interleave(page)
+
+    table = bk_mod.color_table(state, contact_banks, joint_banks, tb_names, cfg, page, base_used)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    jac_demand = torch.zeros((), dtype=torch.int32, device=dev)
+    buckets = []
+    in_jacobi = []
+    for (ps, im, _), col, rnk, cap in zip(contact_banks, table["ccolors"], table["cranks"],
+                                          table["caps"]):
+        b = bk_mod.contact_bucket(ps, im, col, rnk, cap, page, cfg.jacobi_cap_factor, C)
+        overflow = overflow | b["spill"]
+        jac_demand = torch.maximum(jac_demand, b["jac_n"])
+        in_jacobi.append(b["kept_j"])
+        buckets.append(b)
+    ju = bk_mod.joint_bucket(joint_banks, tb_names, table, cfg.jacobi_cap_factor, C)
+    overflow = overflow | ju["spill"]
+    jac_demand = torch.maximum(jac_demand, ju["jac_n"])
+    for name in tb_names:
+        in_jacobi.append(table["bank_valid"][name] & (table["jcolors"][name] == C))
+    valence = bk_mod.valence(table, torch.cat(in_jacobi), n_bodies, st.jacv)
+
+    # The store bucket: page order, Jacobi pages mass-split by the global valence.
+    jac_demand = torch.maximum(jac_demand, (jrow & sps.valid).sum().to(torch.int32))
+    v = lambda t: sps.valid.reshape((-1,) + (1,) * (t.dim() - 1))
+    simp = tree(lambda x: torch.where(v(x), x, 0.0), tree(pg, store_bank["imp"]))
+    buckets.insert(0, dict(ps=sps, imp=simp, is_j=jrow))
+    for b in buckets[1:]:
+        b["is_j"] = torch.arange(b["ps"].body_a.shape[0], device=dev) >= C * b["cap"]
+    for b in buckets:
+        ba, bb = b["ps"].body_a.long(), b["ps"].body_b.long()
+        b["sa"] = torch.where(b["is_j"], valence[ba], 1.0)
+        b["sb"] = torch.where(b["is_j"], valence[bb], 1.0)
+        b["idx2"] = torch.cat([ba, bb])
+        b["s2"] = torch.cat([b["sa"], b["sb"]])
+        b["k_idx2"] = bk_mod.slice_major(b["ps"].body_a, b["ps"].body_b, page).to(torch.int32)
+        b["k_scale"] = bk_mod.slice_major(b["sa"], b["sb"], page)
+        b["spring"] = compute_springiness(b["ps"].spring, h)
+
+    # Joint bank: per-color gathers, and fixed-order sums for the Jacobi slice.
+    sink = n_bodies
+    cap_u, ncap = ju["cap"], ju["ncap"]
+    ja, jb = ju["a"].long(), ju["b"].long()
+    ju["idx2"] = torch.cat([ja, jb])
+    pres2 = torch.cat([ju["present"], ju["present"]])
+    ju["idx2_col"] = [torch.cat([ja[c * cap_u:(c + 1) * cap_u], jb[c * cap_u:(c + 1) * cap_u]])
+                      for c in range(C)]
+    ju["tgt_col"] = [torch.where(pres2.reshape(2, -1)[:, c * cap_u:(c + 1) * cap_u].reshape(-1),
+                                 ju["idx2_col"][c], sink) for c in range(C)]
+    ju["idx2_j"] = torch.cat([ja[ncap:], jb[ncap:]])
+    pj = torch.cat([ju["present"][ncap:], ju["present"][ncap:]])
+    ju["s2_j"] = torch.cat([valence[ja[ncap:]], valence[jb[ncap:]]])
+    ju["sum_j"] = bk_mod.FixedOrderSum(torch.where(pj, ju["idx2_j"], sink), n_bodies)
+    warm_sum = bk_mod.FixedOrderSum(
+        torch.cat([b["idx2"] for b in buckets] + [torch.where(pres2, ju["idx2"], sink)]), n_bodies)
+
+    def ju_ctx(table14, v6, idx2, active, scale2=None):
+        rows = table14[idx2]
+        m = idx2.shape[0] // 2
+        pos_a, orn_a, gi_a = _split14(rows[:m], None if scale2 is None else scale2[:m])
+        pos_b, orn_b, gi_b = _split14(rows[m:], None if scale2 is None else scale2[m:])
+        va, vb = _vel_pair(v6, idx2)
+        return JointContext(pos_a=pos_a, orn_a=orn_a, inertia_a=gi_a, vel_a=va, pos_b=pos_b,
+                            orn_b=orn_b, inertia_b=gi_b, vel_b=vb, active=active)
+
+    def ju_apply(fn_name, ps, imp, tag, ctx):
+        """Every present type's solve / warm start masked by the row tag, merged."""
+        n = tag.shape[0]
+        z = Vec3.zeros(n, device=dev)
+        dva, dvb = BodyVel(z, z), BodyVel(z, z)
+        new_imp = imp
+        for name in tb_names:
+            cls = JOINT_TYPES[name]
+            m_t = ctx.active & (tag == ju["type_ids"][name])
+            ctx_t = ctx._replace(active=m_t)
+            ps_t, imp_t = ps[:, :cls.N_PRESTEP], new_imp[:, :cls.N_IMPULSE]
+            if fn_name == "solve":
+                imp_out, da, db = cls.solve(ps_t, imp_t, ctx_t, h, inv_h)
+                new_imp = torch.where(m_t[:, None], bk_mod.pad_cols(imp_out, bk_mod.U_IMPULSE),
+                                      new_imp)
+            else:
+                da, db = cls.warm_start(ps_t, imp_t, ctx_t)
+            sel = lambda d: BodyVel(Vec3(*(torch.where(m_t, c, 0.0) for c in d.linear)),
+                                    Vec3(*(torch.where(m_t, c, 0.0) for c in d.angular)))
+            da, db = sel(da), sel(db)
+            dva = BodyVel(dva.linear + da.linear, dva.angular + da.angular)
+            dvb = BodyVel(dvb.linear + db.linear, dvb.angular + db.angular)
+        return new_imp, dva, dvb
+
+    def ju_color_sweep(table14, v6, imp):
+        """One Gauss-Seidel sweep over the unified joint bank. Within a color no two live
+        rows share a dynamic body, and rows of other bodies carry exact zeros, so each
+        color's deltas add with ``index_add`` in any order; the Jacobi slice sums in fixed
+        order."""
+        ext = torch.cat([v6, v6[:1]])
+        for c in range(C):
+            cs = slice(c * cap_u, (c + 1) * cap_u)
+            ctx = ju_ctx(table14, ext[:n_bodies], ju["idx2_col"][c], ju["live"][cs])
+            new_imp, dva, dvb = ju_apply("solve", ju["ps"][cs], imp[cs], ju["tag"][cs], ctx)
+            ext = ext.index_add(0, ju["tgt_col"][c], torch.cat([_pack_dv(dva), _pack_dv(dvb)]))
+            imp = torch.cat([imp[:c * cap_u], new_imp, imp[(c + 1) * cap_u:]])
+        v6 = ext[:n_bodies]
+        ctx_j = ju_ctx(table14, v6, ju["idx2_j"], ju["live"][ncap:], ju["s2_j"])
+        new_imp, dva, dvb = ju_apply("solve", ju["ps"][ncap:], imp[ncap:], ju["tag"][ncap:], ctx_j)
+        p2 = torch.cat([_pack_dv(dva), _pack_dv(dvb)]) / ju["s2_j"][:, None]
+        return ju["sum_j"].add(v6, p2), torch.cat([imp[:ncap], new_imp])
+
+    presteps = [b["ps"] for b in buckets]
+    imps = [b["imp"] for b in buckets]
+    ju_imp = ju["imp0"]
+    for s in range(cfg.substeps):
+        if s > 0:
+            v6 = torch.stack([*state.vel, *state.omega], -1)
+            presteps = [contact_mod.incremental_depth_update(ps, *_vel_pair(v6, b["idx2"]), h)
+                        for ps, b in zip(presteps, buckets)]
+            state = integrate_poses(state, integrator_cfg, h)
+        state = integrate_velocities(state, integrator_cfg, h)
+        table14 = _ctx14(state, state.world_inv_inertia())
+        v6 = torch.stack([*state.vel, *state.omega], -1)
+
+        # Warm start: velocity-independent deltas of every bank, summed in fixed order.
+        p2s = []
+        for ps, im, b in zip(presteps, imps, buckets):
+            n = b["idx2"].shape[0] // 2
+            g2 = table14[b["idx2"]][:, 7:14] * b["s2"][:, None]
+            ia = GatheredInertia(g2[:n, 0], Sym3(*g2[:n, 1:].unbind(-1)))
+            ib = GatheredInertia(g2[n:, 0], Sym3(*g2[n:, 1:].unbind(-1)))
+            z = Vec3.zeros(n, device=dev)
+            dva, dvb = contact_mod.warm_start(ps, im, ia, ib, BodyVel(z, z), BodyVel(z, z))
+            p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]) / b["s2"][:, None])
+        ctx_w = ju_ctx(table14, v6, ju["idx2"], ju["live"])
+        _, dva, dvb = ju_apply("warm", ju["ps"], ju_imp, ju["tag"], ctx_w)
+        p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]))
+        v6 = v6 + warm_sum.add(torch.zeros_like(v6), torch.cat(p2s))
+
+        # Velocity iterations: each contact bank through K3, then the joint sweep.
+        ps_ts = [psweep.pack_contact_prestep_cols(ps, b["spring"]).T.contiguous()
+                 for ps, b in zip(presteps, buckets)]
+        inertia7 = table14[:, 7:14].contiguous()
+        for _ in range(cfg.velocity_iterations):
+            for ci, b in enumerate(buckets):
+                imp_t = psweep.pack_contact_impulses_cols(imps[ci]).T.contiguous()
+                v6, imp_t = psweep.contact_sweep(v6.contiguous(), inertia7, ps_ts[ci], imp_t,
+                                                 b["k_idx2"], b["k_scale"], inv_h, sb=page,
+                                                 n_iters=1)
+                imps[ci] = _unpack_impulses(imp_t, imps[ci])
+            v6, ju_imp = ju_color_sweep(table14, v6, ju_imp)
+        state = _vel_from6(state, v6)
+    state = integrate_poses(state, integrator_cfg, h)
+
+    # Impulses back to their banks' order: the store to slot order, the others through
+    # each row's bucket position (rows left out keep their incoming impulses).
+    imps_out = [tree(ipg, imps[0])]
+    for b, (_, im0, _), im in zip(buckets[1:], contact_banks, imps[1:]):
+        B = b["ps"].body_a.shape[0]
+        inb = b["pos"] < B
+        pc = torch.clamp_max(b["pos"], B - 1).long()
+        keep = lambda new, old: torch.where(inb.reshape((-1,) + (1,) * (old.dim() - 1)), new[pc], old)
+        imps_out.append(type(im0)(keep(im.penetration, im0.penetration),
+                                  type(im0.tangent)(*map(keep, im.tangent, im0.tangent)),
+                                  keep(im.twist, im0.twist)))
+    joint_imps = {}
+    BU = ju["present"].shape[0]
+    u = torch.where((ju["pos"] < BU)[:, None], ju_imp[torch.clamp_max(ju["pos"], BU - 1).long()],
+                    0.0)
+    off = 0
+    for name in tb_names:
+        m = joint_banks[name]["bodies"].shape[0]
+        joint_imps[name] = u[off:off + m, :JOINT_TYPES[name].N_IMPULSE]
+        off += m
+    demand = torch.stack([jac_demand, torch.zeros_like(jac_demand)])
+    return (state, imps_out, joint_imps, overflow, table["persist_c"], table["persist_j"],
+            demand)
+
+
+def _unpack_impulses(imp_t, like):
+    return like._replace(penetration=imp_t[:4].T, tangent=like.tangent._replace(
+        x=imp_t[4], y=imp_t[5]), twist=imp_t[6])
+
+
 def solve_all(
     state: BodyState,
     contact_banks,
@@ -226,25 +463,38 @@ def solve_all(
     store_bank: dict = None,
     base_used=None,
 ):
-    """Full substepped solve. The port solves store-only contact scenes through K1 (up to
-    8,192 bodies) or K2 (above that, or with ``backend="pallas_win"``), as the JAX
-    package's ``solve_all`` picks its kernels, and refuses every other bank shape. The
-    JAX package's VMEM and 650k-row feasibility guard is a TPU limit with an XLA path
-    behind it; the card has neither, so K2 takes every windowed bank. Returns (state,
-    [impulses], {joint impulses}, overflow, [colors], {joint colors}, demand (2,)
+    """Full substepped solve. Store-only scenes solve through K1 (up to 8,192 bodies) or K2
+    (above that, or with ``backend="pallas_win"``), as the JAX package's ``solve_all``
+    picks its kernels; scenes with joints (and a compound bank) beside the store take the
+    general path over K3 up to 8,192 bodies. The JAX package's VMEM and 650k-row
+    feasibility guard is a TPU limit with an XLA path behind it; the card has neither, so
+    K2 takes every windowed bank. Every other bank shape is refused by name. Returns
+    (state, [impulses], {joint impulses}, overflow, [colors], {joint colors}, demand (2,)
     [Jacobi rows, wide rows])."""
     if axis_name is not None:
         raise NotImplementedError("sharded solve is not ported yet (ROADMAP queue 1 item 23)")
-    if joint_banks:
-        raise NotImplementedError("joints are not ported yet (ROADMAP queue 1 items 15-16)")
-    if contact_banks:
-        raise NotImplementedError(
-            "contact banks outside the pair store are not ported yet (ROADMAP queue 1 item 18)")
     if store_bank is None:
-        raise NotImplementedError("the port solves through the pair store only (ROADMAP queue 1 item 15)")
+        raise NotImplementedError(
+            "the port solves through the pair store only (the legacy per-frame path is not "
+            "ported: ROADMAP queue 1, 'Not to port')")
     if cfg.iteration_schedule is not None:
         raise NotImplementedError("iteration schedules are not ported yet (ROADMAP queue 1 item 11)")
     if integrator_cfg.velocity_callback is not None:
         raise NotImplementedError("velocity_callback is not ported yet (ROADMAP queue 1 item 11)")
+    mb = sorted(n for n in joint_banks if getattr(JOINT_TYPES[n], "N_BODIES", 2) > 2)
+    if mb:
+        raise NotImplementedError(f"multi-body joints {mb} are not ported yet: {NOT_PORTED_ITEM}")
     use_win = state.pos.x.shape[0] > 8192 or cfg.backend == "pallas_win"
-    return _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win)
+    if not joint_banks and not contact_banks:
+        return _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win)
+    if use_win:
+        raise NotImplementedError(
+            "a jointed or compound scene on the windowed layout (above 8,192 bodies or "
+            "backend='pallas_win') needs kernel K4 contact_sweep_win, not ported yet "
+            "(ROADMAP queue 1 item 24)")
+    if not joint_banks:
+        raise NotImplementedError(
+            "a contact-only scene with a compound bank (the JAX package's whole-solve 'mega' "
+            "branch over the concatenated banks) is not ported yet (ROADMAP queue 1 item 25)")
+    return solve_bucketed(state, contact_banks, joint_banks, integrator_cfg, cfg, dt,
+                          store_bank, base_used)

@@ -11,6 +11,22 @@ import torch
 _BIG = 2**31 - 1
 
 
+def select_cols(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``take_along_axis(arr, idx, axis=-1)``: arr (..., K), idx (..., P) int in [0, K)
+    → (..., P) of arr's dtype (the JAX package's compare-and-reduce form)."""
+    k = arr.shape[-1]
+    eq = idx[..., :, None] == torch.arange(k, dtype=idx.dtype, device=idx.device)
+    a = arr[..., None, :]
+    if arr.dtype == torch.bool:
+        return (eq & a).any(dim=-1)
+    return torch.where(eq, a, torch.zeros((), dtype=arr.dtype, device=arr.device)).sum(dim=-1).to(arr.dtype)
+
+
+def select_col(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Single-index variant: ``take_along_axis(arr, idx[..., None], -1)[..., 0]``."""
+    return select_cols(arr, idx[..., None])[..., 0]
+
+
 def gather_rows(tree, idx):
     """``tree`` (a NamedTuple, dict, or tensor, nested) with every leaf indexed by
     ``idx`` along its leading axis."""

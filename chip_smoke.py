@@ -1,16 +1,20 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds kernels K1 and K2 from the
+"""Smoke run of the PyTorch port on one CUDA card: builds kernels K1, K2 and K3 from the
 repository's sources, holds each against its plain PyTorch version at its main path's
-shapes, then drives the port's two main paths through ``Simulation`` as ``bench.py``
-does and checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1)
-and the 16,384-body pile (grid2 broad phase, autosize, the windowed K2).
+shapes, then drives the port's three main paths through ``Simulation`` as ``bench.py``
+does and checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1),
+the 16,384-body pile (grid2 broad phase, autosize, the windowed K2) and the ragdoll tube
+of 32 ragdolls (joints and a compound: the general path over K3), at bench.py's solver
+settings and at the package's default ones.
 
     python3 chip_smoke.py
 
 Each phase prints one line; any failure raises, so the script exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line before it lists
-every kernel of the path with its launch count on the main path, its error against the
-plain version, and both times. Imports nothing of JAX: the machine with the card has none.
+every kernel of the paths with its launch count on its main path, its error against the
+plain version, its time, the plain version's time and its bound (the least time the card
+could take for the same work). Imports nothing of JAX: the machine with the card has none.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -26,7 +30,12 @@ K1_TOL = 1e-4  # FMA contraction and the kernel's Jacobi summation order, over 4
 K2_SOURCE = "bepuphysics2_tpu_torch/csrc/substeps_contacts_win.cu"
 K2_REPLACES = "bepuphysics2_tpu/ops/sweep.py:1201"
 K2_TOL = 1e-4  # as K1
+K3_SOURCE = "bepuphysics2_tpu_torch/csrc/contact_sweep.cu"
+K3_REPLACES = "bepuphysics2_tpu/ops/sweep.py:294"
+K3_TOL = 1e-4  # as K1
 WIN_TOL = (2e-2, 1e-3)  # the JAX package's envelope for its windowed kernel (max, median)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (data sheet)
 
 
 def _require(cond, msg):
@@ -130,34 +139,121 @@ def phase_device():
 
 
 def phase_build():
-    """Both kernels, one nvcc each, started together; K1 and K2 share contact_rows.cuh."""
+    """Every kernel, one nvcc each, started together; they share contact_rows.cuh."""
     from bepuphysics2_tpu_torch.ops import build
 
+    names = (("K1", "substeps_contacts"), ("K2", "substeps_contacts_win"),
+             ("K3", "contact_sweep"))
     t0 = time.perf_counter()
-    built = build.load_all(["substeps_contacts", "substeps_contacts_win"])
+    built = build.load_all([n for _, n in names])
     wall = time.perf_counter() - t0
-    for label, name in (("K1", "substeps_contacts"), ("K2", "substeps_contacts_win")):
+    for label, name in names:
         report = [ln.strip() for ln in build.build_log(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"[2 build] {label} built for sm_90a in {built[name][1]:.2f} s "
-              f"(both in {wall:.2f} s); ptxas: {' | '.join(report)}")
+              f"(all in {wall:.2f} s); ptxas: {' | '.join(report)}")
 
 
-def _hold(label, kern, plain, v6_in, tol):
+# --- bounds: the least time the card could take for a kernel's work -----------------------
+
+_MOVES = {"view", "_unsafe_view", "select", "slice", "unsqueeze", "squeeze", "expand", "stack",
+          "cat", "index", "unbind", "clone", "copy_", "_to_copy", "lift_fresh", "zeros",
+          "zeros_like", "ones", "ones_like", "full", "full_like", "empty", "new_zeros",
+          "scalar_tensor", "detach", "alias", "t", "transpose", "permute", "reshape", "split",
+          "index_put_", "_local_scalar_dense", "repeat_interleave", "arange"}
+
+
+def _ops_per_item(fn, *args):
+    """Float operations ``fn`` does for one row (or one body): run it on one-row tensors
+    under a dispatch counter and add up the elements of every op that computes (not the
+    ones that only move or create data; an indexed add counts its source)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, fargs=(), kwargs=None):
+            out = func(*fargs, **(kwargs or {}))
+            name = func.__name__.split(".")[0]
+            if name in ("index_add", "index_add_"):
+                Count.n += fargs[3].numel()
+            elif name not in _MOVES:
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                Count.n += sum(o.numel() for o in outs if torch.is_tensor(o))
+            return out
+
+    with Count():
+        fn(*args)
+    return Count.n
+
+
+def _row_ops():
+    """(warm start, one velocity iteration, depth update) operations per row and the
+    substep body block's per body, counted on the plain functions (``ops/sweep.py``)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+    from bepuphysics2_tpu_torch.utils.vec import Quat, Sym3, Vec3
+
+    bank = sweep.synthetic_sweep_bank(8, 8, 1, 0, seed=3)
+    v6, i7, ps_t, imp_t, idx2, scale, inv_h = sweep.sweep_bank_args(bank, "cpu")
+    h = bank["h"]
+    row = lambda solve: sweep._slice_pass(
+        v6.clone(), i7, ps_t[:, :1].contiguous(), imp_t[:, :1].clone(), ps_t[18:22, :1],
+        idx2[[0, 8]].reshape(1, 2).long(), scale[[0, 8]].reshape(1, 2), 0, 1, solve, inv_h)
+    warm, solve = _ops_per_item(row, False), _ops_per_item(row, True)
+    one = lambda: torch.ones(1)
+    va = sweep._vel_of(v6[:1])
+    depth = _ops_per_item(sweep._inc_depth_rows, ps_t[:, :1], ps_t[18:22, :1], va, va, h)
+    body = _ops_per_item(
+        sweep._pose_vel_inertia_block, torch.zeros(1, 6), torch.zeros(1, 7),
+        Vec3(one(), one(), one()), Quat(0 * one(), 0 * one(), 0 * one(), one()), one(),
+        Sym3(one(), 0 * one(), one(), 0 * one(), 0 * one(), one()),
+        torch.ones(1, dtype=torch.bool), torch.ones(1, dtype=torch.bool), h, 1.0, 1.0,
+        (0.0, -10.0, 0.0), 0, 1)
+    return dict(warm=warm, solve=solve, depth=depth, body=body)
+
+
+def _bound(nbytes, ops):
+    """(bound ms, what bounds it): the larger of the bytes over the memory rate and the
+    float32 operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _whole_solve_bound(args, live_rows, n_substeps, n_iters, ops):
+    """K1's and K2's bound: every input read once and every output written once; per
+    substep each live row's warm start and iterations (and its depth update after the
+    first) and each body's substep block."""
+    tensors = [a for a in args if torch.is_tensor(a)]
+    for a in args:
+        if isinstance(a, tuple):
+            tensors += list(a)
+    v6, pos, orn, ps_t, imp_t = args[0], args[1], args[2], args[7], args[8]
+    nbytes = _nbytes(*tensors) + _nbytes(v6, *pos, *orn, imp_t)
+    nb = v6.shape[0]
+    work = n_substeps * (live_rows * (ops["warm"] + n_iters * ops["solve"]) + nb * ops["body"])
+    work += (n_substeps - 1) * live_rows * ops["depth"]
+    return _bound(nbytes, work)
+
+
+def _hold(label, kern, plain, v6_in, tol, outputs=_k1_outputs):
     """Run the kernel and its plain version on the same inputs and hold them together:
     finite, the velocities moved, within ``tol``, bit-identical on a second kernel run.
     Returns (max |diff|, ms of the plain call on the host clock)."""
-    got = _k1_outputs(kern())
+    got = outputs(kern())
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = _k1_outputs(plain())
+    want = outputs(plain())
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     for t in got:
         _require(bool(torch.isfinite(t).all()), f"{label} produced a non-finite value")
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     _require(float((got[0] - v6_in).abs().max()) > 1e-3, f"{label} left the velocities unchanged")
-    again = _k1_outputs(kern())
+    again = outputs(kern())
     _require(all(bool(torch.equal(g, a)) for g, a in zip(got, again)),
              f"{label} is not deterministic run to run")
     _require(err <= tol, f"{label} disagrees with its plain version: {err} > {tol}")
@@ -177,10 +273,12 @@ def phase_kernel(dev):
     err, _ = _hold("K1", kern, plain, args[0], K1_TOL)
     ms = _time_ms(kern, 20)
     plain_ms = _time_ms(plain, 3)
+    live_rows = int((args[7][sweep.PS_VALID] > 0.5).sum())
+    bound_ms, bound_by = _whole_solve_bound(args, live_rows, 4, 1, _row_ops())
     print(f"[3 kernel] K1 vs plain at NB 4160, B 32768, sb 512, 4 substeps, 25% Jacobi "
           f"slices: max |diff| {err:.3e} (limit {K1_TOL}); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms")
-    return err, ms, plain_ms
+          f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, {live_rows} live rows)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _count_host_syncs(sim, steps):
@@ -277,11 +375,14 @@ def phase_kernel_win(dev):
     plain = lambda: sweep._solve_substeps_contacts_win_plain(*args, **kw)
     err, plain_ms = _hold("K2", kern, plain, args[0], K2_TOL)
     ms = _time_ms(kern, 5)
+    live_rows = int((args[7][sweep.PS_VALID] > 0.5).sum())
+    bound_ms, bound_by = _whole_solve_bound(args, live_rows, 4, 1, _row_ops())
     print(f"[7 kernel] K2 vs plain at NP {bank['v6'].shape[0]}, BP {bank['bp']} "
           f"({bank['live_slices']} live slices of 256, {bank['wide_rows']} wide rows), "
           f"4 substeps: max |diff| {err:.3e} (limit {K2_TOL}); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms; bit-identical repeat; bank built in {made:.1f} s")
-    return err, ms, plain_ms
+          f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}); bit-identical repeat; "
+          f"bank built in {made:.1f} s")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_main_path_win(dev, name, smi):
@@ -373,6 +474,273 @@ def phase_main_path_win(dev, name, smi):
     return k2
 
 
+# --- slice 3: the ragdoll tube, the general path over K3 --------------------------------
+
+TUBE_AXIS = (0.0, 6.0)  # (x, y) of the tube's axis; radius 4.5
+TUBE_REACH = 5.0  # radius plus margin: a dynamic body farther from the axis is outside
+
+
+def tube_sim(n_ragdolls, device, substeps=4, num_colors=8, bench=True):
+    """The ragdoll tube as ``__graft_entry__._build_ragdoll_tube_sim`` builds it, with
+    ``bench.py``'s solver settings (color_cap_factor 1.0, jacobi_cap_factor 0.3,
+    color_rounds 1) or, with ``bench=False``, the package's defaults (1.5, 0.3, 3)."""
+    from bepuphysics2_tpu_torch.models import build_ragdoll_tube_sim
+
+    sim, _ = build_ragdoll_tube_sim(n_ragdolls, substeps=substeps, num_colors=num_colors,
+                                    device=device)
+    if bench:
+        sim.config = dataclasses.replace(sim.config, color_cap_factor=1.0,
+                                         jacobi_cap_factor=0.3, color_rounds=1)
+        sim._dirty = True
+    return sim
+
+
+def _inside(pos):
+    """Per body of the (3, N) positions: within reach of the tube's axis and above y = 0."""
+    return (np.hypot(pos[0] - TUBE_AXIS[0], pos[1] - TUBE_AXIS[1]) < TUBE_REACH) & (pos[1] > 0.0)
+
+
+def _ragdolls_inside(state, n_rag):
+    """Bool per body of ``state``: the ten bodies of every ragdoll that lies wholly inside
+    the tube (ragdoll r holds bodies 1 + 10r to 10 + 10r)."""
+    pos = np.stack([t.cpu().numpy() for t in state.bodies.pos])
+    whole = _inside(pos)[1:1 + 10 * n_rag].reshape(n_rag, 10).all(axis=1)
+    mask = np.zeros(pos.shape[1], bool)
+    mask[1:1 + 10 * n_rag] = np.repeat(whole, 10)
+    return torch.from_numpy(mask)
+
+
+def _tube_shape(sim, n_rag):
+    """(dynamic bodies outside the tube, of how many, min y, largest distance from the
+    axis, head-torso distance of every ragdoll) of the simulation's current state."""
+    from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
+
+    st = sim.state
+    dyn = (st.bodies.kind == KIND_DYNAMIC).cpu().numpy()
+    pos = np.stack([t.cpu().numpy() for t in st.bodies.pos])
+    reach = np.hypot(pos[0] - TUBE_AXIS[0], pos[1] - TUBE_AXIS[1])
+    outside = int((~_inside(pos))[dyn].sum())
+    torso, head = 1 + 10 * np.arange(n_rag), 2 + 10 * np.arange(n_rag)
+    apart = np.linalg.norm(pos[:, head] - pos[:, torso], axis=0)
+    return outside, int(dyn.sum()), float(pos[1][dyn].min()), float(reach[dyn].max()), apart
+
+
+def _card_steps_from_cpu(sim, dev, state, frames, held=None):
+    """Carry the CPU state ``state`` through ``frames`` steps of ``sim``'s scene on the CPU
+    (the kernels' plain versions); each frame, step the card from the CPU's state before
+    it. Returns the largest |card - CPU| / (1 + |CPU|) over the pose and velocity of the
+    bodies that ``held(state)`` selects before each step (every body by default), the
+    same over every body, and the CPU's last state."""
+    from bepuphysics2_tpu_torch import simulation as tsim
+    from bepuphysics2_tpu_torch.interop import state_from_numpy, state_to_numpy
+
+    cfg, present = sim.config, sim._present_types()
+    scene = {d: (sim.shapes.device(d), sim._joint_banks(d)) for d in ("cpu", dev)}
+    worst_held = worst_all = 0.0
+    for _ in range(frames):
+        mask = None if held is None else held(state)
+        got, _ = tsim.step(state_from_numpy(state_to_numpy(state), dev), *scene[dev], DT,
+                           cfg, present)
+        state, _ = tsim.step(state, *scene["cpu"], DT, cfg, present)
+        for f in ("pos", "orn", "vel", "omega"):
+            for g, w in zip(getattr(got.bodies, f), getattr(state.bodies, f)):
+                rel = (g.cpu() - w).abs() / (1.0 + w.abs())
+                worst_all = max(worst_all, float(rel.max()))
+                worst_held = max(worst_held, float(rel.max() if mask is None else rel[mask].max()))
+    return worst_held, worst_all, state
+
+
+def phase_kernel_k3(dev):
+    """K3 against its plain version at the tube's compound-bank shapes: 336 bodies, 61
+    slices of 128 rows (48 colored, 13 Jacobi), one velocity iteration."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    bank = sweep.synthetic_sweep_bank(336, 128, n_colored=48, n_jacobi=13, seed=4)
+    args = sweep.sweep_bank_args(bank, dev)
+    kw = dict(sb=128, n_iters=1)
+    kern = lambda: sweep.contact_sweep(*args, **kw)
+    plain = lambda: sweep._contact_sweep_plain(*args, **kw)
+    err, _ = _hold("K3", kern, plain, args[0], K3_TOL, outputs=list)
+    ms = _time_ms(kern, 20)
+    plain_ms = _time_ms(plain, 3)
+    v6, i7, ps_t, imp_t, idx2, scale = args[:6]
+    live_rows = int((ps_t[sweep.PS_VALID] > 0.5).sum())
+    bound_ms, bound_by = _bound(_nbytes(v6, i7, ps_t, imp_t, idx2, scale, v6, imp_t),
+                                live_rows * _row_ops()["solve"])
+    print(f"[11 kernel] K3 vs plain at NB 336, B 7808 (61 slices of 128, 13 Jacobi), 1 "
+          f"iteration: max |diff| {err:.3e} (limit {K3_TOL}); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}, {live_rows} live rows); "
+          f"bit-identical repeat")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_main_path_tube(dev, name, smi, n_rag=32, warm=33, timed=96,
+                         settle=max(31, int(6 * 4096 ** (1 / 3))), hold_frames=4):
+    """The 32-ragdoll tube (bench.py's BENCH_RAGDOLLS sizing: 328 body slots, 321 bodies,
+    576 joints) through bench.py's ragdoll sequence: build, 33 steps, 95 settle, autosize,
+    33, 96 timed. Every step must launch K3 eight times (two contact banks × 4 substeps ×
+    1 iteration) and K1 and K2 never; the plain K3 must never run; the state must stay
+    finite, with no overflow after autosize and no host sync in the timed window. Then,
+    for ``hold_frames`` more frames carried on the CPU from the card's last state, every
+    card step from the CPU's state must land within K3's limit of the CPU's step over the
+    ragdolls wholly inside the tube. The limbs launched out of it are printed, not held:
+    they fly at ~1e4 m/s up to ~1e7 m away, where one step turns a 1e-7 relative change
+    of their velocities into a 1.5e-2 change of their angular velocities on the CPU alone
+    (``tools/tube_sensitivity.py``), so no two f32 implementations agree there.
+
+    Every ragdoll must stay whole (head-torso under 1.2, as ``tests/test_models.py``
+    holds the JAX ragdoll). How many dynamic bodies end outside the tube is printed, not
+    required: at bench.py's solver settings the first step spills the joints' Jacobi
+    bucket (384 rows over a capacity of 176) and the next step launches limbs out of the
+    tube, in the JAX package as in the port (``tools/reference_tube.py``). Phase 15 runs
+    the tube at the package's default settings, where it stays inside."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    sim = tube_sim(n_rag, dev)
+    c = sim.config
+    _require(n_rag != 32 or (c.body_capacity, sim.body_count, sim.constraint_count)
+             == (336, 321, 576), "tube configuration drifted from bench.py's")
+    plain_calls = []
+    plain = sweep._contact_sweep_plain
+    sweep._contact_sweep_plain = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
+    per_step = 2 * c.substeps * c.velocity_iterations
+    stages = []
+    try:
+        sweep.solve_substeps_contacts.launches = 0
+        sweep.solve_substeps_contacts_win.launches = 0
+        sweep.contact_sweep.launches = 0
+        t0 = time.perf_counter()
+        sim.run(warm, DT)
+        sim.run(settle, DT)
+        torch.cuda.synchronize()
+        stages.append(time.perf_counter() - t0)
+        before = sweep.contact_sweep.launches
+        sized = sim.autosize(DT, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
+        probe = (sweep.contact_sweep.launches - before) // per_step
+        sim.run(warm, DT)
+        torch.cuda.synchronize()
+        stages.append(time.perf_counter() - t0)
+        import warnings
+
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sim.run(timed, DT)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+        syncs = sum("synchroniz" in str(w.message) for w in caught) / timed
+    finally:
+        sweep._contact_sweep_plain = plain
+    k1, k2, k3 = (sweep.solve_substeps_contacts.launches,
+                  sweep.solve_substeps_contacts_win.launches, sweep.contact_sweep.launches)
+    steps = warm + settle + probe + warm + timed
+    diag = sim.last_diag
+    st = sim.state
+    from bepuphysics2_tpu_torch.interop import state_from_numpy, state_to_numpy
+
+    start = state_from_numpy(state_to_numpy(st), "cpu")
+    n_held = int(_ragdolls_inside(start, n_rag).sum()) // 10
+    held, held_all, _ = _card_steps_from_cpu(sim, dev, start, hold_frames,
+                                             held=lambda s: _ragdolls_inside(s, n_rag))
+    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
+              st.store.imp_pen, st.ccache.penetration, *st.joint_impulses.values()]
+    _require(all(bool(torch.isfinite(t).all()) for t in leaves), "non-finite state")
+    outside, n_dyn, min_y, reach, apart = _tube_shape(sim, n_rag)
+    c = sim.config
+    print(f"[12 main path] {n_rag}-ragdoll tube ({sim.body_count} bodies, "
+          f"{sim.constraint_count} joints), {warm} + {settle} settle "
+          f"+ autosize ({probe} probe steps, {sized['rounds']} rounds) + {warm} + {timed} "
+          f"steps on {name} ({smi}): {timed / elapsed:.2f} steps/s over the {timed} timed "
+          f"steps; warm-up + settle {stages[0]:.1f} s, to the timed window {stages[1]:.1f} s; "
+          f"pairs {int(diag.pair_count)}, contacts {int(diag.contact_count)}; {outside} of "
+          f"{n_dyn} dynamic bodies outside the tube (min y {min_y:.3g}, max distance "
+          f"from the axis {reach:.3g}), {int((apart >= 1.2).sum())} of {n_rag} ragdolls apart "
+          f"(head-torso >= 1.2; max {apart.max():.3g}); "
+          f"demand {[int(x) for x in diag.demand]}; autosized max_pairs {c.max_pairs}, "
+          f"max_compound_pairs {c.max_compound_pairs}; K3 launches {k3} in {steps} steps, "
+          f"K1 {k1}, K2 {k2}, plain K3 calls {len(plain_calls)}; host syncs per step {syncs:g}; "
+          f"{hold_frames} more frames, each card step from the CPU's state within "
+          f"{held:.3e} of the CPU's over the {n_held} ragdolls inside the tube (limit "
+          f"{K3_TOL:g}, absolute and relative; {held_all:.3e} over every body, not held)")
+    _require(n_held > 0, "no ragdoll is left inside the tube to hold")
+    _require(held <= K3_TOL, "a card step of the tube disagrees with the CPU's beyond K3's limit")
+    _require(k3 == per_step * steps and k1 == 0 and k2 == 0,
+             "the tube did not solve through K3 alone, 8 launches per step")
+    _require(not plain_calls, "the plain K3 ran on the card's main path")
+    _require(not bool(diag.overflow), f"overflow after autosize (src {int(diag.overflow_src)})")
+    _require(int(diag.contact_count) > 0, "no contacts in the tube")
+    _require(apart.max() < 1.2, f"a ragdoll came apart (head-torso {apart.max()})")
+    _require(syncs == 0, f"{syncs} host syncs per step in the timed window")
+    return k3
+
+
+def phase_tube_default_settings(dev, name, smi, n_rag=32, warm=33, timed=96):
+    """The 32-ragdoll tube at the package's default solver settings (color_cap_factor
+    1.5, jacobi_cap_factor 0.3, color_rounds 3), where the first step's joint Jacobi
+    bucket does not spill: 33 steps, then 96 timed. Every dynamic body must stay inside
+    the tube and every ragdoll whole, with no overflow over the timed steps and K3
+    launched 8 times per step."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    sim = tube_sim(n_rag, dev, bench=False)
+    before = sweep.contact_sweep.launches
+    sim.run(warm, DT)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sim.run(timed, DT)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    k3 = sweep.contact_sweep.launches - before
+    diag = sim.last_diag
+    outside, n_dyn, min_y, reach, apart = _tube_shape(sim, n_rag)
+    print(f"[15 tube, default settings] {n_rag}-ragdoll tube, {warm} + {timed} steps on {name} "
+          f"({smi}): {timed / elapsed:.2f} steps/s over the {timed} timed steps; pairs "
+          f"{int(diag.pair_count)}, contacts {int(diag.contact_count)}; {outside} of {n_dyn} "
+          f"dynamic bodies outside the tube (min y {min_y:.3g}, max distance from the axis "
+          f"{reach:.3g}); max head-torso {apart.max():.3g}; demand "
+          f"{[int(x) for x in diag.demand]}; K3 launches {k3} in {warm + timed} steps")
+    _require(outside == 0, f"{outside} dynamic bodies left the tube")
+    _require(apart.max() < 1.2, f"a ragdoll came apart (head-torso {apart.max()})")
+    _require(not bool(diag.overflow), f"overflow in the timed steps (src {int(diag.overflow_src)})")
+    _require(k3 == 8 * (warm + timed), "the tube did not launch K3 8 times per step")
+
+
+def phase_determinism_tube(dev):
+    hashes = []
+    for _ in range(2):
+        sim = tube_sim(4, dev)
+        sim.run(60, DT)
+        torch.cuda.synchronize()
+        hashes.append(sim.state_hash())
+    print(f"[13 determinism] 4-ragdoll tube, 60 steps twice: state_hash {hashes[0]:#018x} "
+          f"/ {hashes[1]:#018x}")
+    _require(hashes[0] == hashes[1], "two identical tube runs on the card differ")
+
+
+def phase_cpu_vs_card_tube(dev, tol=1e-4, frames=20):
+    """The 2-ragdoll tube of the JAX package's model test (2 substeps, 4 colors), 20
+    frames on the CPU. Each frame, stepped again on the card from the CPU's state before
+    it, must land on the CPU's next state within ``tol`` (absolute and relative: K3's
+    limit against its plain version). Both 20-frame trajectories are printed beside it,
+    not held to the pile's envelope: this scene is chaotic from frame 3 (a difference of
+    5e-7 grows to 5e-2 in one frame, between the JAX package's own two paths alike)."""
+    cpu = tube_sim(2, "cpu", substeps=2, num_colors=4)
+    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
+    card = tube_sim(2, dev, substeps=2, num_colors=4)
+    card.run(frames, DT)
+    traj = np.abs(torch.stack(list(last.bodies.pos)).numpy() - positions(card))
+    print(f"[14 cpu vs card] 2-ragdoll tube, {frames} frames: each card step from the CPU's "
+          f"state within {worst:.3e} of the CPU's (limit {tol:g}, absolute and relative); "
+          f"the two trajectories after {frames} frames: max |dpos| {traj.max():.3e}, median "
+          f"{np.median(traj):.3e} (chaotic scene, not held)")
+    _require(worst <= tol, "a card step disagrees with the CPU's beyond K3's limit")
+    _require(np.isfinite(positions(card)).all(), "non-finite card trajectory")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -385,24 +753,29 @@ def main():
     dev = torch.device("cuda")
     name, smi = phase_device()
     phase_build()
-    err, ms, plain_ms = phase_kernel(dev)
-    launches = phase_main_path(dev, name, smi)
+    k1 = phase_kernel(dev)
+    k1["launches"] = phase_main_path(dev, name, smi)
     phase_determinism(dev)
     phase_cpu_vs_card(dev)
-    err2, ms2, plain_ms2 = phase_kernel_win(dev)
-    launches2 = phase_main_path_win(dev, name, smi)
+    k2 = phase_kernel_win(dev)
+    k2["launches"] = phase_main_path_win(dev, name, smi)
     win = dict(solver_backend="pallas_win", broadphase="grid2")
     phase_determinism(dev, "9 determinism", " on the windowed path (grid2, K2)", **win)
     phase_cpu_vs_card(dev, "10 cpu vs card", " on the windowed path", WIN_TOL, **win)
-    print(json.dumps({"kernels": [{
-        "name": "solve_substeps_contacts (K1)", "route": "cuda", "source": K1_SOURCE,
-        "replaces": K1_REPLACES, "launches": launches, "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-    }, {
-        "name": "solve_substeps_contacts_win (K2)", "route": "cuda", "source": K2_SOURCE,
-        "replaces": K2_REPLACES, "launches": launches2, "max_abs_err": err2,
-        "ms": ms2, "plain_ms": plain_ms2,
-    }]}))
+    k3 = phase_kernel_k3(dev)
+    k3["launches"] = phase_main_path_tube(dev, name, smi)
+    phase_determinism_tube(dev)
+    phase_cpu_vs_card_tube(dev)
+    phase_tube_default_settings(dev, name, smi)
+    # No single PyTorch call computes any of these functions: library_ms is null.
+    rows = [("solve_substeps_contacts (K1)", K1_SOURCE, K1_REPLACES, k1),
+            ("solve_substeps_contacts_win (K2)", K2_SOURCE, K2_REPLACES, k2),
+            ("contact_sweep (K3)", K3_SOURCE, K3_REPLACES, k3)]
+    print(json.dumps({"kernels": [dict(
+        name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
+        max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
+        bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
+    ) for n, src, rep, k in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -10,7 +10,8 @@ DT = 1 / 60
 
 
 def _ball_drop(mod):
-    sim = mod.Simulation(mod.SimConfig(body_capacity=64, max_pairs=256, substeps=8))
+    kw = dict(device="cpu") if mod is tbp else {}
+    sim = mod.Simulation(mod.SimConfig(body_capacity=64, max_pairs=256, substeps=8), **kw)
     ground = sim.add_shape(mod.Box(50.0, 0.5, 50.0))
     s = mod.Sphere(0.5)
     ss = sim.add_shape(s)

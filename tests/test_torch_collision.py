@@ -20,6 +20,8 @@ from bepuphysics2_tpu.collision import pairstore as jstore
 from bepuphysics2_tpu.collision import testers as jtesters
 from bepuphysics2_tpu.shapes import bounds as jbounds
 from bepuphysics2_tpu.shapes.registry import ShapeRegistry as JRegistry
+import bepuphysics2_tpu_torch as tbp
+from bepuphysics2_tpu_torch.shapes.registry import ShapeRegistry as TRegistry
 from bepuphysics2_tpu.utils.vec import Quat as JQuat, Vec3 as JVec3
 
 from bepuphysics2_tpu_torch.collision import broadphase, narrowphase, pairstore, testers
@@ -295,3 +297,203 @@ def test_narrow_phase_store_matches_jax(updated):
     _close(tps, _np(jps))
     _close(timp, _np(jimp))
     assert int(np.asarray(jps.valid).sum()) > 10
+
+
+# --- slice 3: capsules, compounds and the compound narrow phase ---------------------------
+
+@pytest.mark.parametrize("pair", ["sphere_capsule", "capsule_capsule", "capsule_box"])
+def test_capsule_tester_matches_jax(pair):
+    rng = np.random.default_rng({"sphere_capsule": 13, "capsule_capsule": 14,
+                                 "capsule_box": 15}[pair])
+    n = 300
+    sphere = np.zeros((n, 12), np.float32)
+    sphere[:, 0] = rng.uniform(0.2, 0.8, n)
+    capsule = np.zeros((n, 12), np.float32)
+    capsule[:, :2] = rng.uniform(0.1, 0.6, (n, 2))
+    box = np.zeros((n, 12), np.float32)
+    box[:, :3] = rng.uniform(0.2, 0.8, (n, 3))
+    pa, pb = {"sphere_capsule": (sphere, capsule), "capsule_capsule": (capsule, capsule),
+              "capsule_box": (capsule, box)}[pair]
+    reach = pa[:, :2].sum(1) + (pb[:, :3].max(1) if pair == "capsule_box" else pb[:, :2].sum(1))
+    pos_ab, qa, qb = _relative_poses(rng, n, reach.mean())
+    qb[n // 6: n // 3] = qa[n // 6: n // 3]  # parallel capsules: two-contact manifolds
+
+    def run(mod, V, Q, conv):
+        cols = lambda a, T: T(*(conv(a[:, i].copy()) for i in range(a.shape[1])))
+        p, oa, ob = cols(pos_ab, V), cols(qa, Q), cols(qb, Q)
+        if pair == "sphere_capsule":
+            return mod.sphere_capsule(p, ob, conv(pa), conv(pb))
+        return getattr(mod, pair)(p, oa, ob, conv(pa), conv(pb))
+
+    want = _np(run(jtesters, JVec3, JQuat, jnp.asarray))
+    got = run(testers, Vec3, Quat, torch.from_numpy)
+    _close(got, want)
+    depth = np.where(want.contact_mask, want.depth, np.nan)
+    assert np.nanmax(depth) > 0.05 and np.nanmin(depth) < -0.05
+    if pair != "sphere_capsule":
+        assert want.contact_mask[:, 1].any()  # second contacts occur
+
+
+def _compound_registry(mod, registry_cls):
+    """Spheres, a capsule, a box, a small tube of 12 box panels (the ragdoll tube's
+    construction) and a 40-child compound of spheres and capsules (three clusters)."""
+    reg = registry_cls(32)
+    rows = dict(sphere=reg.add(mod.Sphere(0.25)), capsule=reg.add(mod.Capsule(0.15, 0.3)),
+                box=reg.add(mod.Box(0.2, 0.3, 0.25)))
+    panel = reg.add(mod.Box(0.3, 0.1, 1.5))
+    tube = []
+    for k in range(12):
+        th = 2 * np.pi * k / 12
+        q = (0.0, 0.0, float(np.sin(th / 2)), float(np.cos(th / 2)))
+        tube.append((panel, (2.0 * -np.sin(th), 2.0 * np.cos(th), 0.0), q))
+    rows["tube"] = reg.add(mod.Compound.build(tube))
+    many = [(rows["capsule"] if k % 3 else rows["sphere"],
+             (0.7 * (k % 6) - 1.8, 0.5 * (k // 6), 0.0), (0.0, 0.0, 0.0, 1.0)) for k in range(40)]
+    rows["cluster"] = reg.add(mod.Compound.build(many))
+    return reg, rows
+
+
+def test_capsule_and_compound_bounds_match_jax():
+    """Bounds of spheres, capsules, boxes and two compounds (their bounding sphere), and
+    the registries' compound tables (child pool, child AABBs, clusters) exactly."""
+    jreg, rows = _compound_registry(jbp, JRegistry)
+    treg, _ = _compound_registry(tbp, TRegistry)
+    jsd, tsd = _np(jreg.device()), treg.device("cpu")
+    for f in tsd._fields:
+        g, w = getattr(tsd, f).numpy(), getattr(jsd, f)
+        if w.dtype.kind in "biu":
+            np.testing.assert_array_equal(g, w, err_msg=f)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-6, err_msg=f)
+    assert (jsd.cl_count > 0).sum() >= 4  # the 40-child compound spans three clusters
+    rng = np.random.default_rng(21)
+    n = 120
+    pos, orn, vel, omega, _, spec = _random_bodies(rng, n, 3.0, (0,))
+    shape = rng.choice(list(rows.values()) + [-1], n).astype(np.int32)
+    cols = lambda a, V: V(*(a[:, i].copy() for i in range(a.shape[1])))
+    want = jbounds.compute_body_bounds(
+        cols(pos, JVec3), cols(orn, JQuat), cols(vel, JVec3), cols(omega, JVec3),
+        jnp.asarray(shape), jax.tree_util.tree_map(jnp.asarray, jsd), DT, spec_min=spec)
+    t = torch.from_numpy
+    tcols = lambda a, V: V(*(t(a[:, i].copy()) for i in range(a.shape[1])))
+    got = bounds.compute_body_bounds(tcols(pos, Vec3), tcols(orn, Quat), tcols(vel, Vec3),
+                                     tcols(omega, Vec3), t(shape), tsd, DT, spec_min=t(spec))
+    _close(got, _np(want), tol=1e-6)
+
+
+def _compound_scene(step):
+    """Two kinematic compounds among 40 convex bodies in and around them (JAX package),
+    moved by ``step`` frames of their velocities (the second scene finds the first's
+    records)."""
+    from bepuphysics2_tpu import bodies as bmod
+
+    reg, rows = _compound_registry(jbp, JRegistry)
+    buf = bmod.BodyBuffer(48)
+    rng = np.random.default_rng(31)
+    buf.add(bmod.BodyDescription.kinematic((0.0, 0.0, 0.0), rows["tube"],
+                                           angular_velocity=(0.0, 0.0, 1.0)))
+    buf.add(bmod.BodyDescription.kinematic((0.0, -4.0, 0.0), rows["cluster"]))
+    shapes = {"sphere": jbp.Sphere(0.25), "capsule": jbp.Capsule(0.15, 0.3),
+              "box": jbp.Box(0.2, 0.3, 0.25)}
+    for k in range(40):
+        name = ("sphere", "capsule", "box")[k % 3]
+        r = rng.uniform(1.3, 1.95) if k < 30 else rng.uniform(0.0, 1.0)
+        th = rng.uniform(0, 2 * np.pi)
+        p = (r * np.cos(th), r * np.sin(th), rng.uniform(-1.2, 1.2)) if k < 30 else \
+            (rng.uniform(-2, 2), -4.0 + rng.uniform(-0.5, 1.0), rng.uniform(-0.3, 0.3))
+        q = rng.normal(size=4)
+        buf.add(bmod.BodyDescription.dynamic(
+            p, rows[name], 1.0, shapes[name], orientation=tuple(q / np.linalg.norm(q)),
+            velocity=tuple(rng.uniform(-1, 1, 3))))
+    for arr, v in ((buf.px, buf.vx), (buf.py, buf.vy), (buf.pz, buf.vz)):
+        arr += v * step * float(DT)
+    return reg, buf
+
+
+def _jax_pairs(state, sd, max_pairs=1024):
+    lo, hi = jbounds.compute_body_bounds(state.pos, state.orn, state.vel, state.omega,
+                                         state.shape, sd, DT, spec_min=state.spec_margin_min)
+    return jbroad.brute_force(lo, hi, state.kind, state.awake, state.collision_group, max_pairs)
+
+
+@pytest.fixture(scope="module")
+def compound_inputs():
+    """The compound scene, its pairs, and a warm-start cache and sleep bank built from a
+    first JAX narrow phase (random impulses and colors, rows split between the two)."""
+    jreg, jbuf = _compound_scene(0)
+    sd = jax.tree_util.tree_map(jnp.asarray, _np(jreg.device()))
+    st0 = jbuf.device()
+    pairs0 = _jax_pairs(st0, sd)
+    cache0 = jnarrow.PairCache.empty(256 * 4)
+    ps0, imp0, _, key0, _ = jnarrow.narrow_phase_compound(st0, sd, pairs0, cache0, DT, 256, 4, 64)
+    rng = np.random.default_rng(41)
+    m = ps0.valid.shape[0]
+    pen = jnp.asarray(rng.uniform(0, 1, (m, 4)).astype(np.float32))
+    imp_r = imp0._replace(penetration=pen, twist=pen[:, 1] - 0.5)
+    col = jnp.asarray(rng.integers(-1, 4, m).astype(np.int32))
+    half = jnp.asarray(rng.uniform(size=m) < 0.5)
+    act = jnarrow.update_cache_keyed(ps0._replace(valid=ps0.valid & half), imp_r, key0, col)
+    slp = jnarrow.update_cache_keyed(ps0._replace(valid=ps0.valid & ~half), imp_r, key0, col)
+    slp = jax.tree_util.tree_map(lambda x: x[jnp.argsort(slp.key)], slp)
+    _, jbuf1 = _compound_scene(1)
+    st1 = jbuf1.device()
+    return dict(sd=_np(sd), st=_np(st1), pairs=_np(_jax_pairs(st1, sd)), cache=_np(act),
+                sleep=_np(slp), n_valid0=int(ps0.valid.sum()))
+
+
+def test_expand_compound_pairs_matches_jax(compound_inputs):
+    from bepuphysics2_tpu.collision import compound as jcompound
+    from bepuphysics2_tpu_torch.collision import compound
+
+    ci = compound_inputs
+    jst = jax.tree_util.tree_map(jnp.asarray, ci["st"])
+    jsd = jax.tree_util.tree_map(jnp.asarray, ci["sd"])
+    p = ci["pairs"]
+    want = _np(jcompound.expand_compound_pairs(jst, jsd, jnp.asarray(p.a), jnp.asarray(p.b),
+                                               jnp.asarray(p.valid), 256, 4, 64, dt=DT))
+    t = lambda x: torch.from_numpy(np.array(x))
+    got = compound.expand_compound_pairs(_to_torch(ci["st"], "cpu"), shapes_from_numpy(ci["sd"], "cpu"),
+                                         t(p.a), t(p.b), t(p.valid), 256, 4, 64, dt=DT)
+    _close(got, want, tol=1e-6)
+    assert int(want.valid.sum()) > 20 and bool(want.overflow)  # some pairs want > 4 children
+
+
+def test_narrow_phase_compound_matches_jax(compound_inputs):
+    """Child manifolds, the prestep, the keyed warm start from the active cache and the
+    sleep bank, the carried colors and keys."""
+    ci = compound_inputs
+    present = (0, 1, 2, 6)
+    jst = jax.tree_util.tree_map(jnp.asarray, ci["st"])
+    jsd = jax.tree_util.tree_map(jnp.asarray, ci["sd"])
+    jp = jax.tree_util.tree_map(jnp.asarray, ci["pairs"])
+    want = _np(jnarrow.narrow_phase_compound(
+        jst, jsd, jp, jax.tree_util.tree_map(jnp.asarray, ci["cache"]), DT, 256, 4, 64,
+        present_types=present, sleep_bank=jax.tree_util.tree_map(jnp.asarray, ci["sleep"])))
+    p = ci["pairs"]
+    t = lambda x: torch.from_numpy(np.array(x))
+    got = narrowphase.narrow_phase_compound(
+        _to_torch(ci["st"], "cpu"), shapes_from_numpy(ci["sd"], "cpu"),
+        broadphase.PairList(t(p.a), t(p.b), t(p.valid), t(np.array(p.overflow)), t(p.demand)),
+        _to_torch(ci["cache"], "cpu"), DT, 256, 4, 64, present_types=present,
+        sleep_bank=_to_torch(ci["sleep"], "cpu"))
+    _close(got, want)
+    ps, imp, col = want[0], want[1], want[2]
+    assert int(ps.valid.sum()) > 20
+    carried = np.asarray(imp.penetration).sum(1) > 0
+    assert carried.sum() > 10 and (np.asarray(col)[carried] >= 0).any()
+    assert (np.asarray(col)[carried] == -1).any()  # sleep-bank hits carry no color
+
+
+def test_retain_sleeping_matches_jax(compound_inputs):
+    ci = compound_inputs
+    rng = np.random.default_rng(51)
+    nb = ci["st"].kind.shape[0]
+    kind = np.asarray(ci["st"].kind)
+    awake = rng.uniform(size=nb) < 0.5
+    args = (ci["sleep"], ci["cache"])
+    want = _np(jnarrow.retain_sleeping(*(jax.tree_util.tree_map(jnp.asarray, a) for a in args),
+                                       jnp.asarray(kind), jnp.asarray(awake), nb, sub_cap=4))
+    got = narrowphase.retain_sleeping(*(_to_torch(a, "cpu") for a in args), torch.from_numpy(kind),
+                                      torch.from_numpy(awake), nb, sub_cap=4)
+    _close(got, want, tol=0)
+    assert int(np.asarray(want[0].valid).sum()) > 0

@@ -1,6 +1,7 @@
-"""The port on a CUDA card: kernels K1 and K2 against their plain PyTorch versions, and
-whole steps on the card (the K1 path and the windowed K2 path) against the CPU. Every test needs the card and skips without one; this file
-imports no JAX, so it runs on a machine that has none:
+"""The port on a CUDA card: kernels K1, K2 and K3 against their plain PyTorch versions,
+and whole steps on the card (the K1 path, the windowed K2 path and the general K3 path of
+the ragdoll tube) against the CPU. Every test needs the card and skips without one; this
+file imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
@@ -9,6 +10,8 @@ import pytest
 import torch
 
 import bepuphysics2_tpu_torch as tbp
+import bepuphysics2_tpu_torch.simulation as tsim
+from bepuphysics2_tpu_torch.models import build_ragdoll_tube_sim
 from bepuphysics2_tpu_torch.ops import sweep
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +74,25 @@ def test_k2_matches_plain_on_card(cuda_device, angular_mode):
         np.testing.assert_array_equal(g, a)
 
 
+@pytest.mark.parametrize("n_iters", [1, 2])
+def test_k3_matches_plain_on_card(cuda_device, n_iters):
+    """K3 on a bank of two colored slices and a Jacobi slice with mass-split scales: FMA
+    contraction and the kernel's fixed Jacobi summation order differ from PyTorch's
+    elementwise ops and ``index_add_``: 1e-4 absolute; bit-identical run to run."""
+    bank = sweep.synthetic_sweep_bank(64, SB, 2, 1, seed=5, substeps=4)
+    kw = dict(sb=SB, n_iters=n_iters)
+    before = sweep.contact_sweep.launches
+    got = [t.cpu().numpy() for t in sweep.contact_sweep(*sweep.sweep_bank_args(bank, cuda_device), **kw)]
+    assert sweep.contact_sweep.launches == before + 1
+    want = [t.cpu().numpy() for t in sweep._contact_sweep_plain(
+        *sweep.sweep_bank_args(bank, cuda_device), **kw)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+    again = [t.cpu().numpy() for t in sweep.contact_sweep(*sweep.sweep_bank_args(bank, cuda_device), **kw)]
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g, a)
+
+
 def _pile(device, **cfg):
     sim = tbp.Simulation(tbp.SimConfig(body_capacity=64, max_pairs=256, substeps=2,
                                        num_colors=4, velocity_iterations=2, **cfg),
@@ -128,3 +150,37 @@ def test_windowed_pile_on_card_matches_cpu_and_repeats(cuda_device):
     np.testing.assert_array_equal(card, card2)
     diff = np.abs(card - cpu)
     assert diff.max() < 2e-2 and np.median(diff) < 1e-3
+
+
+def test_ragdoll_tube_on_card_matches_cpu_and_repeats(cuda_device):
+    """The 2-ragdoll tube (joints and the tube's compound bank: the general path): every
+    card step from the CPU's state lands on the CPU's next state within 1e-4 (absolute and
+    relative: K3's limit), 20 frames; K3 launches for both contact banks in every substep
+    and K1 and K2 never; two 20-frame card runs are bit-identical. (The trajectories
+    themselves are chaotic from frame 3, in the JAX package's own two paths alike.)"""
+    from bepuphysics2_tpu_torch.interop import state_from_numpy, state_to_numpy
+
+    cpu, _ = build_ragdoll_tube_sim(2, substeps=2, num_colors=4, device="cpu")
+    card, _ = build_ragdoll_tube_sim(2, substeps=2, num_colors=4, device=cuda_device)
+    shapes, banks = card.shapes.device(cuda_device), card._joint_banks()
+    for _ in range(20):
+        before = state_to_numpy(cpu.state)
+        cpu.timestep(DT)
+        got, _ = tsim.step(state_from_numpy(before, cuda_device), shapes, banks, DT, cpu.config,
+                           card._present_types())
+        for f in ("pos", "orn", "vel", "omega"):
+            for g, w in zip(getattr(got.bodies, f), getattr(cpu.state.bodies, f)):
+                np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=1e-4, atol=1e-4)
+    runs = []
+    for _ in range(2):
+        sim, _ = build_ragdoll_tube_sim(2, substeps=2, num_colors=4, device=cuda_device)
+        k1, k2 = sweep.solve_substeps_contacts.launches, sweep.solve_substeps_contacts_win.launches
+        k3 = sweep.contact_sweep.launches
+        sim.run(20, DT)
+        assert sweep.contact_sweep.launches == k3 + 20 * 2 * 2
+        assert (sweep.solve_substeps_contacts.launches,
+                sweep.solve_substeps_contacts_win.launches) == (k1, k2)
+        runs.append((_positions(sim), sim.state_hash()))
+    (card1, h1), (card2, h2) = runs
+    assert h1 == h2
+    np.testing.assert_array_equal(card1, card2)

@@ -42,7 +42,8 @@ from bepuphysics2_tpu_torch.utils.vec import Vec3
 DT = 1 / 60
 
 
-def _pile(mod, **kw):
+def _pile(mod):
+    kw = dict(device="cpu") if mod is tbp else {}
     sim = mod.Simulation(mod.SimConfig(body_capacity=64, max_pairs=256, substeps=2,
                                        num_colors=4, velocity_iterations=2, enable_sleep=True),
                          **kw)
@@ -292,35 +293,50 @@ def test_port_never_imports_jax():
 
 
 def _tiny(**cfg):
-    sim = tbp.Simulation(tbp.SimConfig(body_capacity=8, max_pairs=64, substeps=1, **cfg))
+    sim = tbp.Simulation(tbp.SimConfig(body_capacity=8, max_pairs=64, substeps=1, **cfg),
+                         device="cpu")
     sim.add_body(tbp.BodyDescription.dynamic((0, 1.0, 0), sim.add_shape(tbp.Sphere(0.5)),
                                              1.0, tbp.Sphere(0.5)))
     return sim
 
 
+def test_simulation_defaults_to_the_card():
+    """The entry point runs on the card unless the caller asks for the CPU; naming the
+    device needs no card."""
+    assert tbp.Simulation(tbp.SimConfig(body_capacity=8, max_pairs=64)).device.type == "cuda"
+    assert _tiny().device.type == "cpu"
+
+
 @pytest.mark.parametrize("case,item", [
-    ("capsule", "item 17"), ("compound", "item 18"), ("jax_shape", "item 17"),
-    ("sweep_broadphase", "Not to port"), ("ccd", "item 19"), ("joint", "items 15-16"),
-    ("set_pose", "item 11"), ("ray_cast", "item 20"),
+    ("cylinder", "item 17"), ("weld", "item 16"), ("jax_shape", "item 17"),
+    ("sweep_broadphase", "Not to port"), ("ccd", "item 19"), ("volume_constraint", "item 16"),
+    ("max_cc_pairs", "item 18"), ("windowed_joints", "item 24"), ("ray_cast", "item 20"),
 ])
 def test_unported_paths_are_refused_by_name(case, item):
     """A scene or call the port cannot carry raises, naming the ROADMAP item; it is never
     solved on a path the port does not have."""
     with pytest.raises(NotImplementedError, match=item):
-        if case == "capsule":
-            _tiny().add_shape(tbp.Capsule(0.5, 1.0))
-        elif case == "compound":
-            _tiny().add_shape(tbp.Compound.build([(0, (0.0, 0.0, 0.0))]))
+        if case == "cylinder":
+            _tiny().add_shape(tbp.Cylinder(0.5, 1.0))
+        elif case == "weld":
+            _tiny().add_constraint("weld", [0, 0])
         elif case == "jax_shape":
             _tiny().add_shape(jbp.Cylinder(0.5, 1.0))
         elif case == "sweep_broadphase":
             _tiny(broadphase="sweep").timestep(DT)
         elif case == "ccd":
             _tiny(max_ccd_pairs=8).timestep(DT)
-        elif case == "joint":
-            _tiny().add_constraint("ball_socket", [0, 1])
-        elif case == "set_pose":
-            _tiny().set_pose(0, (0, 2, 0))
+        elif case == "volume_constraint":
+            _tiny().add_constraint("volume", [0, 0, 0, 0])
+        elif case == "max_cc_pairs":
+            _tiny(max_cc_pairs=4).timestep(DT)
+        elif case == "windowed_joints":
+            sim = _tiny(solver_backend="pallas_win")
+            b = sim.add_body(tbp.BodyDescription.dynamic(
+                (1.0, 1.0, 0), sim.add_shape(tbp.Sphere(0.5)), 1.0, tbp.Sphere(0.5)))
+            sim.add_constraint("ball_socket", [0, b], local_offset_a=(0.5, 0, 0),
+                               local_offset_b=(-0.5, 0, 0))
+            sim.timestep(DT)  # K4 (contact_sweep_win) is the next slice
         else:
             _tiny().ray_cast((0, 5, 0), (0, -1, 0))
 

@@ -1,9 +1,10 @@
-// Per-row contact math and the per-body substep block shared by the whole-solve contact
-// kernels K1 (substeps_contacts.cu) and K2 (substeps_contacts_win.cu). Each is the CUDA
-// restatement of the PyTorch function named beside it in ops/sweep.py, which is itself
-// the counterpart of the JAX package's bepuphysics2_tpu/ops/sweep.py row functions.
-// Included by both kernels, so an edit here changes both (ops/build.py keys every build
-// by the sources and by every header in this directory).
+// Per-row contact math and the per-body substep block shared by the contact kernels K1
+// (substeps_contacts.cu), K2 (substeps_contacts_win.cu), K3 (contact_sweep.cu) and K4
+// (contact_sweep_win.cu). Each is the CUDA restatement of the PyTorch function named
+// beside it in ops/sweep.py, which is itself the counterpart of the JAX package's
+// bepuphysics2_tpu/ops/sweep.py row functions. Included by every kernel, so an edit here
+// changes all of them (ops/build.py keys every build by the sources and by every header
+// in this directory).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -414,23 +415,28 @@ __device__ void pose_vel_inertia_body(float* g, float* ps, const float* ax, int 
   g[9] = w.xx; g[10] = w.yx; g[11] = w.yy; g[12] = w.zx; g[13] = w.zy; g[14] = w.zz;
 }
 
-// One row of a slice pass, warm start (solve = false) or one velocity iteration (solve =
-// true): reads both sides from the state as it was at the slice's start, updates the
-// row's impulses in place (imp rows stride B), and writes each side's six-component
-// deltas divided by that side's mass-split scale to da / db.
-__device__ __forceinline__ void slice_row(const float* ps, int B, int col, float* imp,
-                                          const float* dep_in, const float* bg, int ba,
-                                          int bb, float sa, float sbs, bool solve,
-                                          float inv_h, float* da, float* db) {
+// Both sides' inertia, already mass-split, from a streamed (16, B) block (ops/sweep.py
+// pack_inertia_rows): rows 0-6 the A side's inverse mass and world inverse inertia, rows
+// 8-14 the B side's.
+__device__ __forceinline__ void load_inertia_rows(const float* it, int B, int col, int side,
+                                                  float& im, S3& ii) {
+  const float* g = it + (size_t)side * 8 * B + col;
+  im = g[0];
+  ii = {g[(size_t)1 * B], g[(size_t)2 * B], g[(size_t)3 * B], g[(size_t)4 * B],
+        g[(size_t)5 * B], g[(size_t)6 * B]};
+}
+
+// One row of a slice pass with both sides' inertia given: see slice_row.
+__device__ __forceinline__ void row_pass(const float* ps, int B, int col, float* imp,
+                                         const float* dep_in, const float* bg, int ba, int bb,
+                                         float ia_im, const S3& ia_ii, float ib_im,
+                                         const S3& ib_ii, float sa, float sbs, bool solve,
+                                         float inv_h, float* da, float* db) {
   Row row;
   load_row(ps, B, col, row);
   float dep[4], im[IMP_ROWS];
   for (int k = 0; k < 4; ++k) dep[k] = dep_in[(size_t)k * B + col];
   for (int k = 0; k < IMP_ROWS; ++k) im[k] = imp[(size_t)k * B + col];
-  float ia_im, ib_im;
-  S3 ia_ii, ib_ii;
-  load_inertia(bg, ba, sa, ia_im, ia_ii);
-  load_inertia(bg, bb, sbs, ib_im, ib_ii);
   F3 dva_l, dva_a, dvb_l, dvb_a;
   if (solve) {
     F3 va_l, va_a, vb_l, vb_a;
@@ -446,6 +452,22 @@ __device__ __forceinline__ void slice_row(const float* ps, int B, int col, float
   da[3] = dva_a.x / sa; da[4] = dva_a.y / sa; da[5] = dva_a.z / sa;
   db[0] = dvb_l.x / sbs; db[1] = dvb_l.y / sbs; db[2] = dvb_l.z / sbs;
   db[3] = dvb_a.x / sbs; db[4] = dvb_a.y / sbs; db[5] = dvb_a.z / sbs;
+}
+
+// One row of a slice pass, warm start (solve = false) or one velocity iteration (solve =
+// true): reads both sides from the state as it was at the slice's start, updates the
+// row's impulses in place (imp rows stride B), and writes each side's six-component
+// deltas divided by that side's mass-split scale to da / db.
+__device__ __forceinline__ void slice_row(const float* ps, int B, int col, float* imp,
+                                          const float* dep_in, const float* bg, int ba,
+                                          int bb, float sa, float sbs, bool solve,
+                                          float inv_h, float* da, float* db) {
+  float ia_im, ib_im;
+  S3 ia_ii, ib_ii;
+  load_inertia(bg, ba, sa, ia_im, ia_ii);
+  load_inertia(bg, bb, sbs, ib_im, ib_ii);
+  row_pass(ps, B, col, imp, dep_in, bg, ba, bb, ia_im, ia_ii, ib_im, ib_ii, sa, sbs, solve,
+           inv_h, da, db);
 }
 
 // Per-row incremental depth update of one column (dep rows stride B, updated in place).
@@ -466,13 +488,16 @@ __device__ __forceinline__ void depth_row(const float* ps, int B, int col, float
 // body row of entry q and ord the slice's stable sort of body, so the first entry of
 // each body's run adds the whole run, in ascending entry order. No float atomics: the
 // result is the same on every run. Bodies with zero inverse mass and inertia take no
-// delta (theirs is zero, and statics repeat across rows).
-__device__ void sum_deltas(float* bg, const int* body, const int* ord, const float* D, int m2) {
+// delta (theirs is zero, and statics repeat across rows); with skip_still false (K4,
+// whose body rows hold no inertia) every run is added, a non-dynamic body's run adding
+// exact zeros.
+__device__ void sum_deltas(float* bg, const int* body, const int* ord, const float* D, int m2,
+                           bool skip_still = true) {
   for (int q = threadIdx.x; q < m2; q += blockDim.x) {
     const int b = body[ord[q]];
     if (q > 0 && body[ord[q - 1]] == b) continue;
     float* g = bg + (size_t)b * 16;
-    if (g[8] == 0.0f && g[9] == 0.0f && g[10] == 0.0f && g[11] == 0.0f && g[12] == 0.0f &&
+    if (skip_still && g[8] == 0.0f && g[9] == 0.0f && g[10] == 0.0f && g[11] == 0.0f && g[12] == 0.0f &&
         g[13] == 0.0f && g[14] == 0.0f)
       continue;
     float acc[6];

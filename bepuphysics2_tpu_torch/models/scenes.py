@@ -1,11 +1,12 @@
-"""Scene builders of the benchmark scenarios, the port's own copies of
-``__graft_entry__._build_ragdoll_tube_sim``."""
+"""Scene builders: the port's own copy of ``__graft_entry__._build_ragdoll_tube_sim``, and
+two scenes built from the same parts, the ragdoll pile (the general solve above 8,192
+bodies) and the compound pile (a contact-only scene with a compound bank)."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..bodies import BodyDescription
-from ..shapes import Box, Compound
+from ..bodies import BodyDescription, StaticDescription
+from ..shapes import Box, Compound, Sphere
 from ..simulation import SimConfig, Simulation
 from .ragdoll import add_ragdoll
 
@@ -28,8 +29,17 @@ def build_ragdoll_tube_sim(n_ragdolls: int, substeps: int = 4, num_colors: int =
         shape_capacity=max(256, 8 * n_ragdolls + 64),
     )
     sim = Simulation(config, device=device)
-    radius, n_panels = 4.5, 24
     length = max(8.0, 2.2 * n_ragdolls + 4.0)
+    _add_tube(sim, length)
+    for k in range(n_ragdolls):
+        add_ragdoll(sim, position=(0.0, 5.2, -length * 0.5 + 2.0 + 2.2 * k))
+    return sim, config
+
+
+def _add_tube(sim, length: float):
+    """The tube: a kinematic compound of 24 box panels around a radius-4.5 circle about
+    the z axis through (0, 6, 0), spinning at 1 rad/s."""
+    radius, n_panels = 4.5, 24
     panel_w = 2 * np.pi * radius / n_panels * 0.62  # slight overlap
     box_id = sim.add_shape(Box(panel_w * 0.5, 0.25, length * 0.5))
     children = []
@@ -41,6 +51,85 @@ def build_ragdoll_tube_sim(n_ragdolls: int, substeps: int = 4, num_colors: int =
     tube_shape = sim.add_shape(Compound.build(children))
     tube = sim.add_body(BodyDescription.kinematic((0.0, 6.0, 0.0), tube_shape))
     sim.set_velocity(tube, angular=(0.0, 0.0, 1.0))
-    for k in range(n_ragdolls):
-        add_ragdoll(sim, position=(0.0, 5.2, -length * 0.5 + 2.0 + 2.2 * k))
+
+
+def ragdoll_pile_positions(n_ragdolls: int, layer=(16, 16), seed: int = 0):
+    """(n, 3) standing positions of the ragdoll pile: layers of ``layer`` = (nx, nz)
+    ragdolls, 2.0 m apart in x and 1.0 m in z with +-0.05 m of seeded jitter in x and z,
+    layers 2.2 m apart, the lowest 0.3 m above the ground."""
+    nx, nz = layer
+    k = np.arange(n_ragdolls)
+    jit = np.random.default_rng(seed).uniform(-0.05, 0.05, (n_ragdolls, 2))
+    ix, iz, iy = k % nx, (k // nx) % nz, k // (nx * nz)
+    return np.stack([(ix - (nx - 1) / 2) * 2.0 + jit[:, 0], 0.3 + 2.2 * iy,
+                     (iz - (nz - 1) / 2) * 1.0 + jit[:, 1]], -1)
+
+
+def ragdoll_pile_config(n_ragdolls: int, substeps: int = 4, num_colors: int = 16) -> dict:
+    """The ragdoll pile's ``SimConfig`` fields (``build_ragdoll_pile_sim``)."""
+    n_bodies = 10 * n_ragdolls + 8
+    return dict(  # max_pairs in whole 512-row pages: the windowed slices are 256 rows
+        body_capacity=n_bodies + 8, max_pairs=max(1024, -(-16 * n_bodies // 512) * 512),
+        wide_cap_rows=4 * n_bodies, grid_cell_capacity=128, grid_pair_k=64,
+        substeps=substeps, num_colors=num_colors, jacobi_cap_factor=0.6,
+        joint_capacity=max(256, 16 * n_ragdolls), shape_capacity=max(256, 8 * n_ragdolls + 64))
+
+
+def build_ragdoll_pile_sim(n_ragdolls: int, substeps: int = 4, num_colors: int = 16,
+                           seed: int = 0, layer=(16, 16), device="cuda", **overrides):
+    """The ragdoll pile: ``n_ragdolls`` ragdolls (10 bodies, 18 joints each: the reference
+    RagdollDemo) standing in layers (``ragdoll_pile_positions``) over a static ground box
+    of half extents (100, 0.5, 100) with its top at y = 0. Joint and shape capacities
+    follow the tube builder's formulas. The pair capacities are sized for the step where
+    the top layer lands, the pile's peak (at 1,024 ragdolls: 9.6 candidate pairs, 1.5
+    admissions and 2.0 windowed wide rows per body, and more than 64 entries in a grid
+    cell): ``max_pairs`` 16 per body, ``wide_cap_rows`` 4 per body, grid cell capacity
+    128 and 64 large partners per body. Below that the broad phase drops pairs, the
+    ground's first (large-body pairs come last), and limbs land through the ground
+    (``tools/pile_landing.py`` prints the landing step by step). The solver settings are
+    the package's defaults but for ``jacobi_cap_factor``, 0.6 instead of 0.3: the first
+    step's coloring leaves 10 of each ragdoll's 18 fresh joints to the Jacobi bucket, and
+    at 0.3 the bucket spills and the limbs fly apart, in the JAX package too
+    (``tools/reference_pile.py``). Above 8,192 body slots (820 ragdolls) the
+    grid2 broad phase and the windowed layout run, and the store solves through K4.
+    ``overrides`` replace config fields. Returns (sim, config)."""
+    config = SimConfig(**{**ragdoll_pile_config(n_ragdolls, substeps, num_colors),
+                          **overrides})
+    sim = Simulation(config, device=device)
+    ground = sim.add_shape(Box(100.0, 0.5, 100.0))
+    sim.add_static(StaticDescription(position=(0.0, -0.5, 0.0), shape=ground))
+    for p in ragdoll_pile_positions(n_ragdolls, layer, seed):
+        add_ragdoll(sim, position=tuple(float(c) for c in p))
+    return sim, config
+
+
+def compound_pile_positions(n_bodies: int):
+    """(n, 3) positions of the compound pile's bodies: layers of 3 x 3 just above the
+    bottom of the tube (its inner face is 4.25 m below the axis), 1.0 m apart across it
+    and along it and 0.8 m apart in height."""
+    k = np.arange(n_bodies)
+    return np.stack([(k % 3 - 1) * 1.0, 2.3 + (k // 3 % 3) * 0.8,
+                     -(n_bodies // 9) * 0.5 + (k // 9) * 1.0], -1)
+
+
+def build_compound_pile_sim(n_bodies: int, substeps: int = 4, num_colors: int = 8,
+                            device="cuda"):
+    """The compound pile: the ragdoll tube's spinning kinematic compound tube holding
+    ``n_bodies`` alternating spheres (radius 0.3) and boxes (half extent 0.3) in place of
+    the ragdolls, and no joints: a contact-only scene with a compound bank, which solves
+    in one K1 launch per step over the store's and the compound's banks. Capacities follow
+    the tube builder's formulas. Returns (sim, config)."""
+    n_slots = n_bodies + 8
+    config = SimConfig(
+        body_capacity=n_slots + 8, max_pairs=max(1024, 8 * n_slots),
+        max_compound_pairs=max(256, 2 * n_slots), children_per_pair=8, substeps=substeps,
+        num_colors=num_colors,
+    )
+    sim = Simulation(config, device=device)
+    _add_tube(sim, max(8.0, (n_bodies // 9) * 1.0 + 4.0))
+    sphere, box = Sphere(0.3), Box(0.3, 0.3, 0.3)
+    sphere_id, box_id = sim.add_shape(sphere), sim.add_shape(box)
+    for i, p in enumerate(compound_pile_positions(n_bodies)):
+        sid, obj = (sphere_id, sphere) if i % 2 == 0 else (box_id, box)
+        sim.add_body(BodyDescription.dynamic(tuple(float(c) for c in p), sid, 1.0, obj))
     return sim, config

@@ -15,6 +15,10 @@ import subprocess
 import time
 from pathlib import Path
 
+# Every kernel of the port: its label and its source ``csrc/<name>.cu``.
+KERNELS = {"K1": "substeps_contacts", "K2": "substeps_contacts_win", "K3": "contact_sweep",
+           "K4": "contact_sweep_win"}
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"

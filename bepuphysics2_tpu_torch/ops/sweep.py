@@ -1,14 +1,16 @@
-"""K1, K2 and K3, the contact-solve kernels, and their packed row contract.
+"""K1, K2, K3 and K4, the contact-solve kernels, and their packed row contract.
 
-Counterparts of ``solve_substeps_contacts``, ``solve_substeps_contacts_win`` and
-``contact_sweep`` in ``bepuphysics2_tpu/ops/sweep.py``. K1 and K2 run the whole substepped
-contact solve (incremental depth update, pose/velocity/world-inertia block, warm start,
-velocity iterations) over slices taken in page-execution order (K1) or over the windowed
-Morton layout of ``solver/windowing.py`` (K2). K3 runs one contact bank's velocity
-iterations within one substep of the general (jointed or compound) solve. On a CUDA
-tensor each wrapper launches its hand-written kernel (``csrc/substeps_contacts.cu``,
-``csrc/substeps_contacts_win.cu``, ``csrc/contact_sweep.cu``); on a CPU tensor it runs
-the plain PyTorch version written below, which the kernel is held against.
+Counterparts of ``solve_substeps_contacts``, ``solve_substeps_contacts_win``,
+``contact_sweep`` and ``contact_sweep_win`` in ``bepuphysics2_tpu/ops/sweep.py``. K1 and
+K2 run the whole substepped contact solve (incremental depth update,
+pose/velocity/world-inertia block, warm start, velocity iterations) over slices taken in
+page-execution order (K1) or over the windowed Morton layout of ``solver/windowing.py``
+(K2). K3 runs one contact bank's velocity iterations within one substep of the general
+(jointed or compound) solve, and K4 the same over the windowed layout. On a CUDA tensor
+each wrapper launches its hand-written kernel (``csrc/substeps_contacts.cu``,
+``csrc/substeps_contacts_win.cu``, ``csrc/contact_sweep.cu``,
+``csrc/contact_sweep_win.cu``); on a CPU tensor it runs the plain PyTorch version written
+below, which the kernel is held against.
 The TPU layout tricks of the JAX kernels (bf16x3 one-hot routing, the transposed body
 state, ``nch``) are not carried over: bodies are packed rows read by index.
 
@@ -281,16 +283,20 @@ def _vel_of(rows):
                    Vec3(rows[:, 3], rows[:, 4], rows[:, 5]))
 
 
-def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h):
+def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h, it_t=None):
     """One slice of a plain walk, warm start (``solve`` False) or one velocity iteration:
     gather both sides from V (NB, 6) and W (NB, 7: inverse mass, world inverse inertia),
     compute every row, then ``index_add_`` the deltas divided by the side's scale. ``idx``
-    and ``sc`` are (n_slices, 2 * sb); ``imp`` (8, B) is updated in place."""
+    and ``sc`` are (n_slices, 2 * sb); ``imp`` (8, B) is updated in place. With ``it_t``
+    (IT_ROWS, B) each row streams both sides' inertia, already mass-split, and W is
+    unused."""
     cols = slice(sl * sb, (sl + 1) * sb)
     ia, ib = idx[sl, :sb], idx[sl, sb:]
-    sa, sbs = sc[sl, :sb], sc[sl, sb:]
-    wa = W[ia] * sa[:, None]
-    wb = W[ib] * sbs[:, None]
+    if it_t is None:
+        wa = W[ia] * sc[sl, :sb, None]
+        wb = W[ib] * sc[sl, sb:, None]
+    else:
+        wa, wb = it_t[0:7, cols].T, it_t[8:15, cols].T
     ia_im, ia_ii = wa[:, 0], Sym3(*wa[:, 1:].unbind(-1))
     ib_im, ib_ii = wb[:, 0], Sym3(*wb[:, 1:].unbind(-1))
     ps = ps_t[:, cols]
@@ -576,6 +582,14 @@ def synthetic_sweep_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: 
     body's ``inertia7`` row (inverse mass and world inverse inertia; zero for the static
     body 0)."""
     bank = synthetic_bank(nb, sb, n_colored, n_jacobi, seed, dt=dt, substeps=substeps)
+    return dict(v6=bank["v6"], inertia7=_inertia7_np(bank), ps_t=bank["ps_t"],
+                imp_t=bank["imp_t"], idx2=bank["idx2"], scale=bank["scale"], h=bank["h"],
+                inv_h=bank["inv_h"], sb=sb)
+
+
+def _inertia7_np(bank: dict):
+    """(n, 7) f32 inverse mass and world inverse inertia (xx yx yy zx zy zz) of a bank's
+    bodies, from their orientations and local inverse inertias."""
     x, y, z, w = bank["orn"].astype(np.float64).T
     rot = np.stack([
         np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
@@ -583,15 +597,12 @@ def synthetic_sweep_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: 
         np.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
     ], -2)
     lii = bank["local_inv_inertia"].astype(np.float64)
-    loc = np.zeros((nb, 3, 3))
+    loc = np.zeros((len(lii), 3, 3))
     for (r, c), k in {(0, 0): 0, (1, 0): 1, (1, 1): 2, (2, 0): 3, (2, 1): 4, (2, 2): 5}.items():
         loc[:, r, c] = loc[:, c, r] = lii[:, k]
     world = rot @ loc @ np.transpose(rot, (0, 2, 1))
-    inertia7 = np.concatenate([bank["inv_mass"][:, None].astype(np.float64),
-                               world[:, [0, 1, 1, 2, 2, 2], [0, 0, 1, 0, 1, 2]]], 1)
-    return dict(v6=bank["v6"], inertia7=inertia7.astype(np.float32), ps_t=bank["ps_t"],
-                imp_t=bank["imp_t"], idx2=bank["idx2"], scale=bank["scale"], h=bank["h"],
-                inv_h=bank["inv_h"], sb=sb)
+    return np.concatenate([bank["inv_mass"][:, None].astype(np.float64),
+                           world[:, [0, 1, 1, 2, 2, 2], [0, 0, 1, 0, 1, 2]]], 1).astype(np.float32)
 
 
 def sweep_bank_args(bank: dict, device):
@@ -620,6 +631,13 @@ def window_positions(whi2, wlo2, wseg, sb: int):
     rel = (whi2.long() * L + wlo2.long()).reshape(n_slices, 2 * sb)
     seg_start = wseg.long().clamp_min(0).gather(1, rel // (WSEG_COLS * L))
     return seg_start * L + rel % (WSEG_COLS * L)
+
+
+def window_order(whi2, wlo2, wseg, sb: int):
+    """(n_slices, 2 * sb) int32 stable sort of each slice's layout positions: the order in
+    which K2 and K4 sum each position's deltas within a slice."""
+    order = torch.sort(window_positions(whi2, wlo2, wseg, sb), dim=1, stable=True).indices
+    return order.to(torch.int32).contiguous()
 
 
 def _solve_substeps_contacts_win_plain(v6p, pos_p, orn_p, inv_mass_p, local_inv_inertia_p,
@@ -653,8 +671,7 @@ def _launch_win_kernel(v6p, pos_p, orn_p, inv_mass_p, lii_p, grav_mask_p, integ_
     bg, pose, aux = _pack_bodies(v6p, pos_p, orn_p, inv_mass_p, lii_p, grav_mask_p,
                                  integ_mask_p)
     imp = imp_t.clone()
-    order = torch.sort(window_positions(whi2, wlo2, wseg, sb), dim=1, stable=True).indices
-    order = order.to(torch.int32).contiguous()
+    order = window_order(whi2, wlo2, wseg, sb)
     stream = torch.cuda.current_stream(v6p.device).cuda_stream
     err = fn(bg.data_ptr(), pose.data_ptr(), aux.data_ptr(), ps_t.data_ptr(), imp.data_ptr(),
              whi2.data_ptr(), wlo2.data_ptr(), scale.data_ptr(), wseg.data_ptr(),
@@ -719,6 +736,107 @@ def solve_substeps_contacts_win(
 
 
 solve_substeps_contacts_win.launches = 0
+
+
+# --- K4: one windowed bank's velocity iterations of one substep (the general path above
+# 8,192 bodies) -----------------------------------------------------------------------
+
+IT_ROWS = 16  # streamed inertia: A side im + world inverse inertia (6), 0 | B side, 0
+
+
+def pack_inertia_rows(g2a, g2b):
+    """(B, 7) mass-split inertia rows of the A and B sides (inverse mass, world inverse
+    inertia xx yx yy zx zy zz) → K4's (IT_ROWS, B) streamed inertia."""
+    z = torch.zeros_like(g2a[:, :1])
+    return torch.cat([g2a, z, g2b, z], 1).T.contiguous()
+
+
+def _contact_sweep_win_plain(v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg, inv_h, *, sb,
+                             n_iters):
+    """Plain PyTorch K4: K3's walk over the layout positions the windows name, with each
+    side's inertia streamed from ``it_t`` (already mass-split: no scaling at gather),
+    deltas divided by the scale. Dead slices (``wseg[:, 0] < 0``) are skipped; every other
+    slice runs, as the JAX kernel runs it, and its invalid rows keep their impulses."""
+    n_slices = ps_t.shape[1] // sb
+    live_slices = [sl for sl, x in enumerate((wseg[:, 0] >= 0).tolist()) if x]
+    V = v6p.clone()
+    imp = imp_t.clone()
+    dep = ps_t[PS_DEPTH:PS_DEPTH + 4]
+    pos = window_positions(whi2, wlo2, wseg, sb)
+    sc = scale.reshape(n_slices, 2 * sb)
+    for _ in range(n_iters):
+        for sl in live_slices:
+            _slice_pass(V, None, ps_t, imp, dep, pos, sc, sl, sb, True, inv_h, it_t=it_t)
+    return V, imp
+
+
+def _launch_sweep_win_kernel(v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg, inv_h, sb,
+                             n_iters, order):
+    from . import build
+
+    lib, _ = build.load("contact_sweep_win")
+    fn = lib.contact_sweep_win_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    bg = torch.nn.functional.pad(v6p, (0, 10))
+    imp = imp_t.clone()
+    if order is None:
+        order = window_order(whi2, wlo2, wseg, sb)
+    stream = torch.cuda.current_stream(v6p.device).cuda_stream
+    err = fn(bg.data_ptr(), it_t.data_ptr(), ps_t.data_ptr(), imp.data_ptr(), whi2.data_ptr(),
+             wlo2.data_ptr(), scale.data_ptr(), wseg.data_ptr(), order.data_ptr(),
+             ps_t.shape[1], sb, n_iters, float(inv_h), stream)
+    if err != 0:
+        raise RuntimeError(f"contact_sweep_win kernel launch failed: CUDA error {err}")
+    contact_sweep_win.launches += 1
+    return bg[:, :6].contiguous(), imp
+
+
+def contact_sweep_win(
+    v6p,  # (NP, 6) velocities in the windowed layout (NP = lay["nch"] * 8)
+    it_t,  # (IT_ROWS, B) mass-split inertia of both sides of every row
+    ps_t,  # (PS_ROWS, B) packed prestep in windowed execution order, B = n_slices * sb
+    imp_t,  # (IMP_ROWS, B) impulses
+    whi2,  # (n_slices * 2sb,) int32 window-relative column of each side (A sides, B sides)
+    wlo2,  # (n_slices * 2sb,) int32 lane
+    scale,  # (n_slices * 2sb,) mass-split scale per side
+    wseg,  # (n_slices, WSEG) int32 segment start columns; [:, 0] < 0 = dead slice
+    inv_h,
+    *,
+    sb: int,
+    n_iters: int,
+    order=None,  # window_order(whi2, wlo2, wseg, sb), when the caller keeps it across launches
+):
+    """The windowed variant of ``contact_sweep``: ``n_iters`` Gauss-Seidel sweeps over the
+    slices of one bank in the layout of ``solver/windowing.py`` within one substep, depths
+    from the prestep rows. Returns layout-order (v6p', imp_t').
+
+    CUDA tensors go through the CUDA kernel (one launch, counted in
+    ``contact_sweep_win.launches``); CPU tensors through the plain version."""
+    dev = v6p.device
+    B = ps_t.shape[1]
+    if sb <= 0 or B % sb:
+        raise ValueError(f"bank of {B} rows does not split into slices of {sb}")
+    f32 = torch.float32
+    _check("v6p", v6p, (v6p.shape[0], 6), f32, dev)
+    _check("it_t", it_t, (IT_ROWS, B), f32, dev)
+    _check("ps_t", ps_t, (PS_ROWS, B), f32, dev)
+    _check("imp_t", imp_t, (IMP_ROWS, B), f32, dev)
+    _check("whi2", whi2, (2 * B,), torch.int32, dev)
+    _check("wlo2", wlo2, (2 * B,), torch.int32, dev)
+    _check("scale", scale, (2 * B,), f32, dev)
+    _check("wseg", wseg, (B // sb, WSEG), torch.int32, dev)
+    if order is not None:
+        _check("order", order, (B // sb, 2 * sb), torch.int32, dev)
+    args = (v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg, inv_h)
+    if dev.type == "cuda":
+        return _launch_sweep_win_kernel(*args, sb, n_iters, order)
+    if dev.type != "cpu":
+        raise ValueError(f"contact_sweep_win runs on cuda or cpu, not {dev.type}")
+    return _contact_sweep_win_plain(*args, sb=sb, n_iters=n_iters)
+
+
+contact_sweep_win.launches = 0
 
 
 def synthetic_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: int,
@@ -834,7 +952,9 @@ def synthetic_win_bank(nb: int, n_rows: int, num_colors: int, seed: int,
     at both dynamic ends (the Jacobi color ``num_colors`` when none is). The bank then goes
     through the port's own windowed layout (``solver.solve.win_pack``), so the result is
     what K2 receives: its positional arguments in layout order, plus ``sb``,
-    ``n_substeps``, ``nb``, ``bp``, ``live_slices`` and ``wide_rows``."""
+    ``n_substeps``, ``nb``, ``bp``, ``live_slices`` and ``wide_rows``, and K4's streamed
+    inertia ``it_t``: each row side's body inverse mass and world inverse inertia times
+    the side's scale (padding rows read layout position 0 at scale 1)."""
     from ..bodies import KIND_DYNAMIC, KIND_STATIC
     from ..solver.solve import SB_WIN, _round_up, win_pack
 
@@ -935,11 +1055,18 @@ def synthetic_win_bank(nb: int, n_rows: int, num_colors: int, seed: int,
                   t(body_b), t(valid), t(col), t(jacv), t(M), C, wide_cap)
     pos_slot = wp["lay"]["pos_slot"].long()
     perm = lambda x: np.concatenate([x, np.zeros((1,) + x.shape[1:], x.dtype)])[pos_slot]
+    it7 = perm(_inertia7_np(dict(orn=orn, local_inv_inertia=lii, inv_mass=inv_mass)))
+    nsl = wp["wseg"].shape[0]
+    side = window_positions(wp["whi2"], wp["wlo2"], wp["wseg"], SB_WIN).numpy()
+    it2 = it7[side] * wp["scale"].numpy().reshape(nsl, 2 * SB_WIN)[:, :, None]
+    it_t = pack_inertia_rows(torch.from_numpy(it2[:, :SB_WIN].reshape(-1, 7)),
+                             torch.from_numpy(it2[:, SB_WIN:].reshape(-1, 7))).numpy()
     return dict(
         v6=perm(v6), pos=perm(pos), orn=perm(orn), inv_mass=perm(inv_mass),
         local_inv_inertia=perm(lii), grav_mask=perm(grav), integ_mask=perm(grav),
         ps_t=wp["ps_t"].numpy(), imp_t=wp["imp_t"].numpy(), whi2=wp["whi2"].numpy(),
         wlo2=wp["wlo2"].numpy(), scale=wp["scale"].numpy(), wseg=wp["wseg"].numpy(),
+        it_t=it_t,
         h=float(h), inv_h=float(f32(substeps) / f32(dt)), sb=SB_WIN, n_substeps=substeps,
         nb=nb, bp=wp["rw"]["bp"], live_slices=int((wp["wseg"][:, 0] >= 0).sum()),
         wide_rows=int(wp["rw"]["wide"].sum()),
@@ -956,3 +1083,12 @@ def win_bank_args(bank: dict, device):
             t(bank["grav_mask"]), t(bank["integ_mask"]), t(bank["ps_t"]), t(bank["imp_t"]),
             t(bank["whi2"]), t(bank["wlo2"]), t(bank["scale"]), t(bank["wseg"]),
             bank["h"], bank["inv_h"], 1.0, 1.0)
+
+
+def sweep_win_bank_args(bank: dict, device):
+    """``contact_sweep_win`` positional arguments (v6p … inv_h) from a
+    ``synthetic_win_bank`` on ``device``: its impulse rows, depths from the prestep."""
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    return (t(bank["v6"]), t(bank["it_t"]), t(bank["ps_t"]), t(bank["imp_t"][:IMP_ROWS]),
+            t(bank["whi2"]), t(bank["wlo2"]), t(bank["scale"]), t(bank["wseg"]),
+            bank["inv_h"])

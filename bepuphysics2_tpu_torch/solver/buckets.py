@@ -125,7 +125,8 @@ def color_table(state, contact_banks, joint_banks, tb_names, cfg, sb: int, base_
         mu_total += m
     cap_u = min(round_up(max(1, -(-int(cfg.color_cap_factor * mu_total) // C)), 8),
                 round_up(mu_total, 8))
-    segments.append((joint_start, mu_total, cap_u))
+    if mu_total:
+        segments.append((joint_start, mu_total, cap_u))
     all_refs = torch.cat(refs).to(I32)
     all_dyn = torch.cat(dyns)
     all_color, all_rank = color_constraints_incremental(

@@ -1,5 +1,5 @@
 """Substepped TGS solver: the store fast path over kernels K1 and K2, and the general
-(bucketed) path over kernel K3.
+(bucketed) path over kernels K3 and K4 (K1 for a contact-only scene with a compound bank).
 
 Counterpart of ``SolveConfig``, ``_solve_store_fast`` and the single-chip bucketed branch
 of ``solve_all`` in ``bepuphysics2_tpu/solver/solve.py`` (reference Solver_Solve.cs:1415).
@@ -11,8 +11,9 @@ final pose integration follows. Up to 8,192 bodies the layout is the page-execut
 K2. Scenes with joints or a compound bank take the general path (``solve_bucketed``):
 per step a coloring over every bank and the color-bucket layout of ``buckets.py``; per
 substep the depth update, pose and velocity integration, one warm start of every bank,
-then per velocity iteration each contact bank through K3 and the joint bank's color
-sweep.
+then per velocity iteration each contact bank through K3 (the pair store through K4 on
+the windowed layout) and the joint bank's color sweep. Without joints the buckets go
+through one K1 launch instead.
 """
 from __future__ import annotations
 
@@ -130,6 +131,34 @@ def win_pack(pos, kind, body_a, body_b, valid, color, jacv, M, num_colors: int,
     )
 
 
+def _damping_scales(integrator_cfg, h):
+    """Per-substep linear and angular velocity scales of the integrator's damping."""
+    lin = (1.0 - integrator_cfg.linear_damping) ** h if integrator_cfg.linear_damping else 1.0
+    ang = (1.0 - integrator_cfg.angular_damping) ** h if integrator_cfg.angular_damping else 1.0
+    return lin, ang
+
+
+def _k_kwargs(integrator_cfg, cfg):
+    return dict(n_substeps=cfg.substeps, n_iters=cfg.velocity_iterations,
+                angular_mode=integrator_cfg.angular_mode, gravity=integrator_cfg.gravity)
+
+
+def _k1_solve(state, integrator_cfg, cfg, ps_t, imp_t, idx2, scale, sb: int, h, inv_h):
+    """The whole substepped contact solve of one slice stream through K1. Returns (state
+    with new poses and velocities, (IMP_ROWS, B) impulses); the final pose integration is
+    the caller's."""
+    c = lambda t: t.contiguous()
+    lin_scale, ang_scale = _damping_scales(integrator_cfg, h)
+    gmask = (state.kind == KIND_DYNAMIC) & state.awake
+    v6n, pos_n, orn_n, imp_out = psweep.solve_substeps_contacts(
+        _vel_to6(state), type(state.pos)(*map(c, state.pos)),
+        type(state.orn)(*map(c, state.orn)), c(state.inv_mass),
+        type(state.inv_inertia)(*map(c, state.inv_inertia)), gmask, state.integrable, ps_t,
+        imp_t, idx2, scale, h, inv_h, lin_scale, ang_scale, sb=sb,
+        **_k_kwargs(integrator_cfg, cfg))
+    return _vel_from6(state._replace(pos=pos_n, orn=orn_n), v6n), imp_out
+
+
 def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool):
     """Whole-solve fast path for store-only scenes: pack the slot-order prestep and
     impulses into one (B, 40) matrix, move it once into the execution layout, run the
@@ -152,14 +181,9 @@ def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool)
     imc = psweep.pack_contact_impulses_cols(simp0) * fvalid[:, None]
     M = torch.cat([psc, imc], -1)
 
-    lin_scale = (1.0 - integrator_cfg.linear_damping) ** h if integrator_cfg.linear_damping else 1.0
-    ang_scale = (1.0 - integrator_cfg.angular_damping) ** h if integrator_cfg.angular_damping else 1.0
-    gmask = (state.kind == KIND_DYNAMIC) & state.awake
-    c = lambda t: t.contiguous()
-    kw = dict(n_substeps=cfg.substeps, n_iters=cfg.velocity_iterations,
-              angular_mode=integrator_cfg.angular_mode, gravity=integrator_cfg.gravity)
-
     if use_win:
+        lin_scale, ang_scale = _damping_scales(integrator_cfg, h)
+        gmask = (state.kind == KIND_DYNAMIC) & state.awake
         wide_cap = max(SB_WIN, _round_up(cfg.wide_cap_rows or B // 8, SB_WIN))
         wp = win_pack(state.pos, state.kind, st.body_a, st.body_b, sps.valid, st.color,
                       st.jacv, M, C, wide_cap)
@@ -171,7 +195,7 @@ def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool)
             perm(_vel_to6(state)), Vec3(*map(perm, state.pos)), Quat(*map(perm, state.orn)),
             perm(state.inv_mass), Sym3(*map(perm, li)), perm(gmask), perm(state.integrable),
             wp["ps_t"], wp["imp_t"], wp["whi2"], wp["wlo2"], wp["scale"], wp["wseg"],
-            h, inv_h, lin_scale, ang_scale, sb=SB_WIN, **kw)
+            h, inv_h, lin_scale, ang_scale, sb=SB_WIN, **_k_kwargs(integrator_cfg, cfg))
         sp = lay["slot_pos"].long()
         state = _vel_from6(state._replace(pos=Vec3(*(t[sp] for t in pos_p)),
                                           orn=Quat(*(t[sp] for t in orn_p))), v6n_p[sp])
@@ -201,14 +225,9 @@ def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool)
         nsl = B // page
         idx2 = torch.cat([Ix[:, 0].reshape(nsl, page), Ix[:, 1].reshape(nsl, page)], 1).reshape(-1)
         scale = torch.cat([sa_x.reshape(nsl, page), sb_x.reshape(nsl, page)], 1).reshape(-1)
-        v6n, pos_n, orn_n, imp_out = psweep.solve_substeps_contacts(
-            _vel_to6(state), type(state.pos)(*map(c, state.pos)),
-            type(state.orn)(*map(c, state.orn)), c(state.inv_mass),
-            type(state.inv_inertia)(*map(c, state.inv_inertia)), gmask, state.integrable,
-            Mx[:, :32].T.contiguous(), Mx[:, 32:40].T.contiguous(),
-            idx2.to(torch.int32).contiguous(), scale.contiguous(), h, inv_h, lin_scale,
-            ang_scale, sb=page, **kw)
-        state = _vel_from6(state._replace(pos=pos_n, orn=orn_n), v6n)
+        state, imp_out = _k1_solve(state, integrator_cfg, cfg, Mx[:, :32].T.contiguous(),
+                                   Mx[:, 32:40].T.contiguous(), idx2.to(torch.int32).contiguous(),
+                                   scale.contiguous(), page, h, inv_h)
         imp_rows = imp_out.T.reshape(P, page, 8)[inv_perm.long()].reshape(B, 8)
         overflow = torch.zeros((), dtype=torch.bool, device=jac_slot.device)
         wide_demand = torch.zeros((), dtype=torch.int32, device=jac_slot.device)
@@ -249,12 +268,59 @@ def _pack_dv(dv: BodyVel) -> torch.Tensor:
     return torch.stack([*dv.linear, *dv.angular], -1)
 
 
+def _win_store_bucket(state, st, sps, simp, scolor, jrow, cfg, n_bodies: int):
+    """The pair store's bucket on the windowed layout (JAX ``solve_all`` :930-976): the
+    rows in page-execution order grouped into window slices, scattered into the padded
+    (color, Morton block) layout. Mass-split rows are the Jacobi rows and the wide rows,
+    scaled by the store's own Jacobi valence plus the wide-row counts (not the general
+    path's global valence, which also counts the joints' Jacobi rows: the JAX formula,
+    ROADMAP queue 3)."""
+    C = cfg.num_colors
+    sb = SB_WIN
+    if st.capacity % sb:
+        raise ValueError(f"the windowed layout runs slices of {sb} rows: the pair store's "
+                         f"capacity {st.capacity} (max_pairs rounded to pages) is not a "
+                         f"multiple of {sb}")
+    a_s, b_s = sps.body_a, sps.body_b
+    wide_cap = max(sb, _round_up(cfg.wide_cap_rows or st.capacity // 8, sb))
+    lay = windowing.body_layout(state.pos, state.kind)
+    rw = windowing.row_windows(lay, a_s, b_s, sps.valid, scolor, C, sb, wide_cap)
+    dest, bp = rw["dest"], rw["bp"]
+    wct = _wide_counts(rw["wide"], a_s, b_s, n_bodies, wide_cap)
+    sval = torch.clamp_min(st.jacv[:n_bodies] + wct[:n_bodies], 1.0)
+    split_row = jrow | rw["wide"]
+    sa = torch.where(split_row, sval[a_s.long()], 1.0)
+    sbs = torch.where(split_row, sval[b_s.long()], 1.0)
+    scat = lambda x, fill=0: windowing.scatter_rows(dest, bp, x, fill)
+    tree = lambda f, t: f(t) if torch.is_tensor(t) else type(t)(*(tree(f, x) for x in t))
+    saw, sbw = scat(sa, 1), scat(sbs, 1)
+    rel_a, rel_b = scat(rw["rel_a"]), scat(rw["rel_b"])
+    present = scat(torch.ones_like(sps.valid))
+    idx2 = torch.cat([scat(a_s), scat(b_s)]).long()
+    L = psweep.L
+    div = lambda x: torch.div(x, L, rounding_mode="floor")
+    whi2 = bk_mod.slice_major(div(rel_a), div(rel_b), sb).to(torch.int32)
+    wlo2 = bk_mod.slice_major(torch.remainder(rel_a, L), torch.remainder(rel_b, L),
+                              sb).to(torch.int32)
+    wseg = rw["wseg"].contiguous()
+    return dict(
+        ps=tree(scat, sps), imp=tree(scat, simp), idx2=idx2, s2=torch.cat([saw, sbw]),
+        tgt2=torch.where(torch.cat([present, present]), idx2, n_bodies),
+        lay=lay, dest=dest, bp=bp, imp_orig=simp, whi2=whi2, wlo2=wlo2,
+        wscale=bk_mod.slice_major(saw, sbw, sb), wseg=wseg,
+        worder=psweep.window_order(whi2, wlo2, wseg, sb),  # K4's sums, fixed for the step
+        overflow=rw["wide_overflow"], wide_demand=rw["wide_demand"].to(torch.int32))
+
+
 def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg, dt,
-                   store_bank: dict, base_used):
-    """The general solve for scenes with joints (and any compound bank) beside the pair
-    store, at most 8,192 bodies: the JAX package's bucketed ``substep_bucketed`` loop in
-    its Pallas form, with every contact bank through K3 (one launch per bank per velocity
-    iteration per substep). ``joint_banks`` is not empty. Returns as ``solve_all``."""
+                   store_bank: dict, base_used, use_win: bool = False):
+    """The general solve for scenes with joints or a compound bank beside the pair store:
+    the JAX package's bucketed ``substep_bucketed`` loop in its Pallas form. Up to 8,192
+    bodies every contact bank goes through K3 (one launch per bank per velocity iteration
+    per substep); on the windowed layout (``use_win``: joints, no compound bank) the store
+    goes through K4 instead. A contact-only scene (no joints) takes the JAX package's
+    whole-solve branch: one K1 launch over the concatenated banks. Returns as
+    ``solve_all``."""
     h, inv_h = substep_scalars(dt, cfg.substeps)
     C = cfg.num_colors
     n_bodies = state.pos.x.shape[0]
@@ -278,6 +344,7 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
     table = bk_mod.color_table(state, contact_banks, joint_banks, tb_names, cfg, page, base_used)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     jac_demand = torch.zeros((), dtype=torch.int32, device=dev)
+    wide_demand = torch.zeros((), dtype=torch.int32, device=dev)
     buckets = []
     in_jacobi = []
     for (ps, im, _), col, rnk, cap in zip(contact_banks, table["ccolors"], table["cranks"],
@@ -287,30 +354,109 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         jac_demand = torch.maximum(jac_demand, b["jac_n"])
         in_jacobi.append(b["kept_j"])
         buckets.append(b)
-    ju = bk_mod.joint_bucket(joint_banks, tb_names, table, cfg.jacobi_cap_factor, C)
-    overflow = overflow | ju["spill"]
-    jac_demand = torch.maximum(jac_demand, ju["jac_n"])
+    ju = None
+    if tb_names:
+        ju = bk_mod.joint_bucket(joint_banks, tb_names, table, cfg.jacobi_cap_factor, C)
+        overflow = overflow | ju["spill"]
+        jac_demand = torch.maximum(jac_demand, ju["jac_n"])
     for name in tb_names:
         in_jacobi.append(table["bank_valid"][name] & (table["jcolors"][name] == C))
     valence = bk_mod.valence(table, torch.cat(in_jacobi), n_bodies, st.jacv)
 
-    # The store bucket: page order, Jacobi pages mass-split by the global valence.
+    # The store bucket: page order with Jacobi pages mass-split by the global valence, or
+    # the windowed layout (its own split scales, K4).
     jac_demand = torch.maximum(jac_demand, (jrow & sps.valid).sum().to(torch.int32))
     v = lambda t: sps.valid.reshape((-1,) + (1,) * (t.dim() - 1))
     simp = tree(lambda x: torch.where(v(x), x, 0.0), tree(pg, store_bank["imp"]))
-    buckets.insert(0, dict(ps=sps, imp=simp, is_j=jrow))
-    for b in buckets[1:]:
-        b["is_j"] = torch.arange(b["ps"].body_a.shape[0], device=dev) >= C * b["cap"]
+    if use_win:
+        win = _win_store_bucket(state, st, sps, simp, pg(st.color), jrow, cfg, n_bodies)
+        overflow = overflow | win["overflow"]
+        wide_demand = win["wide_demand"]
+        buckets.insert(0, win)
+    else:
+        buckets.insert(0, dict(ps=sps, imp=simp, is_j=jrow))
+        for b in buckets[1:]:
+            b["is_j"] = torch.arange(b["ps"].body_a.shape[0], device=dev) >= C * b["cap"]
     for b in buckets:
-        ba, bb = b["ps"].body_a.long(), b["ps"].body_b.long()
-        b["sa"] = torch.where(b["is_j"], valence[ba], 1.0)
-        b["sb"] = torch.where(b["is_j"], valence[bb], 1.0)
-        b["idx2"] = torch.cat([ba, bb])
-        b["s2"] = torch.cat([b["sa"], b["sb"]])
-        b["k_idx2"] = bk_mod.slice_major(b["ps"].body_a, b["ps"].body_b, page).to(torch.int32)
-        b["k_scale"] = bk_mod.slice_major(b["sa"], b["sb"], page)
+        if not use_win:
+            ba, bb = b["ps"].body_a.long(), b["ps"].body_b.long()
+            b["sa"] = torch.where(b["is_j"], valence[ba], 1.0)
+            b["sb"] = torch.where(b["is_j"], valence[bb], 1.0)
+            b["idx2"] = b["tgt2"] = torch.cat([ba, bb])
+            b["s2"] = torch.cat([b["sa"], b["sb"]])
+            b["k_idx2"] = bk_mod.slice_major(b["ps"].body_a, b["ps"].body_b, page).to(torch.int32)
+            b["k_scale"] = bk_mod.slice_major(b["sa"], b["sb"], page)
+            b["k_sb"] = page
         b["spring"] = compute_springiness(b["ps"].spring, h)
 
+    if ju is None:
+        # Contact-only: the JAX package's whole-solve branch (solve.py:1785-1856), one K1
+        # launch over the store pages and then each compound bucket, slices of the page.
+        pack = lambda f: torch.cat([f(b) for b in buckets], 1).contiguous()
+        state, imp_out = _k1_solve(
+            state, integrator_cfg, cfg,
+            pack(lambda b: psweep.pack_contact_prestep_cols(b["ps"], b["spring"]).T),
+            pack(lambda b: psweep.pack_contact_impulses_cols(b["imp"]).T),
+            torch.cat([b["k_idx2"] for b in buckets]).contiguous(),
+            torch.cat([b["k_scale"] for b in buckets]).contiguous(), page, h, inv_h)
+        imps, off = [], 0
+        for b in buckets:
+            n = b["ps"].body_a.shape[0]
+            imps.append(_unpack_impulses(imp_out[:, off:off + n], b["imp"]))
+            off += n
+        joint_imps = {}
+    else:
+        state, imps, ju_imp = _substep_loop(state, buckets, ju, tb_names, valence,
+                                            integrator_cfg, cfg, h, inv_h, n_bodies)
+        joint_imps = {}
+        BU = ju["present"].shape[0]
+        u = torch.where((ju["pos"] < BU)[:, None],
+                        ju_imp[torch.clamp_max(ju["pos"], BU - 1).long()], 0.0)
+        off = 0
+        for name in tb_names:
+            m = joint_banks[name]["bodies"].shape[0]
+            joint_imps[name] = u[off:off + m, :JOINT_TYPES[name].N_IMPULSE]
+            off += m
+    state = integrate_poses(state, integrator_cfg, h)
+
+    # Impulses back to their banks' order: the store to slot order (from the windowed
+    # layout through ``dest``, where wide-overflow rows keep their incoming impulses), the
+    # others through each row's bucket position (rows left out keep theirs).
+    if use_win:
+        w = buckets[0]
+        placed = w["dest"] < w["bp"]
+        dc = torch.clamp_max(w["dest"], w["bp"] - 1).long()
+        back = lambda new, old: torch.where(
+            placed.reshape((-1,) + (1,) * (old.dim() - 1)), new[dc], old)
+        imps_out = [tree(ipg, _map_impulses(back, imps[0], w["imp_orig"]))]
+    else:
+        imps_out = [tree(ipg, imps[0])]
+    for b, (_, im0, _), im in zip(buckets[1:], contact_banks, imps[1:]):
+        B = b["ps"].body_a.shape[0]
+        inb = b["pos"] < B
+        pc = torch.clamp_max(b["pos"], B - 1).long()
+        keep = lambda new, old: torch.where(inb.reshape((-1,) + (1,) * (old.dim() - 1)), new[pc], old)
+        imps_out.append(_map_impulses(keep, im, im0))
+    demand = torch.stack([jac_demand, wide_demand])
+    return (state, imps_out, joint_imps, overflow, table["persist_c"], table["persist_j"],
+            demand)
+
+
+def _map_impulses(f, new, old):
+    """ContactImpulses of ``f(new_leaf, old_leaf)``, leaf by leaf."""
+    return type(old)(f(new.penetration, old.penetration),
+                     type(old.tangent)(*map(f, new.tangent, old.tangent)),
+                     f(new.twist, old.twist))
+
+
+def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h, inv_h,
+                  n_bodies: int):
+    """Every substep of the general path (JAX ``substep_bucketed``): the depth update, pose
+    and velocity integration, one warm start of every bank, then per velocity iteration
+    each contact bank through its kernel (K3, or K4 for the windowed store bucket) and the
+    joint bank's color sweep. Returns (state, bucket-order impulses, joint impulses)."""
+    C = cfg.num_colors
+    dev = state.kind.device
     # Joint bank: per-color gathers, and fixed-order sums for the Jacobi slice.
     sink = n_bodies
     cap_u, ncap = ju["cap"], ju["ncap"]
@@ -326,7 +472,8 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
     ju["s2_j"] = torch.cat([valence[ja[ncap:]], valence[jb[ncap:]]])
     ju["sum_j"] = bk_mod.FixedOrderSum(torch.where(pj, ju["idx2_j"], sink), n_bodies)
     warm_sum = bk_mod.FixedOrderSum(
-        torch.cat([b["idx2"] for b in buckets] + [torch.where(pres2, ju["idx2"], sink)]), n_bodies)
+        torch.cat([b["tgt2"] for b in buckets] + [torch.where(pres2, ju["idx2"], sink)]),
+        n_bodies)
 
     def ju_ctx(table14, v6, idx2, active, scale2=None):
         rows = table14[idx2]
@@ -379,6 +526,18 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         p2 = torch.cat([_pack_dv(dva), _pack_dv(dvb)]) / ju["s2_j"][:, None]
         return ju["sum_j"].add(v6, p2), torch.cat([imp[:ncap], new_imp])
 
+    def sweep_bank(b, v6, ps_t, it_t, imp_t):
+        """One velocity iteration of one contact bank through its kernel."""
+        if "wseg" not in b:
+            return psweep.contact_sweep(v6.contiguous(), it_t, ps_t, imp_t, b["k_idx2"],
+                                        b["k_scale"], inv_h, sb=b["k_sb"], n_iters=1)
+        pos_slot, slot_pos = b["lay"]["pos_slot"], b["lay"]["slot_pos"].long()
+        v6p, imp_t = psweep.contact_sweep_win(
+            windowing.permute_rows(v6, pos_slot).contiguous(), it_t, ps_t, imp_t, b["whi2"],
+            b["wlo2"], b["wscale"], b["wseg"], inv_h, sb=SB_WIN, n_iters=1,
+            order=b["worder"])
+        return v6p[slot_pos], imp_t
+
     presteps = [b["ps"] for b in buckets]
     imps = [b["imp"] for b in buckets]
     ju_imp = ju["imp0"]
@@ -393,10 +552,12 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         v6 = torch.stack([*state.vel, *state.omega], -1)
 
         # Warm start: velocity-independent deltas of every bank, summed in fixed order.
-        p2s = []
+        # The windowed bank streams its mass-split inertia rows to K4 as well.
+        p2s, g2s = [], []
         for ps, im, b in zip(presteps, imps, buckets):
             n = b["idx2"].shape[0] // 2
             g2 = table14[b["idx2"]][:, 7:14] * b["s2"][:, None]
+            g2s.append(g2)
             ia = GatheredInertia(g2[:n, 0], Sym3(*g2[:n, 1:].unbind(-1)))
             ib = GatheredInertia(g2[n:, 0], Sym3(*g2[n:, 1:].unbind(-1)))
             z = Vec3.zeros(n, device=dev)
@@ -407,44 +568,20 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]))
         v6 = v6 + warm_sum.add(torch.zeros_like(v6), torch.cat(p2s))
 
-        # Velocity iterations: each contact bank through K3, then the joint sweep.
+        # Velocity iterations: each contact bank through its kernel, then the joint sweep.
         ps_ts = [psweep.pack_contact_prestep_cols(ps, b["spring"]).T.contiguous()
                  for ps, b in zip(presteps, buckets)]
         inertia7 = table14[:, 7:14].contiguous()
+        it_ts = [psweep.pack_inertia_rows(g2[:g2.shape[0] // 2], g2[g2.shape[0] // 2:])
+                 if "wseg" in b else inertia7 for g2, b in zip(g2s, buckets)]
         for _ in range(cfg.velocity_iterations):
             for ci, b in enumerate(buckets):
                 imp_t = psweep.pack_contact_impulses_cols(imps[ci]).T.contiguous()
-                v6, imp_t = psweep.contact_sweep(v6.contiguous(), inertia7, ps_ts[ci], imp_t,
-                                                 b["k_idx2"], b["k_scale"], inv_h, sb=page,
-                                                 n_iters=1)
+                v6, imp_t = sweep_bank(b, v6, ps_ts[ci], it_ts[ci], imp_t)
                 imps[ci] = _unpack_impulses(imp_t, imps[ci])
             v6, ju_imp = ju_color_sweep(table14, v6, ju_imp)
         state = _vel_from6(state, v6)
-    state = integrate_poses(state, integrator_cfg, h)
-
-    # Impulses back to their banks' order: the store to slot order, the others through
-    # each row's bucket position (rows left out keep their incoming impulses).
-    imps_out = [tree(ipg, imps[0])]
-    for b, (_, im0, _), im in zip(buckets[1:], contact_banks, imps[1:]):
-        B = b["ps"].body_a.shape[0]
-        inb = b["pos"] < B
-        pc = torch.clamp_max(b["pos"], B - 1).long()
-        keep = lambda new, old: torch.where(inb.reshape((-1,) + (1,) * (old.dim() - 1)), new[pc], old)
-        imps_out.append(type(im0)(keep(im.penetration, im0.penetration),
-                                  type(im0.tangent)(*map(keep, im.tangent, im0.tangent)),
-                                  keep(im.twist, im0.twist)))
-    joint_imps = {}
-    BU = ju["present"].shape[0]
-    u = torch.where((ju["pos"] < BU)[:, None], ju_imp[torch.clamp_max(ju["pos"], BU - 1).long()],
-                    0.0)
-    off = 0
-    for name in tb_names:
-        m = joint_banks[name]["bodies"].shape[0]
-        joint_imps[name] = u[off:off + m, :JOINT_TYPES[name].N_IMPULSE]
-        off += m
-    demand = torch.stack([jac_demand, torch.zeros_like(jac_demand)])
-    return (state, imps_out, joint_imps, overflow, table["persist_c"], table["persist_j"],
-            demand)
+    return state, imps, ju_imp
 
 
 def _unpack_impulses(imp_t, like):
@@ -463,12 +600,13 @@ def solve_all(
     store_bank: dict = None,
     base_used=None,
 ):
-    """Full substepped solve. Store-only scenes solve through K1 (up to 8,192 bodies) or K2
-    (above that, or with ``backend="pallas_win"``), as the JAX package's ``solve_all``
-    picks its kernels; scenes with joints (and a compound bank) beside the store take the
-    general path over K3 up to 8,192 bodies. The JAX package's VMEM and 650k-row
-    feasibility guard is a TPU limit with an XLA path behind it; the card has neither, so
-    K2 takes every windowed bank. Every other bank shape is refused by name. Returns
+    """Full substepped solve, picking its kernels as the JAX package's ``solve_all`` picks
+    them. Store-only scenes solve through K1 (up to 8,192 bodies) or K2 (above that, or
+    with ``backend="pallas_win"``). Scenes with joints take the general path over K3, or
+    over K4 on the windowed layout; a contact-only scene with a compound bank takes one K1
+    launch over the concatenated banks. The JAX package's VMEM and 650k-row feasibility
+    guard is a TPU limit with an XLA path behind it; the card has neither, so the windowed
+    kernels take every windowed bank. Every other bank shape is refused by name. Returns
     (state, [impulses], {joint impulses}, overflow, [colors], {joint colors}, demand (2,)
     [Jacobi rows, wide rows])."""
     if axis_name is not None:
@@ -487,14 +625,12 @@ def solve_all(
     use_win = state.pos.x.shape[0] > 8192 or cfg.backend == "pallas_win"
     if not joint_banks and not contact_banks:
         return _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win)
-    if use_win:
+    if use_win and contact_banks:
         raise NotImplementedError(
-            "a jointed or compound scene on the windowed layout (above 8,192 bodies or "
-            "backend='pallas_win') needs kernel K4 contact_sweep_win, not ported yet "
-            "(ROADMAP queue 1 item 24)")
-    if not joint_banks:
-        raise NotImplementedError(
-            "a contact-only scene with a compound bank (the JAX package's whole-solve 'mega' "
-            "branch over the concatenated banks) is not ported yet (ROADMAP queue 1 item 25)")
+            "a compound bank on the windowed layout (above 8,192 bodies or "
+            "backend='pallas_win') is not solved: the JAX package's windowed general path "
+            "fails on it (solver/solve.py:1601 sets tt = None, :1638 passes it to "
+            "contact_sweep, ops/sweep.py:416 reads tt.shape), so the port has no reference "
+            "to hold it to (ROADMAP queue 3)")
     return solve_bucketed(state, contact_banks, joint_banks, integrator_cfg, cfg, dt,
-                          store_bank, base_used)
+                          store_bank, base_used, use_win)

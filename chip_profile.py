@@ -1,20 +1,27 @@
-"""Where one step of the port's general path goes on one CUDA card: the ragdoll tube (32
-ragdolls by default; at ``bench.py``'s solver settings, or with ``--settings default`` at
-the package's defaults, where its limbs stay inside) after ``bench.py``'s warm-up and
-autosize, then
+"""Where one step of the port's general path goes on one CUDA card, for one of two scenes
+after ``bench.py``'s warm-up and autosize:
+
+- ``--scene tube`` (default): the ragdoll tube (32 ragdolls by default; at ``bench.py``'s
+  solver settings, or with ``--settings default`` at the package's defaults, where its
+  limbs stay inside), through K3;
+- ``--scene ragdoll_pile``: the ragdoll pile (1,024 ragdolls by default, 16 colors,
+  above 8,192 bodies: grid2 and the windowed layout), through K4;
+
+then
 
 1. a synced host-clock time per stage (each stage wrapped in ``torch.cuda.synchronize``),
    over ``--steps`` steps;
 2. the unsynced step time over the same number of steps;
 3. ``torch.profiler`` over the same number of unsynced steps: device time (kernel events),
-   kernels and K3 launches per step (counted), the device's idle share of that profiled
-   window (1 - device time / its wall time, the profiler's own host cost included), and
-   the kernels that take the most device time.
+   kernels and contact-kernel launches per step (counted), the device's idle share of
+   that profiled window (1 - device time / its wall time, the profiler's own host cost
+   included), and the kernels that take the most device time.
 
-    python3 chip_profile.py [--ragdolls 32] [--steps 5] [--settings bench|default]
+    python3 chip_profile.py [--scene tube|ragdoll_pile] [--ragdolls N] [--steps 5]
+                            [--settings bench|default]
 
 Prints one JSON object as its last line and writes it to
-``build/profile_tube_<settings>.json``.
+``build/profile_<scene>_<settings>.json``.
 Needs a card; imports nothing of JAX.
 """
 import argparse
@@ -46,7 +53,8 @@ def main():
         print("chip_profile: torch.cuda.is_available() is false; nothing was run", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser()
-    ap.add_argument("--ragdolls", type=int, default=32)
+    ap.add_argument("--scene", choices=("tube", "ragdoll_pile"), default="tube")
+    ap.add_argument("--ragdolls", type=int, default=None)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--settings", choices=("bench", "default"), default="bench")
     args = ap.parse_args()
@@ -57,7 +65,17 @@ def main():
 
     dev = torch.device("cuda")
     smi = chip_smoke._nvidia_smi()
-    sim = chip_smoke.tube_sim(args.ragdolls, dev, bench=args.settings == "bench")
+    pile = args.scene == "ragdoll_pile"
+    if pile:
+        from bepuphysics2_tpu_torch.models import build_ragdoll_pile_sim
+
+        n_rag = args.ragdolls or chip_smoke.PILE_RAGDOLLS
+        sim, _ = build_ragdoll_pile_sim(n_rag, device=dev)
+        settings, kernel = "default", "contact_sweep_win"
+    else:
+        n_rag = args.ragdolls or 32
+        sim = chip_smoke.tube_sim(n_rag, dev, bench=args.settings == "bench")
+        settings, kernel = args.settings, "contact_sweep"
     sim.run(33, DT)
     sim.run(max(31, int(6 * 4096 ** (1 / 3))), DT)
     sim.autosize(DT, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
@@ -65,18 +83,21 @@ def main():
     torch.cuda.synchronize()
 
     # 1. Synced stage times. Stages called from the step (``simulation``) and, inside the
-    # solve, the coloring and layout, K3, and the joint sweeps are timed apart.
+    # solve, the coloring and layout, the contact kernel, and the joint sweeps are timed
+    # apart.
     stages = defaultdict(float)
     patches = [(tsim, n) for n in ("compute_body_bounds", "narrow_phase_store",
                                    "narrow_phase_compound", "wake_touched", "solve_all",
                                    "update_sleep", "update_cache_keyed", "retain_sleeping_when")]
-    patches += [(tsim.bp, "brute_force"), (tsim.pairstore, "update"),
-                (tsolve.bk_mod, "color_table"), (tsolve.psweep, "contact_sweep")]
+    patches += [(tsim.bp, "grid2" if pile else "brute_force"), (tsim.pairstore, "update"),
+                (tsolve.bk_mod, "color_table"), (tsolve.psweep, kernel)]
+    if pile:
+        patches.append((tsolve, "_win_store_bucket"))
     saved = [(mod, n, getattr(mod, n)) for mod, n in patches]
     for mod, n, fn in saved:
         wrapped = _timed(stages, f"{mod.__name__.split('.')[-1]}.{n}", fn)
-        if n == "contact_sweep":
-            wrapped.launches = 0
+        if n == kernel:
+            wrapped.launches = 0  # the kernel's wrapper counts its launches on this name
         setattr(mod, n, wrapped)
     try:
         torch.cuda.synchronize()
@@ -99,31 +120,32 @@ def main():
     # 3. Profiler: device time, launches, idle share, all of the profiled window.
     from torch.profiler import ProfilerActivity, profile
 
-    k3_before = tsolve.psweep.contact_sweep.launches
+    counted = getattr(tsolve.psweep, kernel)
+    before = counted.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sim.run(args.steps, DT)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / args.steps * 1e3
-    k3_launches = tsolve.psweep.contact_sweep.launches - k3_before
+    launches = counted.launches - before
     # Kernel events only: an operator's event carries its kernels' device time as well.
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     out = dict(
-        card=smi, ragdolls=args.ragdolls, settings=args.settings, bodies=sim.body_count,
+        card=smi, scene=args.scene, ragdolls=n_rag, settings=settings, bodies=sim.body_count,
         steps=args.steps, contacts=int(sim.last_diag.contact_count),
         synced_ms_per_step=synced, stage_ms=stage_ms, unsynced_ms_per_step=unsynced,
         profiled_ms_per_step=wall, device_ms_per_step=device_ms,
         idle_share_profiled=1.0 - device_ms / wall,
         kernels_per_step=sum(e.count for e in kernels) / args.steps,
-        k3_launches_per_step=k3_launches / args.steps,
+        kernel=kernel, kernel_launches_per_step=launches / args.steps,
         top_kernels=[(e.key[:70], e.self_device_time_total / 1e3 / args.steps,
                       e.count // args.steps) for e in top],
     )
     os.makedirs("build", exist_ok=True)
-    with open(f"build/profile_tube_{args.settings}.json", "w") as f:
+    with open(f"build/profile_{args.scene}_{settings}.json", "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0

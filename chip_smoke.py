@@ -1,10 +1,12 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds kernels K1, K2 and K3 from the
-repository's sources, holds each against its plain PyTorch version at its main path's
-shapes, then drives the port's three main paths through ``Simulation`` as ``bench.py``
-does and checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1),
-the 16,384-body pile (grid2 broad phase, autosize, the windowed K2) and the ragdoll tube
-of 32 ragdolls (joints and a compound: the general path over K3), at bench.py's solver
-settings and at the package's default ones.
+"""Smoke run of the PyTorch port on one CUDA card: builds kernels K1, K2, K3 and K4 from
+the repository's sources, holds each against its plain PyTorch version at its main path's
+shapes, then drives the port's main paths through ``Simulation`` as ``bench.py`` does and
+checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1), the
+16,384-body pile (grid2 broad phase, autosize, the windowed K2), the ragdoll tube of 32
+ragdolls (joints and a compound: the general path over K3) at bench.py's solver settings
+and at the package's default ones, the pile of 1,024 ragdolls (the general path above
+8,192 bodies: grid2, autosize, the windowed layout, K4) and the contact-only compound
+pile (one K1 launch over the store's and the compound's banks).
 
     python3 chip_smoke.py
 
@@ -33,6 +35,9 @@ K2_TOL = 1e-4  # as K1
 K3_SOURCE = "bepuphysics2_tpu_torch/csrc/contact_sweep.cu"
 K3_REPLACES = "bepuphysics2_tpu/ops/sweep.py:294"
 K3_TOL = 1e-4  # as K1
+K4_SOURCE = "bepuphysics2_tpu_torch/csrc/contact_sweep_win.cu"
+K4_REPLACES = "bepuphysics2_tpu/ops/sweep.py:901"
+K4_TOL = 1e-4  # as K1
 WIN_TOL = (2e-2, 1e-3)  # the JAX package's envelope for its windowed kernel (max, median)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (data sheet)
@@ -142,8 +147,7 @@ def phase_build():
     """Every kernel, one nvcc each, started together; they share contact_rows.cuh."""
     from bepuphysics2_tpu_torch.ops import build
 
-    names = (("K1", "substeps_contacts"), ("K2", "substeps_contacts_win"),
-             ("K3", "contact_sweep"))
+    names = tuple(build.KERNELS.items())
     t0 = time.perf_counter()
     built = build.load_all([n for _, n in names])
     wall = time.perf_counter() - t0
@@ -223,16 +227,33 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _whole_solve_bound(args, live_rows, n_substeps, n_iters, ops):
-    """K1's and K2's bound: every input read once and every output written once; per
+def _live_bytes(live, *tensors):
+    """Bytes of the bank tensors whose last dimension runs over the bank's slices in order
+    (a row's columns, or its A and B sides slice by slice), over the slices the kernel
+    runs (``live``, a bool per slice) only: the kernels skip the others unread."""
+    n_live, n_slices = int(live.sum()), live.numel()
+    return sum(t.numel() * t.element_size() // n_slices * n_live for t in tensors)
+
+
+def _valid_slices(ps_t, sb):
+    """Bool per slice: the slice holds a valid row (K1 and K3 skip the others)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    return (ps_t[sweep.PS_VALID].reshape(-1, sb) > 0.5).any(dim=1)
+
+
+def _whole_solve_bound(args, rows, live, live_rows, n_substeps, n_iters, ops):
+    """K1's and K2's bound: every input read once and every output written once, the
+    per-row inputs (``args[i]`` for i in ``rows``) over the ``live`` slices alone; per
     substep each live row's warm start and iterations (and its depth update after the
     first) and each body's substep block."""
-    tensors = [a for a in args if torch.is_tensor(a)]
+    tensors = [a for i, a in enumerate(args) if torch.is_tensor(a) and i not in rows]
     for a in args:
         if isinstance(a, tuple):
             tensors += list(a)
-    v6, pos, orn, ps_t, imp_t = args[0], args[1], args[2], args[7], args[8]
-    nbytes = _nbytes(*tensors) + _nbytes(v6, *pos, *orn, imp_t)
+    v6, pos, orn, imp_t = args[0], args[1], args[2], args[8]
+    nbytes = (_nbytes(*tensors) + _live_bytes(live, *(args[i] for i in rows))
+              + _nbytes(v6, *pos, *orn, imp_t))
     nb = v6.shape[0]
     work = n_substeps * (live_rows * (ops["warm"] + n_iters * ops["solve"]) + nb * ops["body"])
     work += (n_substeps - 1) * live_rows * ops["depth"]
@@ -270,11 +291,11 @@ def phase_kernel(dev):
     kw = dict(sb=512, n_substeps=4, n_iters=1, angular_mode=0, gravity=(0.0, -10.0, 0.0))
     kern = lambda: sweep.solve_substeps_contacts(*args, **kw)
     plain = lambda: sweep._solve_substeps_contacts_plain(*args, **kw)
-    err, _ = _hold("K1", kern, plain, args[0], K1_TOL)
+    err, plain_ms = _hold("K1", kern, plain, args[0], K1_TOL)
     ms = _time_ms(kern, 20)
-    plain_ms = _time_ms(plain, 3)
     live_rows = int((args[7][sweep.PS_VALID] > 0.5).sum())
-    bound_ms, bound_by = _whole_solve_bound(args, live_rows, 4, 1, _row_ops())
+    bound_ms, bound_by = _whole_solve_bound(args, (7, 9, 10), _valid_slices(args[7], 512),
+                                            live_rows, 4, 1, _row_ops())
     print(f"[3 kernel] K1 vs plain at NB 4160, B 32768, sb 512, 4 substeps, 25% Jacobi "
           f"slices: max |diff| {err:.3e} (limit {K1_TOL}); kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, {live_rows} live rows)")
@@ -376,25 +397,26 @@ def phase_kernel_win(dev):
     err, plain_ms = _hold("K2", kern, plain, args[0], K2_TOL)
     ms = _time_ms(kern, 5)
     live_rows = int((args[7][sweep.PS_VALID] > 0.5).sum())
-    bound_ms, bound_by = _whole_solve_bound(args, live_rows, 4, 1, _row_ops())
+    bound_ms, bound_by = _whole_solve_bound(args, (7, 9, 10, 11), args[12][:, 0] >= 0,
+                                            live_rows, 4, 1, _row_ops())
     print(f"[7 kernel] K2 vs plain at NP {bank['v6'].shape[0]}, BP {bank['bp']} "
           f"({bank['live_slices']} live slices of 256, {bank['wide_rows']} wide rows), "
           f"4 substeps: max |diff| {err:.3e} (limit {K2_TOL}); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}); bit-identical repeat; "
-          f"bank built in {made:.1f} s")
+          f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}, {live_rows} live rows); "
+          f"bit-identical repeat; bank built in {made:.1f} s")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
 
-def phase_main_path_win(dev, name, smi):
+def phase_main_path_win(dev, name, smi, timed=96):
     """The 16,384-body pile through bench.py's sequence: build, 33 steps, settle, autosize,
-    33 steps, 96 timed steps. Every step must launch K2 once and K1 never; the plain K2
-    must never run."""
+    33 steps, ``timed`` timed steps (bench.py: 96). Every step must launch K2 once and K1
+    never; the plain K2 must never run."""
     from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
     from bepuphysics2_tpu_torch.ops import sweep
     from bepuphysics2_tpu_torch.simulation import D_ENTRIES, D_WIDE
 
     n = 16384
-    warm, timed, settle = 33, 96, max(31, int(6 * n ** (1 / 3)))
+    warm, settle = 33, max(31, int(6 * n ** (1 / 3)))
     sim = build_pile(n, dev)
     c = sim.config
     _require((c.body_capacity, c.max_pairs, c.num_colors) == (16448, 131072, 16),
@@ -560,13 +582,14 @@ def phase_kernel_k3(dev):
     kw = dict(sb=128, n_iters=1)
     kern = lambda: sweep.contact_sweep(*args, **kw)
     plain = lambda: sweep._contact_sweep_plain(*args, **kw)
-    err, _ = _hold("K3", kern, plain, args[0], K3_TOL, outputs=list)
+    err, plain_ms = _hold("K3", kern, plain, args[0], K3_TOL, outputs=list)
     ms = _time_ms(kern, 20)
-    plain_ms = _time_ms(plain, 3)
     v6, i7, ps_t, imp_t, idx2, scale = args[:6]
     live_rows = int((ps_t[sweep.PS_VALID] > 0.5).sum())
-    bound_ms, bound_by = _bound(_nbytes(v6, i7, ps_t, imp_t, idx2, scale, v6, imp_t),
-                                live_rows * _row_ops()["solve"])
+    live = _valid_slices(ps_t, 128)
+    bound_ms, bound_by = _bound(
+        _nbytes(v6, i7, imp_t, v6, imp_t) + _live_bytes(live, ps_t, idx2, scale),
+        live_rows * _row_ops()["solve"])
     print(f"[11 kernel] K3 vs plain at NB 336, B 7808 (61 slices of 128, 13 Jacobi), 1 "
           f"iteration: max |diff| {err:.3e} (limit {K3_TOL}); kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}, {live_rows} live rows); "
@@ -578,9 +601,10 @@ def phase_main_path_tube(dev, name, smi, n_rag=32, warm=33, timed=96,
                          settle=max(31, int(6 * 4096 ** (1 / 3))), hold_frames=4):
     """The 32-ragdoll tube (bench.py's BENCH_RAGDOLLS sizing: 328 body slots, 321 bodies,
     576 joints) through bench.py's ragdoll sequence: build, 33 steps, 95 settle, autosize,
-    33, 96 timed. Every step must launch K3 eight times (two contact banks × 4 substeps ×
-    1 iteration) and K1 and K2 never; the plain K3 must never run; the state must stay
-    finite, with no overflow after autosize and no host sync in the timed window. Then,
+    33, ``timed`` timed (bench.py: 96). Every step must launch K3 eight times (two contact
+    banks × 4 substeps × 1 iteration) and K1 and K2 never; the plain K3 must never run;
+    the state must stay finite, with no overflow after autosize and no host sync in the
+    timed window. Then,
     for ``hold_frames`` more frames carried on the CPU from the card's last state, every
     card step from the CPU's state must land within K3's limit of the CPU's step over the
     ragdolls wholly inside the tube. The limbs launched out of it are printed, not held:
@@ -681,7 +705,7 @@ def phase_main_path_tube(dev, name, smi, n_rag=32, warm=33, timed=96,
 def phase_tube_default_settings(dev, name, smi, n_rag=32, warm=33, timed=96):
     """The 32-ragdoll tube at the package's default solver settings (color_cap_factor
     1.5, jacobi_cap_factor 0.3, color_rounds 3), where the first step's joint Jacobi
-    bucket does not spill: 33 steps, then 96 timed. Every dynamic body must stay inside
+    bucket does not spill: 33 steps, then ``timed`` timed. Every dynamic body must stay inside
     the tube and every ragdoll whole, with no overflow over the timed steps and K3
     launched 8 times per step."""
     from bepuphysics2_tpu_torch.ops import sweep
@@ -709,14 +733,14 @@ def phase_tube_default_settings(dev, name, smi, n_rag=32, warm=33, timed=96):
     _require(k3 == 8 * (warm + timed), "the tube did not launch K3 8 times per step")
 
 
-def phase_determinism_tube(dev):
+def phase_determinism_tube(dev, steps=60):
     hashes = []
     for _ in range(2):
         sim = tube_sim(4, dev)
-        sim.run(60, DT)
+        sim.run(steps, DT)
         torch.cuda.synchronize()
         hashes.append(sim.state_hash())
-    print(f"[13 determinism] 4-ragdoll tube, 60 steps twice: state_hash {hashes[0]:#018x} "
+    print(f"[13 determinism] 4-ragdoll tube, {steps} steps twice: state_hash {hashes[0]:#018x} "
           f"/ {hashes[1]:#018x}")
     _require(hashes[0] == hashes[1], "two identical tube runs on the card differ")
 
@@ -741,6 +765,256 @@ def phase_cpu_vs_card_tube(dev, tol=1e-4, frames=20):
     _require(np.isfinite(positions(card)).all(), "non-finite card trajectory")
 
 
+# --- slice 4: the ragdoll pile above 8,192 bodies (K4) and the compound pile (K1) ---------
+
+PILE_RAGDOLLS = 1024  # 10,240 dynamic bodies, 9,216 ball sockets, 9,216 swing limits
+
+
+def _heads_apart(state, n_rag):
+    """Head-torso distance of every ragdoll of a pile (ground at slot 0; ragdoll r holds
+    bodies 1 + 10r to 10 + 10r, torso first, head second)."""
+    pos = np.stack([t.cpu().numpy() for t in state.bodies.pos])
+    torso, head = 1 + 10 * np.arange(n_rag), 2 + 10 * np.arange(n_rag)
+    return np.linalg.norm(pos[:, head] - pos[:, torso], axis=0)
+
+
+def _padded_bank(config, n_bodies):
+    """Rows of the windowed store bank (``windowing.row_windows``' bp) for a config: the
+    store, one partial slice per (color, Morton block) group, the wide region."""
+    cap, _ = config.store_layout()
+    nblk = -(-n_bodies // 1024)
+    wide_cap = max(256, -(-(config.wide_cap_rows or cap // 8) // 256) * 256)
+    return cap + (config.num_colors + 1) * nblk * 256 + wide_cap
+
+
+def phase_kernel_k4(dev, n_rows):
+    """K4 against its plain version on a synthetic windowed bank at the ragdoll pile's
+    shapes: 10,256 body slots (11 Morton blocks), ``n_rows`` store rows (the capacity
+    autosize gives the pile), 16 colors, half the slots filled, a twentieth of the rows
+    joining far bodies, one velocity iteration."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    t0 = time.perf_counter()
+    bank = sweep.synthetic_win_bank(10 * PILE_RAGDOLLS + 16, n_rows, 16, seed=6, substeps=4,
+                                    wide_frac=0.05, fill=0.5)
+    made = time.perf_counter() - t0
+    args = sweep.sweep_win_bank_args(bank, dev)
+    kw = dict(sb=bank["sb"], n_iters=1)
+    kern = lambda: sweep.contact_sweep_win(*args, **kw)
+    plain = lambda: sweep._contact_sweep_win_plain(*args, **kw)
+    err, plain_ms = _hold("K4", kern, plain, args[0], K4_TOL, outputs=list)
+    ms = _time_ms(kern, 10)
+    v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg = args[:8]
+    live_rows = int((ps_t[sweep.PS_VALID] > 0.5).sum())
+    bound_ms, bound_by = _bound(
+        _nbytes(v6p, imp_t, wseg, v6p, imp_t)
+        + _live_bytes(wseg[:, 0] >= 0, it_t, ps_t, whi2, wlo2, scale),
+        live_rows * _row_ops()["solve"])
+    print(f"[16 kernel] K4 vs plain at NP {v6p.shape[0]}, BP {bank['bp']} "
+          f"({bank['live_slices']} live slices of 256, {bank['wide_rows']} wide rows, "
+          f"{live_rows} live rows), 1 iteration: max |diff| {err:.3e} (limit {K4_TOL}); "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; bound {bound_ms:.5f} ms ({bound_by}); "
+          f"bit-identical repeat; bank built in {made:.1f} s")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _count_plain_calls():
+    """Wrap every kernel's plain version with a call counter. Returns (calls, restore)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    names = ("_solve_substeps_contacts_plain", "_solve_substeps_contacts_win_plain",
+             "_contact_sweep_plain", "_contact_sweep_win_plain")
+    saved = {n: getattr(sweep, n) for n in names}
+    calls = []
+
+    def counted(name):
+        fn = saved[name]
+        return lambda *a, **k: calls.append(name) or fn(*a, **k)
+
+    for n in names:
+        setattr(sweep, n, counted(n))
+    return calls, lambda: [setattr(sweep, n, fn) for n, fn in saved.items()]
+
+
+def _kernel_launches():
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    return dict(K1=sweep.solve_substeps_contacts.launches,
+                K2=sweep.solve_substeps_contacts_win.launches,
+                K3=sweep.contact_sweep.launches, K4=sweep.contact_sweep_win.launches)
+
+
+def _zero_launches():
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    for fn in (sweep.solve_substeps_contacts, sweep.solve_substeps_contacts_win,
+               sweep.contact_sweep, sweep.contact_sweep_win):
+        fn.launches = 0
+
+
+def phase_main_path_pile(dev, name, smi, warm=33, timed=32,
+                         settle=max(31, int(6 * 4096 ** (1 / 3)))):
+    """The 1,024-ragdoll pile (10,240 dynamic bodies, 18,432 joints, 16 colors, 4
+    substeps, 1 iteration, sleep on) through bench.py's ragdoll sequence: build, ``warm``
+    steps, ``settle`` steps (the top layer lands at about step 72: autosize must measure
+    the pile after it), autosize, ``warm`` steps, ``timed`` timed steps. Above 8,192 body
+    slots it runs grid2 and the windowed layout, and every step must launch K4 substeps x
+    iterations = 4 times, K1, K2 and K3 never, and no plain version; the state must stay
+    finite with no overflow after autosize, every body above y = -0.2, every ragdoll
+    whole, and no host sync in the timed window. The overflow bits of the steps before
+    autosize are printed. Returns (K4 launches, the autosized max_pairs)."""
+    from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
+    from bepuphysics2_tpu_torch.models import build_ragdoll_pile_sim
+    from bepuphysics2_tpu_torch.simulation import D_ENTRIES, D_WIDE
+
+    t0 = time.perf_counter()
+    sim, c = build_ragdoll_pile_sim(PILE_RAGDOLLS, device=dev)
+    built = time.perf_counter() - t0
+    _require((c.body_capacity, sim.body_count, sim.constraint_count, c.num_colors)
+             == (10256, 10241, 18432, 16), "ragdoll pile configuration drifted")
+    per_step = c.substeps * c.velocity_iterations
+    calls, restore = _count_plain_calls()
+    stages = []
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        sim.run(warm + settle, DT)
+        early_src = int(sim.last_diag.overflow_src)
+        torch.cuda.synchronize()
+        stages.append(time.perf_counter() - t0)
+        early = _kernel_launches()["K4"]
+        _require(early == per_step * (warm + settle),
+                 f"K4 launched {early} times in the {warm + settle} steps before autosize")
+        sized = sim.autosize(DT, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
+        probe, rest = divmod(_kernel_launches()["K4"] - early, per_step)
+        _require(rest == 0 and probe >= 32 and probe % 32 == 0,
+                 f"autosize ran {probe} steps and {rest} launches off K4")
+        sim.run(warm, DT)
+        torch.cuda.synchronize()
+        stages.append(time.perf_counter() - t0)
+        st = sim.state.bodies
+        dyn = st.kind == KIND_DYNAMIC
+        awake = float((st.awake & dyn).sum()) / float(dyn.sum())
+        import warnings
+
+        t1 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sim.run(timed, DT)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+        syncs = sum("synchroniz" in str(w.message) for w in caught) / timed
+    finally:
+        restore()
+    launches = _kernel_launches()
+    steps = warm + settle + probe + warm + timed
+    diag = sim.last_diag
+    st = sim.state
+    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
+              st.store.imp_pen, st.store.imp_tx, st.store.imp_ty, st.store.imp_tw,
+              *st.joint_impulses.values()]
+    _require(all(bool(torch.isfinite(t).all()) for t in leaves), "non-finite state")
+    dyn = st.bodies.kind == KIND_DYNAMIC
+    min_y = float(st.bodies.pos.y[dyn].min())
+    apart = _heads_apart(st, PILE_RAGDOLLS)
+    demand = [int(x) for x in diag.demand]
+    pairs, contacts = int(diag.pair_count), int(diag.contact_count)
+    c = sim.config
+    print(f"[17 main path] {PILE_RAGDOLLS}-ragdoll pile ({sim.body_count} bodies, "
+          f"{sim.constraint_count} joints, {c.num_colors} colors), built in {built:.1f} s, "
+          f"{warm} + {settle} settle + autosize ({probe} probe steps, {sized['rounds']} "
+          f"rounds) + {warm} + {timed} steps on {name} ({smi}): {timed / elapsed:.3f} steps/s "
+          f"over the {timed} timed steps ({awake:.3f} of the dynamic bodies awake at their "
+          f"start); warm-up + settle {stages[0]:.1f} s (overflow bits {early_src}), to the "
+          f"timed window {stages[1]:.1f} s; pairs {pairs}, "
+          f"contacts {contacts}, wide-row demand {demand[D_WIDE]}, padded bank "
+          f"{_padded_bank(c, c.body_capacity)} rows, grid entries {demand[D_ENTRIES]}, min "
+          f"dynamic y {min_y:.3f}, max head-torso {apart.max():.3f}; demand {demand}; "
+          f"autosized max_pairs {c.max_pairs}, wide_cap_rows {c.wide_cap_rows}; launches "
+          f"{launches} in {steps} steps, plain calls {len(calls)}; host syncs per step {syncs:g}")
+    _require(demand[D_ENTRIES] > 0, "the grid2 broad phase did not run")
+    _require(launches == dict(K1=0, K2=0, K3=0, K4=per_step * steps),
+             f"the pile did not solve through K4 alone, {per_step} launches per step")
+    _require(not calls, f"a plain version ran on the card's main path: {sorted(set(calls))}")
+    _require(not bool(diag.overflow), f"overflow after autosize (src {int(diag.overflow_src)})")
+    _require(min_y > -0.2, f"a dynamic body fell through the ground (y = {min_y})")
+    _require(pairs > 0 and contacts > 0, "no pairs or no contacts in the pile")
+    _require(apart.max() < 1.2, f"a ragdoll came apart (head-torso {apart.max()})")
+    _require(syncs == 0, f"{syncs} host syncs per step in the timed window")
+    return launches["K4"], c.max_pairs
+
+
+def _small_ragdoll_pile(device, n_rag=8):
+    from bepuphysics2_tpu_torch.models import build_ragdoll_pile_sim
+
+    sim, _ = build_ragdoll_pile_sim(n_rag, device=device, solver_backend="pallas_win",
+                                    broadphase="grid2")
+    return sim
+
+
+def phase_determinism_pile(dev, steps=30):
+    hashes = []
+    for _ in range(2):
+        sim = _small_ragdoll_pile(dev)
+        sim.run(steps, DT)
+        torch.cuda.synchronize()
+        hashes.append(sim.state_hash())
+    print(f"[18 determinism] 8-ragdoll pile on the windowed general path (grid2, K4), {steps} "
+          f"steps twice: state_hash {hashes[0]:#018x} / {hashes[1]:#018x}")
+    _require(hashes[0] == hashes[1], "two identical pile runs on the card differ")
+
+
+def phase_cpu_vs_card_pile(dev, tol=1e-4, frames=10):
+    """The 8-ragdoll pile of phase 18, 10 frames on the CPU (K4's plain version). Each
+    frame, stepped again on the card from the CPU's state before it, must land on the
+    CPU's next state within ``tol`` (absolute and relative: K4's limit against its plain
+    version). Limbs colliding at their joint anchors make the trajectories chaotic, so
+    steps are held, not trajectories."""
+    cpu = _small_ragdoll_pile("cpu")
+    before = _kernel_launches()["K4"]
+    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
+    k4 = _kernel_launches()["K4"] - before
+    pos = np.stack([t.numpy() for t in last.bodies.pos])
+    print(f"[19 cpu vs card] 8-ragdoll pile, {frames} frames: each card step from the CPU's "
+          f"state within {worst:.3e} of the CPU's (limit {tol:g}, absolute and relative); "
+          f"K4 launches {k4}; CPU min y {pos[1][1:81].min():.3f}")
+    _require(worst <= tol, "a card step of the pile disagrees with the CPU's beyond K4's limit")
+    _require(k4 == 4 * frames, "the card steps did not launch K4 4 times each")
+
+
+def phase_compound_pile(dev, n_bodies=252, frames=10):
+    """The contact-only compound pile (``build_compound_pile_sim``: 252 spheres and boxes
+    in the ragdoll tube's spinning tube, no joints): ``frames`` frames on the CPU, each
+    stepped again on the card from the CPU's state before it within K1's 1e-4 (absolute
+    and relative) of the CPU's; on the card K1 launches once per step and K2, K3 and K4
+    never; finite, no overflow."""
+    from bepuphysics2_tpu_torch.models import build_compound_pile_sim
+
+    cpu, _ = build_compound_pile_sim(n_bodies, device="cpu")
+    before = _kernel_launches()
+    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
+    launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+    card, _ = build_compound_pile_sim(n_bodies, device=dev)
+    card.run(frames, DT)
+    diag = card.last_diag
+    st = card.state
+    leaves = [*st.bodies.pos, *st.bodies.vel, st.ccache.penetration, st.store.imp_pen]
+    _require(all(bool(torch.isfinite(t).all()) for t in leaves), "non-finite state")
+    print(f"[20 compound pile] {n_bodies} bodies in the tube, {frames} frames: each card step "
+          f"from the CPU's state within {worst:.3e} of the CPU's (limit {K1_TOL:g}); launches "
+          f"over those steps {launches}; card run: contacts {int(diag.contact_count)}, "
+          f"overflow {bool(diag.overflow)}")
+    _require(worst <= K1_TOL, "a card step of the compound pile disagrees with the CPU's")
+    _require(launches == dict(K1=frames, K2=0, K3=0, K4=0),
+             "the compound pile did not solve through one K1 launch per step")
+    _require(not bool(diag.overflow), f"overflow (src {int(diag.overflow_src)})")
+    _require(int(diag.contact_count) > 0, "no contacts in the compound pile")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -758,19 +1032,29 @@ def main():
     phase_determinism(dev)
     phase_cpu_vs_card(dev)
     k2 = phase_kernel_win(dev)
+    # The two 32-ragdoll tubes time 16 steps instead of bench.py's 96 (and the ragdoll
+    # pile 32) to keep the whole run well inside its time limit on a slow host.
     k2["launches"] = phase_main_path_win(dev, name, smi)
     win = dict(solver_backend="pallas_win", broadphase="grid2")
     phase_determinism(dev, "9 determinism", " on the windowed path (grid2, K2)", **win)
     phase_cpu_vs_card(dev, "10 cpu vs card", " on the windowed path", WIN_TOL, **win)
     k3 = phase_kernel_k3(dev)
-    k3["launches"] = phase_main_path_tube(dev, name, smi)
+    k3["launches"] = phase_main_path_tube(dev, name, smi, timed=16)
     phase_determinism_tube(dev)
     phase_cpu_vs_card_tube(dev)
-    phase_tube_default_settings(dev, name, smi)
+    phase_tube_default_settings(dev, name, smi, timed=16)
+    # The main path runs first: phase 16's bank takes the store rows autosize gives it.
+    pile_launches, pile_rows = phase_main_path_pile(dev, name, smi)
+    k4 = phase_kernel_k4(dev, pile_rows)
+    k4["launches"] = pile_launches
+    phase_determinism_pile(dev)
+    phase_cpu_vs_card_pile(dev)
+    phase_compound_pile(dev)
     # No single PyTorch call computes any of these functions: library_ms is null.
     rows = [("solve_substeps_contacts (K1)", K1_SOURCE, K1_REPLACES, k1),
             ("solve_substeps_contacts_win (K2)", K2_SOURCE, K2_REPLACES, k2),
-            ("contact_sweep (K3)", K3_SOURCE, K3_REPLACES, k3)]
+            ("contact_sweep (K3)", K3_SOURCE, K3_REPLACES, k3),
+            ("contact_sweep_win (K4)", K4_SOURCE, K4_REPLACES, k4)]
     print(json.dumps({"kernels": [dict(
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],

@@ -8,7 +8,7 @@ import pytest
 
 from bepuphysics2_tpu_torch.ops import build
 
-KERNELS = ("substeps_contacts", "substeps_contacts_win")
+KERNELS = tuple(build.KERNELS.values())
 
 
 @pytest.fixture
@@ -16,6 +16,12 @@ def csrc_copy(tmp_path):
     dst = tmp_path / "csrc"
     shutil.copytree(build.CSRC, dst)
     return dst
+
+
+def test_every_kernel_has_its_source():
+    assert set(build.KERNELS) == {"K1", "K2", "K3", "K4"}
+    for name in KERNELS:
+        assert (build.CSRC / f"{name}.cu").is_file(), name
 
 
 def test_key_is_stable_and_distinct(csrc_copy):

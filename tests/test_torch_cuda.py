@@ -1,6 +1,7 @@
-"""The port on a CUDA card: kernels K1, K2 and K3 against their plain PyTorch versions,
-and whole steps on the card (the K1 path, the windowed K2 path and the general K3 path of
-the ragdoll tube) against the CPU. Every test needs the card and skips without one; this
+"""The port on a CUDA card: kernels K1, K2, K3 and K4 against their plain PyTorch
+versions, and whole steps on the card (the K1 path, the windowed K2 path, the general K3
+path of the ragdoll tube, the windowed general K4 path of the ragdoll pile and the
+contact-only compound pile through K1) against the CPU. Every test needs the card and skips without one; this
 file imports no JAX, so it runs on a machine that has none:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
@@ -11,7 +12,9 @@ import torch
 
 import bepuphysics2_tpu_torch as tbp
 import bepuphysics2_tpu_torch.simulation as tsim
-from bepuphysics2_tpu_torch.models import build_ragdoll_tube_sim
+from bepuphysics2_tpu_torch.models import (
+    build_compound_pile_sim, build_ragdoll_pile_sim, build_ragdoll_tube_sim,
+)
 from bepuphysics2_tpu_torch.ops import sweep
 
 pytestmark = pytest.mark.cuda
@@ -91,6 +94,82 @@ def test_k3_matches_plain_on_card(cuda_device, n_iters):
     again = [t.cpu().numpy() for t in sweep.contact_sweep(*sweep.sweep_bank_args(bank, cuda_device), **kw)]
     for g, a in zip(got, again):
         np.testing.assert_array_equal(g, a)
+
+
+@pytest.mark.parametrize("n_iters", [1, 2])
+def test_k4_matches_plain_on_card(cuda_device, n_iters):
+    """K4 on a windowed bank with narrow, wide, Jacobi and padding rows and dead slices
+    (2,600 bodies, three Morton blocks): FMA contraction and the kernel's fixed summation
+    order differ from PyTorch's elementwise ops and ``index_add_``: 1e-4 absolute;
+    bit-identical run to run."""
+    bank = sweep.synthetic_win_bank(2600, 4096, 4, seed=9, substeps=4, wide_frac=0.05)
+    kw = dict(sb=bank["sb"], n_iters=n_iters)
+    args = sweep.sweep_win_bank_args(bank, cuda_device)
+    before = sweep.contact_sweep_win.launches
+    got = [t.cpu().numpy() for t in sweep.contact_sweep_win(*args, **kw)]
+    assert sweep.contact_sweep_win.launches == before + 1
+    want = [t.cpu().numpy() for t in sweep._contact_sweep_win_plain(*args, **kw)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+    assert np.abs(got[0] - bank["v6"]).max() > 1e-2
+    again = [t.cpu().numpy() for t in sweep.contact_sweep_win(*args, **kw)]
+    for g, a in zip(got, again):
+        np.testing.assert_array_equal(g, a)
+
+
+def _card_steps_hold_cpu(cpu, card, frames, tol=1e-4):
+    """Step ``cpu`` ``frames`` times; each frame, step the card from the CPU's state before
+    it and hold the result to the CPU's within ``tol`` (absolute and relative)."""
+    from bepuphysics2_tpu_torch.interop import state_from_numpy, state_to_numpy
+
+    dev = card.device
+    shapes, banks = card.shapes.device(dev), card._joint_banks()
+    for _ in range(frames):
+        before = state_to_numpy(cpu.state)
+        cpu.timestep(DT)
+        got, _ = tsim.step(state_from_numpy(before, dev), shapes, banks, DT, cpu.config,
+                           card._present_types())
+        for f in ("pos", "orn", "vel", "omega"):
+            for g, w in zip(getattr(got.bodies, f), getattr(cpu.state.bodies, f)):
+                np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=tol, atol=tol)
+
+
+def _launches():
+    return (sweep.solve_substeps_contacts.launches, sweep.solve_substeps_contacts_win.launches,
+            sweep.contact_sweep.launches, sweep.contact_sweep_win.launches)
+
+
+def test_ragdoll_pile_on_card_matches_cpu_and_repeats(cuda_device):
+    """The 4-ragdoll pile on the windowed general path (grid2, K4): every card step from
+    the CPU's state within 1e-4 of the CPU's, 10 frames; K4 launches substeps x
+    iterations times per step and K1, K2 and K3 never; two card runs bit-identical."""
+    kw = dict(substeps=2, num_colors=4, layer=(2, 1), solver_backend="pallas_win",
+              broadphase="grid2")
+    cpu, _ = build_ragdoll_pile_sim(4, device="cpu", **kw)
+    card, _ = build_ragdoll_pile_sim(4, device=cuda_device, **kw)
+    _card_steps_hold_cpu(cpu, card, 10)
+    runs = []
+    for _ in range(2):
+        sim, _ = build_ragdoll_pile_sim(4, device=cuda_device, **kw)
+        k1, k2, k3, k4 = _launches()
+        sim.run(20, DT)
+        assert _launches() == (k1, k2, k3, k4 + 20 * 2)
+        runs.append((_positions(sim), sim.state_hash()))
+    (card1, h1), (card2, h2) = runs
+    assert h1 == h2
+    np.testing.assert_array_equal(card1, card2)
+
+
+def test_compound_pile_on_card_matches_cpu(cuda_device):
+    """The contact-only compound pile: every card step from the CPU's state within 1e-4 of
+    the CPU's, 10 frames; K1 launches once per step, K2, K3 and K4 never."""
+    cpu, _ = build_compound_pile_sim(18, substeps=2, num_colors=4, device="cpu")
+    card, _ = build_compound_pile_sim(18, substeps=2, num_colors=4, device=cuda_device)
+    _card_steps_hold_cpu(cpu, card, 10)
+    k1, k2, k3, k4 = _launches()
+    card.run(10, DT)
+    assert _launches() == (k1 + 10, k2, k3, k4)
+    assert int(card.last_diag.contact_count) > 0
 
 
 def _pile(device, **cfg):

@@ -7,7 +7,8 @@ windowed kernel K2 above 8,192 bodies, for store-only scenes; the general path o
 kernel K3 for scenes with joints: hand-written CUDA for sm_90a on a CUDA device, their
 plain PyTorch versions on the CPU), island sleep, and demand-driven ``autosize``. A
 ``Simulation`` runs on the CUDA card unless it is given ``device="cpu"``. The port carries
-sphere, capsule, box and compound scenes with ball-socket and swing-limit joints.
+sphere, capsule, box and compound scenes with ball-socket and swing-limit joints. The TPU
+design probes of the repository's ``experiments/`` run in ``experiments`` (kernels K5-K7).
 """
 
 __version__ = "0.1.0"

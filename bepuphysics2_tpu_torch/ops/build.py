@@ -17,7 +17,8 @@ from pathlib import Path
 
 # Every kernel of the port: its label and its source ``csrc/<name>.cu``.
 KERNELS = {"K1": "substeps_contacts", "K2": "substeps_contacts_win", "K3": "contact_sweep",
-           "K4": "contact_sweep_win"}
+           "K4": "contact_sweep_win", "K5": "probe_sweep", "K6": "probe_gather",
+           "K7": "probe_scatter"}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"

@@ -1,20 +1,23 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds kernels K1, K2, K3 and K4 from
-the repository's sources, holds each against its plain PyTorch version at its main path's
+"""Smoke run of the PyTorch port on one CUDA card: builds kernels K1-K7 from the
+repository's sources, holds each against its plain PyTorch version at its main path's
 shapes, then drives the port's main paths through ``Simulation`` as ``bench.py`` does and
 checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1), the
 16,384-body pile (grid2 broad phase, autosize, the windowed K2), the ragdoll tube of 32
 ragdolls (joints and a compound: the general path over K3) at bench.py's solver settings
 and at the package's default ones, the pile of 1,024 ragdolls (the general path above
 8,192 bodies: grid2, autosize, the windowed layout, K4) and the contact-only compound
-pile (one K1 launch over the store's and the compound's banks).
+pile (one K1 launch over the store's and the compound's banks). Last, the TPU design
+probes of ``experiments/`` through their entry points: the sweep prototypes v1-v4 (K5)
+and the gather and scatter probes k1-k6 (K6, K7).
 
     python3 chip_smoke.py
 
 Each phase prints one line; any failure raises, so the script exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the paths with its launch count on its main path, its error against the
-plain version, its time, the plain version's time and its bound (the least time the card
-could take for the same work). Imports nothing of JAX: the machine with the card has none.
+plain version, its time, the plain version's time, its bound (the least time the card
+could take for the same work) and, where one PyTorch call computes the same function,
+that call's time. Imports nothing of JAX: the machine with the card has none.
 """
 import dataclasses
 import json
@@ -38,6 +41,13 @@ K3_TOL = 1e-4  # as K1
 K4_SOURCE = "bepuphysics2_tpu_torch/csrc/contact_sweep_win.cu"
 K4_REPLACES = "bepuphysics2_tpu/ops/sweep.py:901"
 K4_TOL = 1e-4  # as K1
+K5_SOURCE = "bepuphysics2_tpu_torch/csrc/probe_sweep.cu"
+K5_REPLACES = "experiments/pallas_sweep_proto.py:39"
+K5_TOL = 1e-5  # K5 rounds as the plain version; index_add_'s atomics order repeated targets
+K6_SOURCE = "bepuphysics2_tpu_torch/csrc/probe_gather.cu"
+K6_REPLACES = "experiments/pallas_gather_probe.py:36"
+K7_SOURCE = "bepuphysics2_tpu_torch/csrc/probe_scatter.cu"
+K7_REPLACES = "experiments/pallas_gather_probe.py:93"
 WIN_TOL = (2e-2, 1e-3)  # the JAX package's envelope for its windowed kernel (max, median)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (data sheet)
@@ -1015,6 +1025,121 @@ def phase_compound_pile(dev, n_bodies=252, frames=10):
     _require(int(diag.contact_count) > 0, "no contacts in the compound pile")
 
 
+# --- slice 5: the TPU design probes of experiments/ (K5, K6, K7) ----------------------------
+
+def _host_ms(fn):
+    """Milliseconds of one call of ``fn`` on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_probe_sweep(dev):
+    """The sweep prototypes' main (``experiments.sweep_proto``) on the card, K5's count
+    zeroed before it: every variant (v1, v2 A-D and v3 share one launch shape, v4 has
+    its own) within 1e-5 of its plain version on the card, then bit-identical on a
+    repeat; the state moved (mode C: within 1e-6 of its input, 1e-30 of a sum being below
+    f32 resolution); and v1 on passes that repeat bodies. Times: main's per call (with
+    the wrapper's stable sort) and the kernel's alone (sort made beforehand)."""
+    from bepuphysics2_tpu_torch.experiments import sweep_proto
+    from bepuphysics2_tpu_torch.ops import probes
+
+    probes.probe_sweep.launches = 0
+    rows = sweep_proto.main(dev)
+    launches = probes.probe_sweep.launches
+    _require(launches == 52 * len(rows), f"K5 launched {launches} times in the probes' main")
+    v6d, idxd = sweep_proto.inputs_with_duplicates()
+    _, fn, lanes, transposed, mode = sweep_proto.VARIANTS[0]
+    state = probes.to_state(torch.from_numpy(v6d), lanes, transposed).to(dev)
+    idx = torch.from_numpy(idxd).to(dev)
+    dup = dict(name="v1 repeated bodies", fn=fn, lanes=lanes, transposed=transposed,
+               mode=mode, state=state, idx=idx, out=fn(state, idx))
+    dup["want"] = probes._probe_sweep_plain(state, idx, lanes, transposed, mode)
+    dup["max_abs_err"] = float((dup["out"] - dup["want"]).abs().max())
+    for r in [*rows, dup]:
+        err, out, state = r["max_abs_err"], r["out"], r["state"]
+        _require(bool(torch.isfinite(out).all()), f"K5 {r['name']}: a non-finite value")
+        _require(err <= K5_TOL, f"K5 {r['name']} disagrees with its plain version: {err}")
+        _require(torch.equal(r["fn"](state, r["idx"]), out), f"K5 {r['name']} is not "
+                 "deterministic run to run")
+        moved = float((out - state).abs().max())
+        _require(moved <= 1e-6 if r["mode"] == "C" else moved > 1e-1,
+                 f"K5 {r['name']}: the state moved by {moved}")
+    passes = rows[0]["idx"].shape[0]
+    for r in rows:
+        order = probes._stable_order(r["idx"])
+        r["kernel_ms"] = _time_ms(lambda: probes.probe_sweep(
+            r["state"], r["idx"], lanes=r["lanes"], transposed=r["transposed"],
+            mode=r["mode"], order=order), 50)
+    parts = [f"{r['name']} {r['max_abs_err']:.2e}, {r['ms']:.4f} ms ({r['us_per_pass']:.3f} "
+             f"us/pass), kernel {r['kernel_ms']:.4f} ms ({r['kernel_ms'] * 1e3 / passes:.3f} "
+             f"us/pass)" for r in rows] + [f"{dup['name']} {dup['max_abs_err']:.2e}"]
+    v1 = rows[0]
+    m = v1["idx"].shape[1]
+    nb = v1["state"].numel() // 8
+    per_row = _ops_per_item(probes._sweep_pass_plain, torch.zeros(nb, 8),
+                            torch.tensor([5]), 128, "B")
+    bound_ms, bound_by = _bound(_nbytes(v1["state"], v1["idx"], v1["out"]),
+                                per_row * m * passes)
+    print(f"[21 probe sweep] K5 through sweep_proto.main: NB {nb}, M {m}, {passes} passes; "
+          f"launches {launches}; max |diff| vs plain (limit {K5_TOL:g}), ms per call over 50 "
+          f"calls: {'; '.join(parts)}; v1 plain {v1['plain_ms']:.2f} ms; bound "
+          f"{bound_ms:.6f} ms ({bound_by}; {per_row} ops per row); bit-identical repeats")
+    return dict(launches=launches, max_abs_err=max(r["max_abs_err"] for r in [*rows, dup]),
+                ms=v1["kernel_ms"], plain_ms=v1["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def phase_probe_gather_scatter(dev):
+    """The gather probe's main (``experiments.gather_probe``) on the card, K6's and K7's
+    counts zeroed before it: k1-k4 and k6 through K6 and k5 through K7, each exactly its
+    plain version (a gather and a last-writer copy are exact) and again on a repeat; k5
+    also with distinct ``d`` rows, where the last writer shows. K6's library call is
+    ``torch.index_select``; K7 has none (no one PyTorch call keeps the last writer)."""
+    from bepuphysics2_tpu_torch.experiments import gather_probe
+    from bepuphysics2_tpu_torch.ops import probes
+
+    probes.probe_gather.launches = probes.probe_scatter.launches = 0
+    rows = gather_probe.main(dev)
+    k6, k7 = probes.probe_gather.launches, probes.probe_scatter.launches
+    _require((k6, k7) == (52 * 5, 52), f"K6 and K7 launched {k6} and {k7} times in the main")
+    v, idx, d = next(r for r in rows if r["kernel"] == "K7")["args"]
+    d2 = torch.from_numpy(np.random.default_rng(3).normal(size=tuple(d.shape))
+                          .astype(np.float32)).to(dev)
+    distinct = dict(label="k5 distinct d", fn=gather_probe.k5, args=(v, idx, d2),
+                    out=gather_probe.k5(v, idx, d2), kernel="K7")
+    distinct["max_abs_err"] = float((distinct["out"]
+                                     - probes._probe_scatter_plain(v, idx, d2)).abs().max())
+    for r in [*rows, distinct]:
+        _require(r["max_abs_err"] == 0.0, f"{r['label']} differs from its plain version")
+        _require(torch.equal(r["fn"](*r["args"]), r["out"]), f"{r['label']} is not "
+                 "deterministic run to run")
+    nb, w = v.shape
+    m, uniq = idx.numel(), int(torch.unique(idx).numel())
+    gather = rows[0]
+    g_bound = _bound(uniq * w * 4 + _nbytes(idx, gather["out"]), 0)  # distinct rows read
+    order = probes._stable_order(idx)
+    s_ms = _time_ms(lambda: probes.probe_scatter(v, idx, d, order=order), 50)
+    # K7 reads v and writes the output whole, reads the indices and each target's last
+    # d row, and adds once per component of a target.
+    s_bound = _bound(2 * _nbytes(v) + _nbytes(idx) + uniq * w * 4, uniq * w)
+    g_plain = _host_ms(lambda: probes._probe_gather_plain(v, idx))
+    s_plain = _host_ms(lambda: probes._probe_scatter_plain(v, idx, d))
+    scatter = next(r for r in rows if r["kernel"] == "K7")
+    print(f"[22 probe gather/scatter] gather_probe.main: NB {nb}, M {m} ({uniq} distinct); "
+          f"launches K6 {k6}, K7 {k7}; k1-k6 and k5 with distinct d rows exact and repeated; "
+          f"K6 (k1) {gather['ms']:.4f} ms, torch.index_select {gather['library_ms']:.4f} ms, "
+          f"plain {g_plain:.3f} ms, bound {g_bound[0]:.7f} ms ({g_bound[1]}); K7 "
+          f"{scatter['ms']:.4f} ms per call, kernel {s_ms:.4f} ms, plain {s_plain:.3f} ms, "
+          f"bound {s_bound[0]:.7f} ms ({s_bound[1]})")
+    return (dict(launches=k6, max_abs_err=0.0, ms=gather["ms"], plain_ms=g_plain,
+                 bound_ms=g_bound[0], bound_by=g_bound[1], library_ms=gather["library_ms"]),
+            dict(launches=k7, max_abs_err=0.0, ms=s_ms, plain_ms=s_plain, bound_ms=s_bound[0],
+                 bound_by=s_bound[1], library_ms=None))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1050,15 +1175,23 @@ def main():
     phase_determinism_pile(dev)
     phase_cpu_vs_card_pile(dev)
     phase_compound_pile(dev)
-    # No single PyTorch call computes any of these functions: library_ms is null.
+    k5 = phase_probe_sweep(dev)
+    k6, k7 = phase_probe_gather_scatter(dev)
+    # No single PyTorch call computes K1-K5 or K7 (ordered Gauss-Seidel walks; 36
+    # dependent passes; a read-add-set whose last writer wins): their library_ms is null.
+    for k in (k1, k2, k3, k4):
+        k["library_ms"] = None
     rows = [("solve_substeps_contacts (K1)", K1_SOURCE, K1_REPLACES, k1),
             ("solve_substeps_contacts_win (K2)", K2_SOURCE, K2_REPLACES, k2),
             ("contact_sweep (K3)", K3_SOURCE, K3_REPLACES, k3),
-            ("contact_sweep_win (K4)", K4_SOURCE, K4_REPLACES, k4)]
+            ("contact_sweep_win (K4)", K4_SOURCE, K4_REPLACES, k4),
+            ("probe_sweep (K5)", K5_SOURCE, K5_REPLACES, k5),
+            ("probe_gather (K6)", K6_SOURCE, K6_REPLACES, k6),
+            ("probe_scatter (K7)", K7_SOURCE, K7_REPLACES, k7)]
     print(json.dumps({"kernels": [dict(
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
-        bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=None,
+        bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
     ) for n, src, rep, k in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

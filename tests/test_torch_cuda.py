@@ -1,5 +1,5 @@
-"""The port on a CUDA card: kernels K1, K2, K3 and K4 against their plain PyTorch
-versions, and whole steps on the card (the K1 path, the windowed K2 path, the general K3
+"""The port on a CUDA card: kernels K1-K4 and the probe kernels K5-K7 against their plain
+PyTorch versions, and whole steps on the card (the K1 path, the windowed K2 path, the general K3
 path of the ragdoll tube, the windowed general K4 path of the ragdoll pile and the
 contact-only compound pile through K1) against the CPU. Every test needs the card and skips without one; this
 file imports no JAX, so it runs on a machine that has none:
@@ -15,7 +15,8 @@ import bepuphysics2_tpu_torch.simulation as tsim
 from bepuphysics2_tpu_torch.models import (
     build_compound_pile_sim, build_ragdoll_pile_sim, build_ragdoll_tube_sim,
 )
-from bepuphysics2_tpu_torch.ops import sweep
+from bepuphysics2_tpu_torch.experiments import gather_probe, sweep_proto
+from bepuphysics2_tpu_torch.ops import probes, sweep
 
 pytestmark = pytest.mark.cuda
 
@@ -263,3 +264,46 @@ def test_ragdoll_tube_on_card_matches_cpu_and_repeats(cuda_device):
     (card1, h1), (card2, h2) = runs
     assert h1 == h2
     np.testing.assert_array_equal(card1, card2)
+
+
+@pytest.mark.parametrize("duplicates", [False, True], ids=["permutation", "duplicates"])
+@pytest.mark.parametrize("variant", [v[0] for v in sweep_proto.VARIANTS])
+def test_k5_matches_plain_on_card(cuda_device, variant, duplicates):
+    """K5 on the sweep prototypes' inputs in each variant's layout and mode: it rounds
+    every operation as the plain version does, so a pass without repeated indices gives
+    its bits; ``index_add_`` on the card sums repeated targets with atomics, in any order,
+    and mode D's state grows to |x| ~ 70: 1e-5, absolute and relative. Bit-identical run
+    to run; the state moved (mode C: within 1e-6 of its input)."""
+    _, fn, lanes, transposed, mode = next(v for v in sweep_proto.VARIANTS if v[0] == variant)
+    v6, idx = sweep_proto.inputs_with_duplicates() if duplicates else sweep_proto.inputs()
+    state = probes.to_state(torch.from_numpy(v6), lanes, transposed).to(cuda_device)
+    idx = torch.from_numpy(idx).to(cuda_device)
+    before = probes.probe_sweep.launches
+    got = fn(state, idx)
+    assert probes.probe_sweep.launches == before + 1
+    want = probes._probe_sweep_plain(state, idx, lanes, transposed, mode)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-5, atol=1e-5)
+    if not duplicates:
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    np.testing.assert_array_equal(fn(state, idx).cpu().numpy(), got.cpu().numpy())
+    moved = float((got - state).abs().max())
+    assert moved <= 1e-6 if mode == "C" else moved > 1e-1
+
+
+@pytest.mark.parametrize("label", ["k1", "k2", "k3", "k4", "k5", "k6"])
+def test_k6_k7_equal_plain_on_card(cuda_device, label):
+    """The gather probes through K6 and the scatter probe through K7, on the probe's own
+    inputs and on distinct ``d`` rows: exactly the plain version, and again on a repeat."""
+    v, idx, d = gather_probe.inputs(cuda_device)
+    if label == "k5":
+        d = torch.from_numpy(np.random.default_rng(3).normal(size=tuple(d.shape))
+                             .astype(np.float32)).to(cuda_device)
+        args, plain, counter = (v, idx, d), probes._probe_scatter_plain, probes.probe_scatter
+    else:
+        args, plain, counter = (v, idx), probes._probe_gather_plain, probes.probe_gather
+    fn = getattr(gather_probe, label)
+    before = counter.launches
+    got = fn(*args)
+    assert counter.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), plain(*args).cpu().numpy())
+    np.testing.assert_array_equal(fn(*args).cpu().numpy(), got.cpu().numpy())

@@ -1,29 +1,60 @@
-// K2: the whole substepped contact solve over the windowed body layout, in one launch,
-// for NVIDIA Hopper (sm_90a).
+// K2: the whole substepped contact solve over the windowed body layout, in one cooperative
+// launch over the card, for NVIDIA Hopper (sm_90a).
 //
 // Replaces bepuphysics2_tpu/ops/sweep.py::_win_substeps_kernel
 // (solve_substeps_contacts_win), the solve of scenes above 8,192 bodies: per substep,
 // the incremental depth update of every live slice (substeps after the first), the pose /
 // velocity / world-inertia block on every layout position, the warm start of every live
 // slice, then the velocity iterations over the live slices, slices in ascending order in
-// every phase, with the per-row math of contact_rows.cuh (shared with K1).
+// every phase, with the per-row math of contact_rows.cuh (shared with K1, K3 and K4).
 //
-// What bounds it: as K1, the latency of a chain of dependent slice passes, about
-// (1 + iterations) x live slices x substeps of them, on one SM; not flops or bandwidth.
+// What bounds it: the chain of dependent slice passes, not flops or bandwidth (its work
+// is ~0.02 ms at the card's rates). The TPU grid (n_substeps, 2 + n_iters, n_slices)
+// walks every live slice in order; one block doing the same on one SM of 132 spent ~9.7
+// us per slice pass (PERF.md). The waves below cut the chain to the number of waves; on
+// the 16,384-body bank of chip_smoke.py phase 7 the slices that stay in order (85 of 545
+// per pass) take most of a launch, at ~7.5 us per slice pass on one block
+// (tools/k2_vs_parent.py, H100).
 //
-// Design: K1's. One block of 512 threads walks (substep, phase, slice) itself,
-// __syncthreads() between slices. The TPU kernel's routing (bf16x3 one-hot matmuls over
-// a transposed (comp * 8, NCH) state) is gone: body state is packed rows read by index.
-// Each row side names its body window-relatively, rel = whi2 * 8 + wlo2; its layout
-// position is wseg[slice][rel >> 10] * 8 + (rel & 1023), resolved here from the same
-// arguments the JAX function takes. A slice's positions go to shared memory; its rows
-// all read the state from before the slice (wide slices mix colors and share bodies,
-// every wide row is mass-split), write their deltas to shared memory, and each
-// position's run in the wrapper's stable sort of the positions is summed in a fixed
-// order: deterministic, no float atomics. Dead slices (wseg[slice][0] < 0) are skipped.
-// Padding rows in a live slice are zero with scale 1 and add zero. Non-dynamic bodies sit
-// twice in the layout (appendix and spatial position); both copies have zero inverse mass
-// and inertia, take no delta and integrate alike, and the caller reads the spatial one.
+// Design: one persistent grid of every block the card can hold at once (occupancy x SMs),
+// launched with cudaLaunchCooperativeKernel, phases separated by grid barriers
+// (cooperative_groups::this_grid().sync()). The depth update and the body block are
+// grid-stride loops. The slice walk goes in WAVES (solver/solve.py wave_table): a wave
+// is a maximal run of consecutive live slices of one color c < C in the narrow region,
+// and the blocks take its slices round-robin (slice k of the wave to block k mod
+// gridDim.x), one grid barrier after the wave. Every other live slice (the narrow Jacobi
+// color C and the wide region, which share bodies across slices) is a wave of one; a
+// run of such waves is walked in order by block 0 alone, block barriers only, and the
+// other blocks wait at the grid barrier after it. Slices are never reordered.
+//
+// Why a wave is exact: the pair store's per-body color claims make each color c < C an
+// independent set over dynamic bodies, across all Morton blocks, so the slices of one
+// wave touch pairwise distinct dynamic bodies. Non-dynamic bodies are read, never
+// written (zero inverse mass and inertia take no delta). So every body a wave's slice
+// reads is the value the in-order walk would read, each body is written by one slice,
+// and its deltas are summed in the same order: the same floating-point computation as
+// the walk, bit for bit, with no float atomics. chip_smoke.py checks the disjointness on
+// the 16,384-body pile.
+//
+// Each slice: its rows read the state from before the slice (wide slices mix colors and
+// share bodies, every wide row is mass-split), write their deltas to shared memory, and
+// each position's run in the wrapper's stable sort of the slice's positions is summed in
+// a fixed order. A row side names its body window-relatively, rel = whi2 * 8 + wlo2; its
+// layout position is wseg[slice][rel >> 10] * 8 + (rel & 1023). While a block solves one
+// slice, cp.async copies the state-independent inputs of its next slice (the 32 prestep
+// rows, whi2, wlo2, scales, the sort, the window) into a second shared-memory stage, so
+// only the body-row gather (velocities and inertia, which also seed the sums; each row
+// read as four 16-byte loads), the row math and the sums stay on the chain. Dead slices
+// (wseg[slice][0] < 0) are not in the table. Padding rows in a live slice are zero with
+// scale 1 and add zero. Non-dynamic bodies sit twice in the layout (appendix and spatial
+// position); both copies integrate alike, and the caller reads the spatial one.
+//
+// Memory visibility: bg, pose, imp and the depth rows are written by one SM and read by
+// another after a grid barrier, so no pointer is __restrict__ and none is read through
+// __ldg; the grid barrier orders the writes before the reads (release / acquire).
+// SASS (cuobjdump -sass, CUDA 12.8; tools/k2_vs_parent.py --sass): the only
+// LDG.E.CONSTANT loads read the math library's sinf/cosf argument-reduction table
+// (__cudart_i2opi_f, ld.global.nc in the PTX); no state array takes that path.
 //
 // Layouts (row-major, f32 unless noted):
 //   bg, pose, aux  (np, 16) / (np, 8) / (np, 8) as in K1, over layout positions
@@ -33,98 +64,332 @@
 //   whi2, wlo2 (int32), scale, order (int32)  (n_slices * 2 * sb,) per slice: sb A sides
 //                   then sb B sides; order is the slice's stable sort of its positions
 //   wseg  (n_slices, 4) int32 window segment start columns; [.][0] < 0 = dead slice
+//   waves (2 * n_slices + 2,) int32: [0] the wave count W, [1 .. n_slices + 1] each
+//                   wave's first index into the live list, [n_slices + 2 ..] the live
+//                   slices in ascending order
+// ps_t, whi2, wlo2, scale, order and wseg must be 16-byte aligned, sb a multiple of 4.
+
+#include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 
 #include "contact_rows.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int NTHREADS = 512;
-constexpr int WSEG = 4;  // window segments per slice
+constexpr int WSEG = 4;    // window segments per slice
 constexpr int BLK = 1024;  // bodies per window segment
 
 struct WinParams {
   float* bg; float* pose; const float* aux; const float* ps; float* imp;
   const int* whi2; const int* wlo2; const float* scale; const int* wseg; const int* order;
+  const int* waves;
   int np, B, sb, n_slices, n_substeps, n_iters;
   StepConsts c;
 };
+
+// Shared memory, in 4-byte words, for slices of sb rows (2 sb row sides) and a table of
+// n slices: two stages of [prestep 32 sb | whi2 | wlo2 | scale | order (2 sb each) |
+// window 4], then the deltas D and velocities V (2 sb x 6 each), the positions and the
+// still flags (2 sb each), and this block's jobs: its slices of one pass (n), the count
+// of them in each segment (n + 1), the wave table (n + 1 starts, n live slices), and
+// the segment and job counts.
+__host__ __device__ constexpr size_t stage_words(int sb) { return (size_t)40 * sb + 4; }
+__host__ __device__ constexpr size_t smem_words(int sb, int n) {
+  return 2 * stage_words(sb) + (size_t)28 * sb + (size_t)4 * n + 4;
+}
+
+struct Smem {
+  float* stage[2];
+  float* D; float* V; int* pos; int* still;
+  int* jobs; int* segn; int* ptr; int* live; int* counts;
+};
+
+__device__ Smem carve(float* smem, int sb, int n) {
+  Smem m;
+  m.stage[0] = smem;
+  m.stage[1] = smem + stage_words(sb);
+  m.D = m.stage[1] + stage_words(sb);
+  m.V = m.D + (size_t)12 * sb;
+  m.pos = reinterpret_cast<int*>(m.V + (size_t)12 * sb);
+  m.still = m.pos + 2 * sb;
+  m.jobs = m.still + 2 * sb;
+  m.segn = m.jobs + n;
+  m.ptr = m.segn + n + 1;
+  m.live = m.ptr + n + 1;
+  m.counts = m.live + n;
+  return m;
+}
 
 __device__ __forceinline__ bool slice_live(const WinParams& p, int sl) {
   return p.wseg[(size_t)sl * WSEG] >= 0;
 }
 
-// Layout position of entry e (an A or B side) of slice sl.
+// Layout position of entry e (an A or B side) of slice sl, from global memory.
 __device__ __forceinline__ int win_pos(const WinParams& p, int sl, size_t e) {
   const int rel = p.whi2[e] * 8 + p.wlo2[e];
   return max(p.wseg[(size_t)sl * WSEG + (rel >> 10)], 0) * 8 + (rel & (BLK - 1));
 }
 
-// One live slice of warm start (solve = false) or of one velocity iteration.
-__device__ void run_slice(const WinParams& p, int sl, bool solve, float* D, int* pos) {
-  const int sb = p.sb;
+// Copy slice sl's state-independent inputs into a stage, 16 bytes per copy.
+__device__ void stage_slice(const WinParams& p, float* st, int sl) {
+  const int sb = p.sb, v4 = sb / 4, e4 = sb / 2;
   const size_t e0 = (size_t)sl * 2 * sb;
-  for (int q = threadIdx.x; q < 2 * sb; q += blockDim.x) pos[q] = win_pos(p, sl, e0 + q);
+  for (int k = threadIdx.x; k < PS_ROWS * v4; k += blockDim.x) {
+    const int c = k / v4, j = 4 * (k - c * v4);
+    __pipeline_memcpy_async(st + (size_t)c * sb + j, p.ps + (size_t)c * p.B + (size_t)sl * sb + j,
+                            16);
+  }
+  float* ent = st + (size_t)PS_ROWS * sb;
+  for (int k = threadIdx.x; k < 4 * e4; k += blockDim.x) {
+    const int a = k / e4, j = 4 * (k - a * e4);
+    const void* src = a == 0 ? (const void*)(p.whi2 + e0 + j)
+                    : a == 1 ? (const void*)(p.wlo2 + e0 + j)
+                    : a == 2 ? (const void*)(p.scale + e0 + j)
+                             : (const void*)(p.order + e0 + j);
+    __pipeline_memcpy_async(ent + (size_t)a * 2 * sb + j, src, 16);
+  }
+  if (threadIdx.x == 0)
+    __pipeline_memcpy_async(ent + (size_t)8 * sb, p.wseg + (size_t)sl * WSEG, 16);
+  __pipeline_commit();
+}
+
+// One row of a slice pass (ops/sweep.py _slice_pass): slice_row / row_pass of
+// contact_rows.cuh with the prestep read from the stage, the sides' velocities and still
+// flags kept for the sums. Same arithmetic, same order.
+__device__ __forceinline__ void win_row(const WinParams& p, const float* st_ps, int r, int col,
+                                        int ba, int bb, float sa, float sbs, bool solve,
+                                        float* da, float* db, float* va6, float* vb6,
+                                        int* still_a, int* still_b) {
+  // Each side's body row whole, as four 16-byte loads: a warp's scattered rows cost the
+  // L1 one pass per row and load instruction, so 4 wide loads instead of 13 narrow ones
+  // (9.3 -> 7.5 us per slice pass).
+  const float4* ga = reinterpret_cast<const float4*>(p.bg + (size_t)ba * 16);
+  const float4* gb = reinterpret_cast<const float4*>(p.bg + (size_t)bb * 16);
+  const float4 a0 = ga[0], a1 = ga[1], a2 = ga[2], a3 = ga[3];
+  const float4 b0 = gb[0], b1 = gb[1], b2 = gb[2], b3 = gb[3];
+  const float ra[7] = {a2.x, a2.y, a2.z, a2.w, a3.x, a3.y, a3.z};
+  const float rb[7] = {b2.x, b2.y, b2.z, b2.w, b3.x, b3.y, b3.z};
+  F3 va_l = f3(a0.x, a0.y, a0.z), va_a = f3(a0.w, a1.x, a1.y);
+  F3 vb_l = f3(b0.x, b0.y, b0.z), vb_a = f3(b0.w, b1.x, b1.y);
+  Row row;
+  load_row(st_ps, p.sb, r, row);
+  float dep[4], im[IMP_ROWS];
+  for (int k = 0; k < 4; ++k) dep[k] = p.imp[(size_t)(IMP_ROWS + k) * p.B + col];
+  for (int k = 0; k < IMP_ROWS; ++k) im[k] = p.imp[(size_t)k * p.B + col];
+
+  bool za = true, zb = true;
+  for (int k = 0; k < 7; ++k) {
+    za = za && ra[k] == 0.0f;
+    zb = zb && rb[k] == 0.0f;
+  }
+  *still_a = za;
+  *still_b = zb;
+  va6[0] = va_l.x; va6[1] = va_l.y; va6[2] = va_l.z;
+  va6[3] = va_a.x; va6[4] = va_a.y; va6[5] = va_a.z;
+  vb6[0] = vb_l.x; vb6[1] = vb_l.y; vb6[2] = vb_l.z;
+  vb6[3] = vb_a.x; vb6[4] = vb_a.y; vb6[5] = vb_a.z;
+
+  const float ia_im = ra[0] * sa, ib_im = rb[0] * sbs;
+  const S3 ia_ii = {ra[1] * sa, ra[2] * sa, ra[3] * sa, ra[4] * sa, ra[5] * sa, ra[6] * sa};
+  const S3 ib_ii = {rb[1] * sbs, rb[2] * sbs, rb[3] * sbs, rb[4] * sbs, rb[5] * sbs,
+                    rb[6] * sbs};
+  F3 dva_l, dva_a, dvb_l, dvb_a;
+  if (solve) {
+    solve_contact_rows(row, dep, im, ia_im, ia_ii, ib_im, ib_ii, va_l, va_a, vb_l, vb_a,
+                       p.c.inv_h, dva_l, dva_a, dvb_l, dvb_a);
+    for (int k = 0; k < IMP_ROWS; ++k) p.imp[(size_t)k * p.B + col] = im[k];
+  } else {
+    warm_start_rows(row, dep, im, ia_im, ia_ii, ib_im, ib_ii, dva_l, dva_a, dvb_l, dvb_a);
+  }
+  da[0] = dva_l.x / sa; da[1] = dva_l.y / sa; da[2] = dva_l.z / sa;
+  da[3] = dva_a.x / sa; da[4] = dva_a.y / sa; da[5] = dva_a.z / sa;
+  db[0] = dvb_l.x / sbs; db[1] = dvb_l.y / sbs; db[2] = dvb_l.z / sbs;
+  db[3] = dvb_a.x / sbs; db[4] = dvb_a.y / sbs; db[5] = dvb_a.z / sbs;
+}
+
+// One live slice of warm start (solve = false) or of one velocity iteration, its inputs
+// staged in st: rows, then each position's run summed in the slice's stable sort
+// (contact_rows.cuh sum_deltas' order), seeded with the velocities the rows read.
+__device__ void run_slice(const WinParams& p, const Smem& m, const float* st, int sl,
+                          bool solve) {
+  const int sb = p.sb;
+  const int* hi = reinterpret_cast<const int*>(st + (size_t)PS_ROWS * sb);
+  const int* lo = hi + 2 * sb;
+  const float* sc = reinterpret_cast<const float*>(lo + 2 * sb);
+  const int* ord = reinterpret_cast<const int*>(sc + 2 * sb);
+  const int* seg = ord + 2 * sb;
+  for (int r = threadIdx.x; r < sb; r += blockDim.x) {
+    int ab[2];
+    for (int side = 0; side < 2; ++side) {
+      const int e = side * sb + r;
+      const int rel = hi[e] * 8 + lo[e];
+      ab[side] = max(seg[rel >> 10], 0) * 8 + (rel & (BLK - 1));
+      m.pos[e] = ab[side];
+    }
+    win_row(p, st, r, sl * sb + r, ab[0], ab[1], sc[r], sc[sb + r], solve, m.D + (size_t)r * 6,
+            m.D + (size_t)(sb + r) * 6, m.V + (size_t)r * 6, m.V + (size_t)(sb + r) * 6,
+            m.still + r, m.still + sb + r);
+  }
   __syncthreads();
-  const float* dep = p.imp + (size_t)IMP_ROWS * p.B;
-  for (int r = threadIdx.x; r < sb; r += blockDim.x)
-    slice_row(p.ps, p.B, sl * sb + r, p.imp, dep, p.bg, pos[r], pos[sb + r], p.scale[e0 + r],
-              p.scale[e0 + sb + r], solve, p.c.inv_h, D + (size_t)r * 6,
-              D + (size_t)(sb + r) * 6);
+  for (int q = threadIdx.x; q < 2 * sb; q += blockDim.x) {
+    const int b = m.pos[ord[q]];
+    if (q > 0 && m.pos[ord[q - 1]] == b) continue;
+    if (m.still[ord[q]]) continue;
+    float acc[6];
+    const float* v0 = m.V + (size_t)ord[q] * 6;
+    for (int c = 0; c < 6; ++c) acc[c] = v0[c];
+    for (int q2 = q; q2 < 2 * sb && m.pos[ord[q2]] == b; ++q2) {
+      const float* d = m.D + (size_t)ord[q2] * 6;
+      for (int c = 0; c < 6; ++c) acc[c] += d[c];
+    }
+    float* g = p.bg + (size_t)b * 16;  // 16-byte aligned rows: two wide stores
+    *reinterpret_cast<float4*>(g) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float2*>(g + 4) = make_float2(acc[4], acc[5]);
+  }
+}
+
+// This block's jobs for one pass, from the wave table: per segment (a wave of several
+// slices, or a run of one-slice waves), the slices it runs.
+__device__ void plan(const WinParams& p, const Smem& m) {
+  const int n = p.n_slices;
+  for (int i = threadIdx.x; i < n + 1; i += blockDim.x) m.ptr[i] = p.waves[1 + i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) m.live[i] = p.waves[n + 2 + i];
   __syncthreads();
-  sum_deltas(p.bg, pos, p.order + e0, D, 2 * sb);
+  if (threadIdx.x == 0) {
+    const int W = p.waves[0];
+    int w = 0, g = 0, j = 0;
+    while (w < W) {
+      const int a = m.ptr[w], b = m.ptr[w + 1];
+      const int before = j;
+      if (b - a == 1) {  // a run of one-slice waves: block 0, in order
+        int w2 = w;
+        while (w2 < W && m.ptr[w2 + 1] - m.ptr[w2] == 1) ++w2;
+        if (blockIdx.x == 0)
+          for (int i = a; i < m.ptr[w2]; ++i) m.jobs[j++] = m.live[i];
+        w = w2;
+      } else {  // one color's wave: round-robin over the blocks
+        for (int k = blockIdx.x; k < b - a; k += gridDim.x) m.jobs[j++] = m.live[a + k];
+        ++w;
+      }
+      m.segn[g++] = j - before;
+    }
+    m.counts[0] = g;
+    m.counts[1] = j;
+  }
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(NTHREADS) substeps_contacts_win_kernel(WinParams p) {
-  extern __shared__ float smem[];
+__global__ void __launch_bounds__(NTHREADS, 1) substeps_contacts_win_kernel(WinParams p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const Smem m = carve(smem, p.sb, p.n_slices);
+  plan(p, m);
+  const int nseg = m.counts[0], njobs = m.counts[1];
   const int sb = p.sb;
-  float* D = smem;
-  int* pos = reinterpret_cast<int*>(smem + (size_t)2 * sb * 6);
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x, gstride = gridDim.x * blockDim.x;
   float* dep = p.imp + (size_t)IMP_ROWS * p.B;
+  int buf = 0;
+  if (njobs > 0) stage_slice(p, m.stage[0], m.jobs[0]);
   for (int s = 0; s < p.n_substeps; ++s) {
     // Phase 0: incremental depth update for substeps after the first; it reads the
     // velocities only, so every live slice's rows run at once.
     if (s > 0) {
-      for (int col = threadIdx.x; col < p.B; col += blockDim.x) {
+      for (int col = gtid; col < p.B; col += gstride) {
         const int sl = col / sb, r = col - sl * sb;
         if (!slice_live(p, sl)) continue;
         const size_t e0 = (size_t)sl * 2 * sb;
         depth_row(p.ps, p.B, col, dep, p.bg, win_pos(p, sl, e0 + r),
                   win_pos(p, sl, e0 + sb + r), p.c.h);
       }
-      __syncthreads();
+      grid.sync();
     }
-    // Phase 1: the body block on every layout position, then the warm start.
-    for (int b = threadIdx.x; b < p.np; b += blockDim.x)
+    // Phase 1: the body block on every layout position.
+    for (int b = gtid; b < p.np; b += gstride)
       pose_vel_inertia_body(p.bg + (size_t)b * 16, p.pose + (size_t)b * 8, p.aux + (size_t)b * 8,
                             s, p.c);
-    __syncthreads();
-    for (int sl = 0; sl < p.n_slices; ++sl)
-      if (slice_live(p, sl)) run_slice(p, sl, false, D, pos);
-    // Phases 2+: velocity iterations.
-    for (int it = 0; it < p.n_iters; ++it)
-      for (int sl = 0; sl < p.n_slices; ++sl)
-        if (slice_live(p, sl)) run_slice(p, sl, true, D, pos);
+    grid.sync();
+    // The warm start, then the velocity iterations: the same waves in every pass.
+    for (int pass = 0; pass <= p.n_iters; ++pass) {
+      int j = 0;
+      for (int g = 0; g < nseg; ++g) {
+        for (int t = 0; t < m.segn[g]; ++t, ++j) {
+          __pipeline_wait_prior(0);
+          __syncthreads();  // this stage landed; the previous slice is done with the other
+          stage_slice(p, m.stage[buf ^ 1], m.jobs[j + 1 < njobs ? j + 1 : 0]);
+          run_slice(p, m, m.stage[buf], m.jobs[j], pass > 0);
+          buf ^= 1;
+        }
+        grid.sync();
+      }
+    }
   }
+  __pipeline_wait_prior(0);
+}
+
+struct GridInfo {
+  size_t smem = 0;
+  int blocks = 0;
+};
+
+// Blocks of the cooperative grid at this shared memory: co-resident blocks per SM (the
+// occupancy calculator, after raising the kernel's dynamic shared-memory limit) times
+// the SMs. Cached per shared-memory size.
+cudaError_t grid_for(size_t smem, int* blocks) {
+  static GridInfo cached;
+  if (cached.smem == smem && cached.blocks > 0) {
+    *blocks = cached.blocks;
+    return cudaSuccess;
+  }
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(substeps_contacts_win_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, substeps_contacts_win_kernel,
+                                                        NTHREADS, smem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
+  if (err != cudaSuccess) return err;
+  cached.smem = smem;
+  cached.blocks = per_sm * sms;
+  *blocks = cached.blocks;
+  return cudaSuccess;
 }
 
 }  // namespace
 
+// The number of blocks K2 launches for n_slices slices of sb rows, or minus the CUDA
+// error that keeps it from being co-scheduled.
+extern "C" int substeps_contacts_win_grid(int sb, int n_slices) {
+  int blocks = 0;
+  const cudaError_t err = grid_for(smem_words(sb, n_slices) * 4, &blocks);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 extern "C" int substeps_contacts_win_launch(
     float* bg, float* pose, const float* aux, const float* ps_t, float* imp,
     const int* whi2, const int* wlo2, const float* scale, const int* wseg, const int* order,
-    int np, int B, int sb, int n_substeps, int n_iters, int angular_mode,
+    const int* waves, int np, int B, int sb, int n_substeps, int n_iters, int angular_mode,
     float gx, float gy, float gz, float h, float inv_h, float lin_scale, float ang_scale,
     void* stream) {
-  WinParams p{bg, pose, aux, ps_t, imp, whi2, wlo2, scale, wseg, order,
+  if (sb <= 0 || sb % 4 || B % sb) return (int)cudaErrorInvalidValue;
+  WinParams p{bg, pose, aux, ps_t, imp, whi2, wlo2, scale, wseg, order, waves,
               np, B, sb, B / sb, n_substeps, n_iters,
               {angular_mode, gx, gy, gz, h, inv_h, lin_scale, ang_scale}};
-  const size_t smem = (size_t)2 * sb * (6 * sizeof(float) + sizeof(int));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        substeps_contacts_win_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  substeps_contacts_win_kernel<<<1, NTHREADS, smem, (cudaStream_t)stream>>>(p);
+  const size_t smem = smem_words(sb, B / sb) * 4;
+  int blocks = 0;
+  cudaError_t err = grid_for(smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)substeps_contacts_win_kernel, dim3(blocks),
+                                    dim3(NTHREADS), args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@
 ``nvcc`` compiles each ``csrc/*.cu`` file at first use into ``build/kernels/`` at the root
 of the checkout (listed in ``.gitignore``), keyed by a hash of the source, of every
 ``csrc/*.cuh`` header and of the flags, so an edited source or shared header never loads a
-stale library. Nothing but the repository's sources goes into the build.
+stale library. Nothing but the repository's sources goes into the build. ``bind`` loads a
+library once and returns its C entry point with its argument types set, cached, so a
+wrapper's launch costs a dictionary lookup and the ctypes call.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "
               "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _loaded: dict = {}
+_bound: dict = {}
 
 
 def _nvcc() -> str:
@@ -84,6 +87,29 @@ def load(name: str):
     """Build (if needed) and load ``csrc/<name>.cu``. Returns (ctypes.CDLL, build seconds;
     0.0 when the library was already built or loaded)."""
     return load_all([name])[name]
+
+
+def bind(name: str, fn_name: str, argtypes):
+    """The C entry point ``fn_name`` of ``csrc/<name>.cu``, built and loaded at the first
+    call, with ``restype`` c_int (the CUDA error code) and ``argtypes`` set then. Later
+    calls return the same cached function object."""
+    fn = _bound.get((name, fn_name))
+    if fn is None:
+        lib, _ = load(name)
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _bound[(name, fn_name)] = fn
+    return fn
+
+
+def raw_stream(device) -> int:
+    """The handle of PyTorch's current CUDA stream on ``device``, as an int, without the
+    ``torch.cuda.Stream`` object that ``current_stream`` builds per call."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def build_log(name: str) -> str:

@@ -28,6 +28,8 @@ import ctypes
 
 import torch
 
+from . import build
+
 MODES = {"A": 0, "B": 0, "C": 1, "D": 2}  # v2's modes; A is B (the JAX main runs A as B)
 SMEM_LIMIT = 232448  # shared memory one block of an H100 may use, in bytes
 SWEEP_WARPS = 32  # K5's block: 1,024 threads
@@ -94,20 +96,19 @@ def _stable_order(idx):
     return torch.sort(idx, dim=-1, stable=True).indices.to(torch.int32).contiguous()
 
 
-def _launch(name, fn_name, argtypes, *args):
-    from . import build
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SWEEP_ARGS = [_P] * 4 + [_I] * 6 + [_P]
+_GATHER_ARGS = [_P] * 3 + [_I] * 3 + [_P]
+_SCATTER_ARGS = [_P] * 5 + [_I] * 3 + [_P]
 
-    lib, _ = build.load(name)
-    fn = getattr(lib, fn_name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    err = fn(*args)
+
+def _launch(name, fn_name, argtypes, *args):
+    err = build.bind(name, fn_name, argtypes)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+_stream = build.raw_stream
 
 
 # --- K5: the sweep ---------------------------------------------------------------------
@@ -170,8 +171,7 @@ def probe_sweep(state, idx, *, lanes, transposed, mode="B", order=None):
     out = torch.empty_like(state)
     if order is None:
         order = _stable_order(idx)
-    _launch("probe_sweep", "probe_sweep_launch", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-            + [ctypes.c_void_p], state.data_ptr(), out.data_ptr(), idx.data_ptr(),
+    _launch("probe_sweep", "probe_sweep_launch", _SWEEP_ARGS, state.data_ptr(), out.data_ptr(), idx.data_ptr(),
             order.data_ptr(), nb, m, passes, lanes, int(transposed), MODES[mode], _stream(dev))
     probe_sweep.launches += 1
     return out
@@ -188,23 +188,41 @@ def _probe_gather_plain(v, idx):
 
 def probe_gather(v, idx):
     """``v[idx]`` for ``v`` (NB, W) float32 and ``idx`` (M,) int32: (M, W). Indices must
-    lie in [0, NB): the plain version raises on others, the kernel writes NaN rows."""
+    lie in [0, NB): the plain version raises on others, the kernel writes NaN rows.
+
+    A call is a few microseconds of card time, so the host path is kept short: every
+    check of the other wrappers in one expression of cheap tensor properties (the full
+    ``_check`` runs only to name what failed), the entry point bound once, the raw
+    stream handle."""
+    if (v.is_cuda and idx.is_cuda and (dv := v.get_device()) == idx.get_device()
+            and v.dtype is torch.float32 and idx.dtype is torch.int32 and v.dim() == 2
+            and idx.dim() == 1 and v.is_contiguous() and idx.is_contiguous()):
+        nb, w = v.shape
+        m = idx.shape[0]
+        out = v.new_empty(m, w)
+        err = _gather_launch()(v.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, m, w,
+                               torch._C._cuda_getCurrentRawStream(dv))
+        if err:
+            raise RuntimeError(f"probe_gather kernel launch failed: CUDA error {err}")
+        probe_gather.launches += 1
+        return out
     dev = v.device
     if v.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"v {tuple(v.shape)} and idx {tuple(idx.shape)}: expected (NB, W), (M,)")
     _check("v", v, v.shape, torch.float32, dev)
     _check("idx", idx, idx.shape, torch.int32, dev)
-    if not _route("probe_gather", dev):
-        return _probe_gather_plain(v, idx)
-    (nb, w), m = v.shape, idx.shape[0]
-    out = torch.empty((m, w), dtype=torch.float32, device=dev)
-    _launch("probe_gather", "probe_gather_launch", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p], v.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, m, w,
-            _stream(dev))
-    probe_gather.launches += 1
-    return out
+    _route("probe_gather", dev)
+    return _probe_gather_plain(v, idx)
 
 
+def _gather_launch():
+    """K6's C entry point, bound at the first launch and kept in ``_GATHER``."""
+    if not _GATHER:
+        _GATHER.append(build.bind("probe_gather", "probe_gather_launch", _GATHER_ARGS))
+    return _GATHER[0]
+
+
+_GATHER = []
 probe_gather.launches = 0
 
 
@@ -241,8 +259,7 @@ def probe_scatter(v, idx, d, order=None):
     out = torch.empty_like(v)
     if order is None:
         order = _stable_order(idx)
-    _launch("probe_scatter", "probe_scatter_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-            + [ctypes.c_void_p], v.data_ptr(), idx.data_ptr(), order.data_ptr(), d.data_ptr(),
+    _launch("probe_scatter", "probe_scatter_launch", _SCATTER_ARGS, v.data_ptr(), idx.data_ptr(), order.data_ptr(), d.data_ptr(),
             out.data_ptr(), nb, m, w, _stream(dev))
     probe_scatter.launches += 1
     return out

@@ -33,6 +33,14 @@ from ..integrator import (
     integrate_angular_gyroscopic,
 )
 from ..utils.vec import Quat, Sym2, Sym3, Vec2, Vec3, build_orthonormal_basis, integrate_orientation
+from . import build
+
+# Argument types of the kernels' C entry points (pointers and the stream as c_void_p).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_K1_ARGS = [_P] * 10 + [_I] * 6 + [_F] * 7 + [_P]
+_K2_ARGS = [_P] * 11 + [_I] * 6 + [_F] * 7 + [_P]
+_K3_ARGS = [_P] * 7 + [_I] * 3 + [_F, _P]
+_K4_ARGS = [_P] * 9 + [_I] * 3 + [_F, _P]
 
 # --- packed contact prestep rows (component-major, (PS_ROWS, B)) -----------------------
 PS_N = 0  # 0-2 normal xyz
@@ -283,13 +291,13 @@ def _vel_of(rows):
                    Vec3(rows[:, 3], rows[:, 4], rows[:, 5]))
 
 
-def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h, it_t=None):
+def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h, it_t=None, dst=None):
     """One slice of a plain walk, warm start (``solve`` False) or one velocity iteration:
     gather both sides from V (NB, 6) and W (NB, 7: inverse mass, world inverse inertia),
-    compute every row, then ``index_add_`` the deltas divided by the side's scale. ``idx``
-    and ``sc`` are (n_slices, 2 * sb); ``imp`` (8, B) is updated in place. With ``it_t``
-    (IT_ROWS, B) each row streams both sides' inertia, already mass-split, and W is
-    unused."""
+    compute every row, then ``index_add_`` the deltas divided by the side's scale into
+    ``dst`` (V when None). ``idx`` and ``sc`` are (n_slices, 2 * sb); ``imp`` (8, B) is
+    updated in place. With ``it_t`` (IT_ROWS, B) each row streams both sides' inertia,
+    already mass-split, and W is unused."""
     cols = slice(sl * sb, (sl + 1) * sb)
     ia, ib = idx[sl, :sb], idx[sl, sb:]
     if it_t is None:
@@ -309,7 +317,7 @@ def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h, it_t=None):
         dva, dvb = _warm_start_rows(ps, dep[:, cols], imp[:, cols], ia_im, ia_ii, ib_im, ib_ii)
     d = torch.cat([torch.stack([*dva[0], *dva[1]], -1),
                    torch.stack([*dvb[0], *dvb[1]], -1)]) / sc[sl][:, None]
-    V.index_add_(0, idx[sl], d)
+    (V if dst is None else dst).index_add_(0, idx[sl], d)
 
 
 def _walk_plain(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask, ps_t, imp,
@@ -410,14 +418,7 @@ def _step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale):
 def _launch_kernel(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask, ps_t, imp_t, idx2,
                    scale, h, inv_h, lin_scale, ang_scale, sb, n_substeps, n_iters,
                    angular_mode, gravity):
-    from . import build
-
-    lib, _ = build.load("substeps_contacts")
-    fn = lib.substeps_contacts_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 7 + [
-        ctypes.c_void_p]
-
+    fn = build.bind("substeps_contacts", "substeps_contacts_launch", _K1_ARGS)
     nb = v6.shape[0]
     B = ps_t.shape[1]
     n_slices = B // sb
@@ -430,11 +431,11 @@ def _launch_kernel(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask, ps_t, imp
     order = torch.sort(idx.view(n_slices, 2 * sb), dim=1, stable=True).indices
     order = order.to(torch.int32).contiguous()
     slive = (ps_t[PS_VALID].view(n_slices, sb) > 0.5).any(dim=1).to(torch.int32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(bg.data_ptr(), pose.data_ptr(), aux.data_ptr(), ps_t.data_ptr(), imp.data_ptr(),
              dep.data_ptr(), idx.data_ptr(), sc.data_ptr(), order.data_ptr(), slive.data_ptr(),
              nb, B, sb, n_substeps, n_iters,
-             *_step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale), stream)
+             *_step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale),
+             build.raw_stream(dev))
     if err != 0:
         raise RuntimeError(f"substeps_contacts kernel launch failed: CUDA error {err}")
     solve_substeps_contacts.launches += 1
@@ -510,12 +511,7 @@ def _contact_sweep_plain(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, *, sb, n
 
 
 def _launch_sweep_kernel(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb, n_iters):
-    from . import build
-
-    lib, _ = build.load("contact_sweep")
-    fn = lib.contact_sweep_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn = build.bind("contact_sweep", "contact_sweep_launch", _K3_ARGS)
     nb, B = v6.shape[0], ps_t.shape[1]
     n_slices = B // sb
     bg = torch.zeros((nb, 16), dtype=torch.float32, device=v6.device)
@@ -525,9 +521,9 @@ def _launch_sweep_kernel(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb, n_it
     order = torch.sort(idx2.view(n_slices, 2 * sb), dim=1, stable=True).indices
     order = order.to(torch.int32).contiguous()
     slive = (ps_t[PS_VALID].view(n_slices, sb) > 0.5).any(dim=1).to(torch.int32)
-    stream = torch.cuda.current_stream(v6.device).cuda_stream
     err = fn(bg.data_ptr(), ps_t.data_ptr(), imp.data_ptr(), idx2.data_ptr(), scale.data_ptr(),
-             order.data_ptr(), slive.data_ptr(), B, sb, n_iters, float(inv_h), stream)
+             order.data_ptr(), slive.data_ptr(), B, sb, n_iters, float(inv_h),
+             build.raw_stream(v6.device))
     if err != 0:
         raise RuntimeError(f"contact_sweep kernel launch failed: CUDA error {err}")
     contact_sweep.launches += 1
@@ -657,28 +653,40 @@ def _solve_substeps_contacts_win_plain(v6p, pos_p, orn_p, inv_mass_p, local_inv_
     return V, pos, orn, imp
 
 
+def wave_lists(waves):
+    """The waves of a K2 wave table (``solver.solve.wave_table``) as lists of slice
+    indices, in walk order (reads the table to the host)."""
+    w = waves.tolist()
+    n_slices = (len(w) - 2) // 2
+    ptr, live = w[1:n_slices + 2], w[n_slices + 2:]
+    return [live[ptr[k]:ptr[k + 1]] for k in range(w[0])]
+
+
+def k2_grid(sb: int, n_slices: int) -> int:
+    """Blocks of K2's cooperative grid on the current card: the co-resident blocks per SM
+    at K2's shared memory for ``n_slices`` slices of ``sb`` rows, times the SMs."""
+    fn = build.bind("substeps_contacts_win", "substeps_contacts_win_grid", [_I, _I])
+    grid = fn(sb, n_slices)
+    if grid <= 0:
+        raise RuntimeError(f"K2 cannot be co-scheduled on this card: CUDA error {-grid}")
+    return grid
+
+
 def _launch_win_kernel(v6p, pos_p, orn_p, inv_mass_p, lii_p, grav_mask_p, integ_mask_p, ps_t,
                        imp_t, whi2, wlo2, scale, wseg, h, inv_h, lin_scale, ang_scale, sb,
-                       n_substeps, n_iters, angular_mode, gravity):
-    from . import build
-
-    lib, _ = build.load("substeps_contacts_win")
-    fn = lib.substeps_contacts_win_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float] * 7 + [
-        ctypes.c_void_p]
-
+                       n_substeps, n_iters, angular_mode, gravity, waves):
+    fn = build.bind("substeps_contacts_win", "substeps_contacts_win_launch", _K2_ARGS)
     bg, pose, aux = _pack_bodies(v6p, pos_p, orn_p, inv_mass_p, lii_p, grav_mask_p,
                                  integ_mask_p)
     imp = imp_t.clone()
     order = window_order(whi2, wlo2, wseg, sb)
-    stream = torch.cuda.current_stream(v6p.device).cuda_stream
     err = fn(bg.data_ptr(), pose.data_ptr(), aux.data_ptr(), ps_t.data_ptr(), imp.data_ptr(),
              whi2.data_ptr(), wlo2.data_ptr(), scale.data_ptr(), wseg.data_ptr(),
-             order.data_ptr(), v6p.shape[0], ps_t.shape[1], sb, n_substeps, n_iters,
-             *_step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale), stream)
+             order.data_ptr(), waves.data_ptr(), v6p.shape[0], ps_t.shape[1], sb, n_substeps,
+             n_iters, *_step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale),
+             build.raw_stream(v6p.device))
     if err != 0:
-        raise RuntimeError(f"substeps_contacts_win kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"substeps_contacts_win cooperative launch failed: CUDA error {err}")
     solve_substeps_contacts_win.launches += 1
     return (*_unpack_bodies(bg, pose), imp)
 
@@ -703,14 +711,17 @@ def solve_substeps_contacts_win(
     n_iters: int,
     angular_mode: int,
     gravity: tuple,
+    waves=None,  # (2 * n_slices + 2,) int32 wave table (solver.solve.wave_table)
 ):
     """The windowed variant of ``solve_substeps_contacts``: the ENTIRE substepped contact
     solve over the layout of ``solver/windowing.py``. Returns layout-order (v6', pos',
     orn', impd_t'); the impulses are rows 0-7 of impd_t'. The windows must lie inside the
     layout, as ``row_windows`` builds them.
 
-    CUDA tensors go through the CUDA kernel (one launch, counted in
-    ``solve_substeps_contacts_win.launches``); CPU tensors through the plain version."""
+    CUDA tensors go through the CUDA kernel (one cooperative launch over the card,
+    counted in ``solve_substeps_contacts_win.launches``), which needs ``waves`` and runs
+    each wave's slices at once; CPU tensors through the plain version, which walks the
+    live slices in order and ignores ``waves``."""
     dev = v6p.device
     B = ps_t.shape[1]
     if sb <= 0 or B % sb:
@@ -727,7 +738,16 @@ def solve_substeps_contacts_win(
     args = (v6p, pos_p, orn_p, inv_mass_p, local_inv_inertia_p, grav_mask_p, integ_mask_p,
             ps_t, imp_t, whi2, wlo2, scale, wseg, h, inv_h, lin_scale, ang_scale)
     if dev.type == "cuda":
-        return _launch_win_kernel(*args, sb, n_substeps, n_iters, angular_mode, gravity)
+        if waves is None:
+            raise ValueError("the card's K2 needs the wave table: pass waves= "
+                             "(solver.solve.win_pack's 'waves')")
+        _check("waves", waves, (2 * (B // sb) + 2,), torch.int32, dev)
+        for name, t in (("ps_t", ps_t), ("whi2", whi2), ("wlo2", wlo2), ("scale", scale),
+                        ("wseg", wseg)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned: K2 copies it in 16-byte "
+                                 "pieces")
+        return _launch_win_kernel(*args, sb, n_substeps, n_iters, angular_mode, gravity, waves)
     if dev.type != "cpu":
         raise ValueError(f"solve_substeps_contacts_win runs on cuda or cpu, not {dev.type}")
     return _solve_substeps_contacts_win_plain(
@@ -772,20 +792,14 @@ def _contact_sweep_win_plain(v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg, in
 
 def _launch_sweep_win_kernel(v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg, inv_h, sb,
                              n_iters, order):
-    from . import build
-
-    lib, _ = build.load("contact_sweep_win")
-    fn = lib.contact_sweep_win_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn = build.bind("contact_sweep_win", "contact_sweep_win_launch", _K4_ARGS)
     bg = torch.nn.functional.pad(v6p, (0, 10))
     imp = imp_t.clone()
     if order is None:
         order = window_order(whi2, wlo2, wseg, sb)
-    stream = torch.cuda.current_stream(v6p.device).cuda_stream
     err = fn(bg.data_ptr(), it_t.data_ptr(), ps_t.data_ptr(), imp.data_ptr(), whi2.data_ptr(),
              wlo2.data_ptr(), scale.data_ptr(), wseg.data_ptr(), order.data_ptr(),
-             ps_t.shape[1], sb, n_iters, float(inv_h), stream)
+             ps_t.shape[1], sb, n_iters, float(inv_h), build.raw_stream(v6p.device))
     if err != 0:
         raise RuntimeError(f"contact_sweep_win kernel launch failed: CUDA error {err}")
     contact_sweep_win.launches += 1
@@ -951,8 +965,9 @@ def synthetic_win_bank(nb: int, n_rows: int, num_colors: int, seed: int,
     scattered among invalid ones. Rows take the lowest color free
     at both dynamic ends (the Jacobi color ``num_colors`` when none is). The bank then goes
     through the port's own windowed layout (``solver.solve.win_pack``), so the result is
-    what K2 receives: its positional arguments in layout order, plus ``sb``,
-    ``n_substeps``, ``nb``, ``bp``, ``live_slices`` and ``wide_rows``, and K4's streamed
+    what K2 receives: its positional arguments in layout order, its wave table
+    ``waves``, plus ``sb``, ``n_substeps``, ``nb``, ``bp``, ``live_slices`` and
+    ``wide_rows``, and K4's streamed
     inertia ``it_t``: each row side's body inverse mass and world inverse inertia times
     the side's scale (padding rows read layout position 0 at scale 1)."""
     from ..bodies import KIND_DYNAMIC, KIND_STATIC
@@ -1066,7 +1081,7 @@ def synthetic_win_bank(nb: int, n_rows: int, num_colors: int, seed: int,
         local_inv_inertia=perm(lii), grav_mask=perm(grav), integ_mask=perm(grav),
         ps_t=wp["ps_t"].numpy(), imp_t=wp["imp_t"].numpy(), whi2=wp["whi2"].numpy(),
         wlo2=wp["wlo2"].numpy(), scale=wp["scale"].numpy(), wseg=wp["wseg"].numpy(),
-        it_t=it_t,
+        waves=wp["waves"].numpy(), it_t=it_t,
         h=float(h), inv_h=float(f32(substeps) / f32(dt)), sb=SB_WIN, n_substeps=substeps,
         nb=nb, bp=wp["rw"]["bp"], live_slices=int((wp["wseg"][:, 0] >= 0).sum()),
         wide_rows=int(wp["rw"]["wide"].sum()),
@@ -1075,7 +1090,7 @@ def synthetic_win_bank(nb: int, n_rows: int, num_colors: int, seed: int,
 
 def win_bank_args(bank: dict, device):
     """``solve_substeps_contacts_win`` positional arguments (v6p … ang_scale) from a
-    ``synthetic_win_bank`` on ``device``."""
+    ``synthetic_win_bank`` on ``device``; its ``waves`` keyword is ``bank["waves"]``."""
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
     cols = lambda x: [t(x[:, j]) for j in range(x.shape[1])]
     return (t(bank["v6"]), Vec3(*cols(bank["pos"])), Quat(*cols(bank["orn"])),

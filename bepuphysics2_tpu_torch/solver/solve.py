@@ -87,6 +87,39 @@ def _wide_counts(wide_row, body_a, body_b, n_bodies: int, wide_cap: int):
     return out.index_add_(0, torch.where(wl, body_b[wc], n_bodies).long(), one)
 
 
+def wave_table(wseg, gid, n_narrow: int, nblk: int, num_colors: int):
+    """K2's wave table, int32 of shape (2 * n_slices + 2,), from ``row_windows``' ``wseg``
+    and ``gid``, by tensor ops alone (no host sync): element 0 is the number of waves
+    W; elements 1 to n_slices + 1 are each wave's first index into the live list, then
+    the live count repeated; the rest is the live list, every live slice
+    (``wseg[:, 0] >= 0``) in ascending order, then -1.
+
+    A wave is a maximal run of consecutive live slices of one color c < C in the narrow
+    region (the first ``n_narrow`` slices; a slice's color is ``gid // nblk``). The pair
+    store's color claims make each such color an independent set over dynamic bodies,
+    so a wave's slices touch pairwise distinct dynamic bodies and K2 runs them at once
+    with the walk's result. Every other live slice (narrow Jacobi color C, wide) shares
+    bodies with its neighbours and is a wave of its own."""
+    n = wseg.shape[0]
+    dev = wseg.device
+    sl = torch.arange(n, device=dev)
+    live = wseg[:, 0] >= 0
+    color = torch.div(gid, nblk, rounding_mode="floor").long()
+    colored = (sl < n_narrow) & (gid >= 0) & (color < num_colors)
+    key = torch.where(colored, color, num_colors + sl)  # one key per uncolored slice
+    order = torch.argsort((~live).to(torch.int32), stable=True)  # live slices first, in order
+    n_live = live.sum()
+    in_live = sl < n_live
+    key_o = key[order]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), key_o[1:] != key_o[:-1]])
+    start = in_live & first
+    wave = torch.cumsum(start.long(), 0) - 1
+    ptr = n_live.expand(n + 2).clone()  # slot n + 1 is a sink for the slices that start none
+    ptr.scatter_(0, torch.where(start, wave, n + 1), sl)
+    return torch.cat([start.sum().view(1), ptr[:n + 1],
+                      torch.where(in_live, order, -1)]).to(torch.int32)
+
+
 def win_pack(pos, kind, body_a, body_b, valid, color, jacv, M, num_colors: int,
              wide_cap: int):
     """The windowed execution view of one slot-order bank: the body layout, the row
@@ -94,7 +127,8 @@ def win_pack(pos, kind, body_a, body_b, valid, color, jacv, M, num_colors: int,
     impulse (8) columns; ``jacv`` the store's per-body Jacobi valence. Mass-split rows are
     the Jacobi-colored rows and the wide rows (wide slices mix colors); a body's scale is
     its Jacobi valence plus its wide-row count. Returns a dict with ``lay``, ``rw`` and
-    the arguments ``ps_t``, ``imp_t``, ``whi2``, ``wlo2``, ``scale``, ``wseg``."""
+    the arguments ``ps_t``, ``imp_t``, ``whi2``, ``wlo2``, ``scale``, ``wseg`` and
+    ``waves`` (``wave_table``)."""
     n_bodies = kind.shape[0]
     C = num_colors
     sb = SB_WIN
@@ -128,6 +162,7 @@ def win_pack(pos, kind, body_a, body_b, valid, color, jacv, M, num_colors: int,
                          torch.div(rel_b, L, rounding_mode="floor")),
         wlo2=slice_major(torch.remainder(rel_a, L), torch.remainder(rel_b, L)),
         scale=slice_major(sa_w, sb_w), wseg=rw["wseg"].contiguous(),
+        waves=wave_table(rw["wseg"], rw["gid"], rw["b_n"] // sb, lay["nblk"], C),
     )
 
 
@@ -195,7 +230,8 @@ def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool)
             perm(_vel_to6(state)), Vec3(*map(perm, state.pos)), Quat(*map(perm, state.orn)),
             perm(state.inv_mass), Sym3(*map(perm, li)), perm(gmask), perm(state.integrable),
             wp["ps_t"], wp["imp_t"], wp["whi2"], wp["wlo2"], wp["scale"], wp["wseg"],
-            h, inv_h, lin_scale, ang_scale, sb=SB_WIN, **_k_kwargs(integrator_cfg, cfg))
+            h, inv_h, lin_scale, ang_scale, sb=SB_WIN, waves=wp["waves"],
+            **_k_kwargs(integrator_cfg, cfg))
         sp = lay["slot_pos"].long()
         state = _vel_from6(state._replace(pos=Vec3(*(t[sp] for t in pos_p)),
                                           orn=Quat(*(t[sp] for t in orn_p))), v6n_p[sp])

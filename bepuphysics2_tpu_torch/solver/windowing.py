@@ -120,6 +120,11 @@ def row_windows(lay, body_a, body_b, valid, color, num_colors: int, sb: int, wid
       wide:   (B,) bool — rows executing in the wide region (mass-split).
       wide_overflow: () bool — padded wide demand exceeded wide_cap.
       wide_demand: () int32 — padded wide demand in rows, before the cap.
+      gid:    (n_slices,) int32 — the group each slice belongs to: in the narrow region
+              its key ``color * nblk + block`` (Jacobi color C included), in the wide
+              region ``(C + 1) * nblk + blockA * nblk + blockB``; -1 before a region's
+              first group. Only live slices' ids mean anything. Not in the JAX dict: the
+              port's K2 groups the slices of one color into waves by it.
     """
     nblk = lay["nblk"]
     G = GCOLS * 8
@@ -228,8 +233,9 @@ def row_windows(lay, body_a, body_b, valid, color, num_colors: int, sb: int, wid
     rel_n_b = torch.where(b_app, ab, BLK + sp_b - wb * BLK)
     rel_w_a = BLK + sp_a - blk_a * BLK
     rel_w_b = 2 * BLK + sp_b - blk_b * BLK
+    gid = torch.cat([gid_n, torch.where(gid_w >= 0, NGn + gid_w, -1)]).to(I32)
     return dict(
-        dest=dest, b_n=b_n, bp=bp, n_slices=n_slices, wseg=wseg,
+        dest=dest, b_n=b_n, bp=bp, n_slices=n_slices, wseg=wseg, gid=gid,
         rel_a=torch.where(narrow, rel_n_a, rel_w_a).to(I32),
         rel_b=torch.where(narrow, rel_n_b, rel_w_b).to(I32),
         wide=wide, wide_overflow=wide_overflow, wide_demand=base_w[NGw],

@@ -1,11 +1,13 @@
-"""Where one step of the port's general path goes on one CUDA card, for one of two scenes
-after ``bench.py``'s warm-up and autosize:
+"""Where one step of the port goes on one CUDA card, for one of three scenes after
+``bench.py``'s warm-up and autosize:
 
 - ``--scene tube`` (default): the ragdoll tube (32 ragdolls by default; at ``bench.py``'s
   solver settings, or with ``--settings default`` at the package's defaults, where its
-  limbs stay inside), through K3;
+  limbs stay inside), the general path through K3;
 - ``--scene ragdoll_pile``: the ragdoll pile (1,024 ragdolls by default, 16 colors,
   above 8,192 bodies: grid2 and the windowed layout), through K4;
+- ``--scene pile``: the 16,384-body mixed pile (``bench.py``'s scene and sequence: 33
+  steps, 152 settle, autosize, 33), the store fast path on the windowed layout through K2;
 
 then
 
@@ -13,11 +15,12 @@ then
    over ``--steps`` steps;
 2. the unsynced step time over the same number of steps;
 3. ``torch.profiler`` over the same number of unsynced steps: device time (kernel events),
-   kernels and contact-kernel launches per step (counted), the device's idle share of
-   that profiled window (1 - device time / its wall time, the profiler's own host cost
-   included), and the kernels that take the most device time.
+   kernels and contact-kernel launches per step (counted), the contact kernel's own
+   device time per step, the device's idle share of that profiled window (1 - device
+   time / its wall time, the profiler's own host cost included), and the kernels that
+   take the most device time.
 
-    python3 chip_profile.py [--scene tube|ragdoll_pile] [--ragdolls N] [--steps 5]
+    python3 chip_profile.py [--scene tube|ragdoll_pile|pile] [--ragdolls N] [--steps 5]
                             [--settings bench|default]
 
 Prints one JSON object as its last line and writes it to
@@ -53,7 +56,7 @@ def main():
         print("chip_profile: torch.cuda.is_available() is false; nothing was run", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("tube", "ragdoll_pile"), default="tube")
+    ap.add_argument("--scene", choices=("tube", "ragdoll_pile", "pile"), default="tube")
     ap.add_argument("--ragdolls", type=int, default=None)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--settings", choices=("bench", "default"), default="bench")
@@ -66,18 +69,25 @@ def main():
     dev = torch.device("cuda")
     smi = chip_smoke._nvidia_smi()
     pile = args.scene == "ragdoll_pile"
+    grid2 = args.scene != "tube"
+    settle = max(31, int(6 * 4096 ** (1 / 3)))
     if pile:
         from bepuphysics2_tpu_torch.models import build_ragdoll_pile_sim
 
         n_rag = args.ragdolls or chip_smoke.PILE_RAGDOLLS
         sim, _ = build_ragdoll_pile_sim(n_rag, device=dev)
         settings, kernel = "default", "contact_sweep_win"
+    elif args.scene == "pile":
+        n_rag = 0
+        sim = chip_smoke.build_pile(16384, dev)
+        settle = max(31, int(6 * 16384 ** (1 / 3)))
+        settings, kernel = "bench", "solve_substeps_contacts_win"
     else:
         n_rag = args.ragdolls or 32
         sim = chip_smoke.tube_sim(n_rag, dev, bench=args.settings == "bench")
         settings, kernel = args.settings, "contact_sweep"
     sim.run(33, DT)
-    sim.run(max(31, int(6 * 4096 ** (1 / 3))), DT)
+    sim.run(settle, DT)
     sim.autosize(DT, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
     sim.run(33, DT)
     torch.cuda.synchronize()
@@ -89,10 +99,12 @@ def main():
     patches = [(tsim, n) for n in ("compute_body_bounds", "narrow_phase_store",
                                    "narrow_phase_compound", "wake_touched", "solve_all",
                                    "update_sleep", "update_cache_keyed", "retain_sleeping_when")]
-    patches += [(tsim.bp, "grid2" if pile else "brute_force"), (tsim.pairstore, "update"),
+    patches += [(tsim.bp, "grid2" if grid2 else "brute_force"), (tsim.pairstore, "update"),
                 (tsolve.bk_mod, "color_table"), (tsolve.psweep, kernel)]
     if pile:
         patches.append((tsolve, "_win_store_bucket"))
+    if args.scene == "pile":
+        patches.append((tsolve, "win_pack"))
     saved = [(mod, n, getattr(mod, n)) for mod, n in patches]
     for mod, n, fn in saved:
         wrapped = _timed(stages, f"{mod.__name__.split('.')[-1]}.{n}", fn)
@@ -132,6 +144,9 @@ def main():
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / args.steps
+    symbol = f"::{kernel.removeprefix('solve_')}_kernel("  # e.g. ::contact_sweep_kernel(
+    own = [e for e in kernels if symbol in e.key]
+    kernel_ms = sum(e.self_device_time_total for e in own) / 1e3 / args.steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     out = dict(
         card=smi, scene=args.scene, ragdolls=n_rag, settings=settings, bodies=sim.body_count,
@@ -141,6 +156,7 @@ def main():
         idle_share_profiled=1.0 - device_ms / wall,
         kernels_per_step=sum(e.count for e in kernels) / args.steps,
         kernel=kernel, kernel_launches_per_step=launches / args.steps,
+        kernel_device_ms_per_step=kernel_ms,
         top_kernels=[(e.key[:70], e.self_device_time_total / 1e3 / args.steps,
                       e.count // args.steps) for e in top],
     )

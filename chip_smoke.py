@@ -2,7 +2,8 @@
 repository's sources, holds each against its plain PyTorch version at its main path's
 shapes, then drives the port's main paths through ``Simulation`` as ``bench.py`` does and
 checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1), the
-16,384-body pile (grid2 broad phase, autosize, the windowed K2), the ragdoll tube of 32
+16,384-body pile (grid2 broad phase, autosize, the windowed K2: one cooperative launch per
+step, each color's slices in parallel across the SMs), the ragdoll tube of 32
 ragdolls (joints and a compound: the general path over K3) at bench.py's solver settings
 and at the package's default ones, the pile of 1,024 ragdolls (the general path above
 8,192 bodies: grid2, autosize, the windowed layout, K4) and the contact-only compound
@@ -401,29 +402,73 @@ def phase_kernel_win(dev):
                                     fill=0.66)
     made = time.perf_counter() - t0
     args = sweep.win_bank_args(bank, dev)
+    waves = torch.from_numpy(bank["waves"]).to(dev)
     kw = dict(sb=bank["sb"], n_substeps=4, n_iters=1, angular_mode=0, gravity=(0.0, -10.0, 0.0))
-    kern = lambda: sweep.solve_substeps_contacts_win(*args, **kw)
+    kern = lambda: sweep.solve_substeps_contacts_win(*args, **kw, waves=waves)
     plain = lambda: sweep._solve_substeps_contacts_win_plain(*args, **kw)
     err, plain_ms = _hold("K2", kern, plain, args[0], K2_TOL)
     ms = _time_ms(kern, 5)
     live_rows = int((args[7][sweep.PS_VALID] > 0.5).sum())
     bound_ms, bound_by = _whole_solve_bound(args, (7, 9, 10, 11), args[12][:, 0] >= 0,
                                             live_rows, 4, 1, _row_ops())
+    grid = sweep.k2_grid(bank["sb"], bank["wseg"].shape[0])
+    sizes = [len(w) for w in sweep.wave_lists(waves)]
+    color = [k for k in sizes if k > 1]
+    tail = len(sizes) - len(color)
+    barriers = len(color) + sum(1 for i, k in enumerate(sizes)
+                                if k == 1 and (i == 0 or sizes[i - 1] > 1))
     print(f"[7 kernel] K2 vs plain at NP {bank['v6'].shape[0]}, BP {bank['bp']} "
           f"({bank['live_slices']} live slices of 256, {bank['wide_rows']} wide rows), "
           f"4 substeps: max |diff| {err:.3e} (limit {K2_TOL}); kernel {ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}, {live_rows} live rows); "
+          f"cooperative grid {grid} blocks of 512; per pass {len(sizes)} waves: "
+          f"{len(color)} color waves of {min(color, default=0)}-{max(color, default=0)} "
+          f"slices and {tail} tail slices on one block, {barriers} grid barriers; "
           f"bit-identical repeat; bank built in {made:.1f} s")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _wave_check(wp, kind, num_colors):
+    """Hold one step's K2 wave table (``solver.solve.win_pack``) to its contract: the
+    waves cover the live slices in order; a wave of several slices is one color c < C of
+    the narrow region, and its slices touch pairwise distinct dynamic bodies (every row
+    side, padding included, through its slice's window); every other live slice is a
+    wave of its own. Returns (waves, color waves, their largest)."""
+    from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    sb = wp["ps_t"].shape[1] // wp["wseg"].shape[0]
+    waves = sweep.wave_lists(wp["waves"])
+    live = torch.nonzero(wp["wseg"][:, 0] >= 0).flatten().tolist()
+    _require([sl for w in waves for sl in w] == live, "the waves do not cover the live "
+             "slices in order")
+    pos = sweep.window_positions(wp["whi2"], wp["wlo2"], wp["wseg"], sb).cpu().numpy()
+    dyn_slot = np.append(kind.cpu().numpy() == KIND_DYNAMIC, False)
+    dyn_pos = dyn_slot[wp["lay"]["pos_slot"].cpu().numpy()]
+    gid = wp["rw"]["gid"].cpu().numpy()
+    n_narrow, nblk = wp["rw"]["b_n"] // sb, wp["lay"]["nblk"]
+    colored = lambda sl: sl < n_narrow and gid[sl] >= 0 and gid[sl] // nblk < num_colors
+    multi = [w for w in waves if len(w) > 1]
+    for w in waves:
+        _require(len(w) == 1 or all(colored(sl) for sl in w), f"wave {w[:4]}... holds a "
+                 "Jacobi or wide slice beside others")
+    for w in multi:
+        _require(len({gid[sl] // nblk for sl in w}) == 1, "a wave mixes colors")
+        touched = np.concatenate([np.unique(pos[sl][dyn_pos[pos[sl]]]) for sl in w])
+        _require(len(np.unique(touched)) == len(touched), f"two slices of the wave at slice "
+                 f"{w[0]} touch one dynamic body")
+    return len(waves), len(multi), max((len(w) for w in multi), default=0)
 
 
 def phase_main_path_win(dev, name, smi, timed=96):
     """The 16,384-body pile through bench.py's sequence: build, 33 steps, settle, autosize,
     33 steps, ``timed`` timed steps (bench.py: 96). Every step must launch K2 once and K1
-    never; the plain K2 must never run."""
+    never; the plain K2 must never run. Two steps before the timed window hold each
+    step's wave table to its contract (``_wave_check``)."""
     from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
     from bepuphysics2_tpu_torch.ops import sweep
     from bepuphysics2_tpu_torch.simulation import D_ENTRIES, D_WIDE
+    from bepuphysics2_tpu_torch.solver import solve as tsolve
 
     n = 16384
     warm, settle = 33, max(31, int(6 * n ** (1 / 3)))
@@ -454,9 +499,18 @@ def phase_main_path_win(dev, name, smi, timed=96):
         sized = sim.autosize(DT, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
         probe = sweep.solve_substeps_contacts_win.launches - before
         _require(probe >= 32 and probe % 32 == 0, f"autosize ran {probe} steps off K2")
-        run(warm)
+        run(warm - 2)
+        packs = []  # the last two steps' wave tables, held to their contract after them
+        pack = tsolve.win_pack
+        tsolve.win_pack = lambda *a, **k: packs.append((pack(*a, **k), a[1], a[8])) or packs[-1][0]
+        try:
+            run(2)
+        finally:
+            tsolve.win_pack = pack
         torch.cuda.synchronize()
         stages.append(time.perf_counter() - t0)
+        checked = [_wave_check(wp, kind, ncol) for wp, kind, ncol in packs]
+        _require(len(checked) == 2, f"{len(checked)} wave tables in 2 steps")
         import warnings
 
         t1 = time.perf_counter()
@@ -495,7 +549,9 @@ def phase_main_path_win(dev, name, smi, timed=96):
           f"{contacts}, wide rows {demand[D_WIDE]}, grid entries {demand[D_ENTRIES]}, min "
           f"dynamic y {min_y:.3f}; demand {demand}; autosized {caps}; K2 launches {k2} in "
           f"{steps} steps, K1 launches {k1}, plain K2 calls {len(plain_calls)}; host syncs "
-          f"per step {syncs:g}")
+          f"per step {syncs:g}; wave tables of the 2 steps before the timed window: "
+          f"{'; '.join(f'{w} waves, {c} color waves of at most {m} slices' for w, c, m in checked)}"
+          f", each color wave's slices on distinct dynamic bodies")
     _require(demand[D_ENTRIES] > 0, "the grid2 broad phase did not run")
     _require(k2 == steps and k1 == 0, "the 16k pile did not solve through K2 alone")
     _require(not plain_calls, "the plain K2 ran on the card's main path")
@@ -1097,7 +1153,9 @@ def phase_probe_gather_scatter(dev):
     counts zeroed before it: k1-k4 and k6 through K6 and k5 through K7, each exactly its
     plain version (a gather and a last-writer copy are exact) and again on a repeat; k5
     also with distinct ``d`` rows, where the last writer shows. K6's library call is
-    ``torch.index_select``; K7 has none (no one PyTorch call keeps the last writer)."""
+    ``torch.index_select``, timed in turns with K6 through its wrapper; K6's bare C call
+    and an empty ctypes call of its arguments show what the wrapper's floor is. K7 has no
+    library call (no one PyTorch call keeps the last writer)."""
     from bepuphysics2_tpu_torch.experiments import gather_probe
     from bepuphysics2_tpu_torch.ops import probes
 
@@ -1125,17 +1183,39 @@ def phase_probe_gather_scatter(dev):
     # K7 reads v and writes the output whole, reads the indices and each target's last
     # d row, and adds once per component of a target.
     s_bound = _bound(2 * _nbytes(v) + _nbytes(idx) + uniq * w * 4, uniq * w)
+    # K6 three ways: through the wrapper (gather_probe.main's k1), the bare C entry point
+    # (bound once, pointers and stream taken beforehand) and torch.index_select, then the
+    # same entry point's empty twin: what a ctypes call costs here.
+    from bepuphysics2_tpu_torch.ops import build
+
+    out = torch.empty_like(gather["out"])
+    c_args = (v.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, m, w, build.raw_stream(dev))
+    bare = build.bind("probe_gather", "probe_gather_launch", probes._GATHER_ARGS)
+    noop = build.bind("probe_gather", "probe_gather_noop", probes._GATHER_ARGS)
+    g_bare = _time_ms(lambda: bare(*c_args), 200)
+    _require(torch.equal(out, gather["out"]), "K6's bare call differs from its wrapper's")
+    wrap, lib = lambda: probes.probe_gather(v, idx), lambda: torch.index_select(v, 0, idx)
+    turns = [_time_ms(fn, 200) for fn in (lib, wrap, wrap, lib, lib, wrap, wrap, lib)]
+    g_wrap, g_lib = np.mean(turns[1::4] + turns[2::4]), np.mean(turns[0::4] + turns[3::4])
+    t0 = time.perf_counter()
+    for _ in range(200):
+        noop(*c_args)
+    g_noop = (time.perf_counter() - t0) * 1e3 / 200
     g_plain = _host_ms(lambda: probes._probe_gather_plain(v, idx))
     s_plain = _host_ms(lambda: probes._probe_scatter_plain(v, idx, d))
     scatter = next(r for r in rows if r["kernel"] == "K7")
     print(f"[22 probe gather/scatter] gather_probe.main: NB {nb}, M {m} ({uniq} distinct); "
           f"launches K6 {k6}, K7 {k7}; k1-k6 and k5 with distinct d rows exact and repeated; "
-          f"K6 (k1) {gather['ms']:.4f} ms, torch.index_select {gather['library_ms']:.4f} ms, "
+          f"K6 (k1) {gather['ms']:.4f} ms, torch.index_select {gather['library_ms']:.4f} ms; "
+          f"per call over 200 calls (4 runs each, in turns): K6 through its wrapper "
+          f"{g_wrap:.4f} ms, torch.index_select {g_lib:.4f} ms; the bare C call "
+          f"{g_bare:.4f} ms, an empty ctypes call of "
+          f"the same 7 arguments {g_noop:.4f} ms (host clock); "
           f"plain {g_plain:.3f} ms, bound {g_bound[0]:.7f} ms ({g_bound[1]}); K7 "
           f"{scatter['ms']:.4f} ms per call, kernel {s_ms:.4f} ms, plain {s_plain:.3f} ms, "
           f"bound {s_bound[0]:.7f} ms ({s_bound[1]})")
-    return (dict(launches=k6, max_abs_err=0.0, ms=gather["ms"], plain_ms=g_plain,
-                 bound_ms=g_bound[0], bound_by=g_bound[1], library_ms=gather["library_ms"]),
+    return (dict(launches=k6, max_abs_err=0.0, ms=g_wrap, plain_ms=g_plain,
+                 bound_ms=g_bound[0], bound_by=g_bound[1], library_ms=g_lib),
             dict(launches=k7, max_abs_err=0.0, ms=s_ms, plain_ms=s_plain, bound_ms=s_bound[0],
                  bound_by=s_bound[1], library_ms=None))
 

@@ -1,6 +1,8 @@
 """The port's kernel build key (``ops/build.py``), on the CPU: no ``nvcc`` is needed to
 compute it. A library is keyed by its source, every shared header and the flags, so an
-edit to a header the kernels include rebuilds them instead of loading a stale library."""
+edit to a header the kernels include rebuilds them instead of loading a stale library.
+Each C entry point is bound once (``build.bind``) and the wrappers reuse the binding."""
+import ctypes
 import re
 import shutil
 
@@ -59,3 +61,31 @@ def test_kernel_includes_resolve_inside_csrc(name):
     assert ("contact_rows.cuh" in includes) == (name in CONTACT_KERNELS)
     for inc in includes:
         assert (build.CSRC / inc).is_file(), inc
+
+
+def test_bind_loads_once_and_reuses_the_binding(monkeypatch):
+    """``bind`` loads a library at its first call and sets the entry point's types then;
+    a second call returns the same function object without loading again."""
+    loads = []
+
+    def load(name):
+        loads.append(name)
+        return ctypes.CDLL(None), 0.0  # the process's own symbols stand in for a kernel
+
+    monkeypatch.setattr(build, "load", load)
+    monkeypatch.setattr(build, "_bound", {})
+    fn = build.bind("libc", "abs", [ctypes.c_int])
+    assert build.bind("libc", "abs", [ctypes.c_int]) is fn
+    assert loads == ["libc"]
+    assert fn.restype is ctypes.c_int and list(fn.argtypes) == [ctypes.c_int]
+    assert fn(-7) == 7
+
+
+@pytest.mark.parametrize("module", ["sweep.py", "probes.py"])
+def test_no_wrapper_loads_per_launch(module):
+    """Every wrapper reaches its kernel through ``build.bind``; none calls ``build.load``
+    or sets ctypes types itself."""
+    text = (build.CSRC.parent / "ops" / module).read_text()
+    assert "build.bind(" in text
+    for banned in ("build.load(", ".restype", ".argtypes", "current_stream("):
+        assert banned not in text, banned

@@ -59,21 +59,23 @@ def test_kernel_matches_plain_on_card(cuda_device, angular_mode):
 @pytest.mark.parametrize("angular_mode", [0, 1, 2])
 def test_k2_matches_plain_on_card(cuda_device, angular_mode):
     """K2 on a windowed bank with narrow, wide, Jacobi and padding rows (2,600 bodies,
-    three Morton blocks): 1e-4 absolute, as K1; bit-identical run to run."""
+    three Morton blocks; color waves of several slices run across the grid): 1e-4
+    absolute, as K1; bit-identical run to run."""
     bank = sweep.synthetic_win_bank(2600, 4096, 4, seed=9, substeps=SUBSTEPS, wide_frac=0.05)
     assert bank["wide_rows"] > 0
     kw = dict(sb=bank["sb"], n_substeps=SUBSTEPS, n_iters=ITERS, angular_mode=angular_mode,
               gravity=GRAVITY)
+    waves = torch.from_numpy(bank["waves"]).to(cuda_device)
     before = sweep.solve_substeps_contacts_win.launches
     got = _outputs(sweep.solve_substeps_contacts_win(
-        *sweep.win_bank_args(bank, cuda_device), **kw))
+        *sweep.win_bank_args(bank, cuda_device), **kw, waves=waves))
     assert sweep.solve_substeps_contacts_win.launches == before + 1
     want = _outputs(sweep._solve_substeps_contacts_win_plain(
         *sweep.win_bank_args(bank, cuda_device), **kw))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
     again = _outputs(sweep.solve_substeps_contacts_win(
-        *sweep.win_bank_args(bank, cuda_device), **kw))
+        *sweep.win_bank_args(bank, cuda_device), **kw, waves=waves))
     for g, a in zip(got, again):
         np.testing.assert_array_equal(g, a)
 
@@ -307,3 +309,17 @@ def test_k6_k7_equal_plain_on_card(cuda_device, label):
     assert counter.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), plain(*args).cpu().numpy())
     np.testing.assert_array_equal(fn(*args).cpu().numpy(), got.cpu().numpy())
+
+
+@pytest.mark.parametrize("width", [8, 6, 3])
+def test_k6_equals_plain_at_each_width(cuda_device, width):
+    """K6 copies 16-byte vectors where the width is a multiple of 4 (an (NB, 8) row is
+    two float4) and one element per thread otherwise: exactly the plain gather at W = 8,
+    6 and 3, on distinct values."""
+    rng = np.random.default_rng(width)
+    v = torch.from_numpy(rng.normal(size=(1000, width)).astype(np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, 1000, 777).astype(np.int32)).to(cuda_device)
+    before = probes.probe_gather.launches
+    got = probes.probe_gather(v, idx)
+    assert probes.probe_gather.launches == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), probes._probe_gather_plain(v, idx).cpu().numpy())

@@ -1,6 +1,7 @@
 // Per-row contact math and the per-body substep block shared by the contact kernels K1
 // (substeps_contacts.cu), K2 (substeps_contacts_win.cu), K3 (contact_sweep.cu) and K4
-// (contact_sweep_win.cu). Each is the CUDA restatement of the PyTorch function named
+// (contact_sweep_win.cu); waves.cuh holds the wave walk of K1, K2 and K4. Each function
+// here is the CUDA restatement of the PyTorch function named
 // beside it in ops/sweep.py, which is itself the counterpart of the JAX package's
 // bepuphysics2_tpu/ops/sweep.py row functions. Included by every kernel, so an edit here
 // changes all of them (ops/build.py keys every build by the sources and by every header
@@ -415,17 +416,6 @@ __device__ void pose_vel_inertia_body(float* g, float* ps, const float* ax, int 
   g[9] = w.xx; g[10] = w.yx; g[11] = w.yy; g[12] = w.zx; g[13] = w.zy; g[14] = w.zz;
 }
 
-// Both sides' inertia, already mass-split, from a streamed (16, B) block (ops/sweep.py
-// pack_inertia_rows): rows 0-6 the A side's inverse mass and world inverse inertia, rows
-// 8-14 the B side's.
-__device__ __forceinline__ void load_inertia_rows(const float* it, int B, int col, int side,
-                                                  float& im, S3& ii) {
-  const float* g = it + (size_t)side * 8 * B + col;
-  im = g[0];
-  ii = {g[(size_t)1 * B], g[(size_t)2 * B], g[(size_t)3 * B], g[(size_t)4 * B],
-        g[(size_t)5 * B], g[(size_t)6 * B]};
-}
-
 // One row of a slice pass with both sides' inertia given: see slice_row.
 __device__ __forceinline__ void row_pass(const float* ps, int B, int col, float* imp,
                                          const float* dep_in, const float* bg, int ba, int bb,
@@ -470,6 +460,65 @@ __device__ __forceinline__ void slice_row(const float* ps, int B, int col, float
            inv_h, da, db);
 }
 
+// slice_row's arithmetic in the same order, for the cooperative kernels K1 and K2: each
+// side's body row read whole as four 16-byte loads (a warp's scattered rows cost the L1
+// one pass per row and load instruction, so 4 wide loads instead of 13 narrow ones; 9.3 ->
+// 7.5 us per slice pass of K2, PERF.md), its inertia scaled by the side's mass-split
+// scale. The prestep row comes from ps (row k at ps + k * ps_stride + ps_col: a stage in
+// shared memory or the bank itself), the depths from dep and the impulses from imp (rows
+// stride B, column col; updated in place when solving). Writes each side's delta divided
+// by its scale to da / db, the velocities the row read to va6 / vb6 (they seed the sums),
+// and whether each side's inertia is all zero to still_a / still_b.
+__device__ __forceinline__ void body_row(const float* bg, const float* ps, int ps_stride,
+                                         int ps_col, float* imp, const float* dep, int B,
+                                         int col, int ba, int bb, float sa, float sbs,
+                                         bool solve, float inv_h, float* da, float* db,
+                                         float* va6, float* vb6, bool* still_a,
+                                         bool* still_b) {
+  const float4* ga = reinterpret_cast<const float4*>(bg + (size_t)ba * 16);
+  const float4* gb = reinterpret_cast<const float4*>(bg + (size_t)bb * 16);
+  const float4 a0 = ga[0], a1 = ga[1], a2 = ga[2], a3 = ga[3];
+  const float4 b0 = gb[0], b1 = gb[1], b2 = gb[2], b3 = gb[3];
+  const float ra[7] = {a2.x, a2.y, a2.z, a2.w, a3.x, a3.y, a3.z};
+  const float rb[7] = {b2.x, b2.y, b2.z, b2.w, b3.x, b3.y, b3.z};
+  F3 va_l = f3(a0.x, a0.y, a0.z), va_a = f3(a0.w, a1.x, a1.y);
+  F3 vb_l = f3(b0.x, b0.y, b0.z), vb_a = f3(b0.w, b1.x, b1.y);
+  Row row;
+  load_row(ps, ps_stride, ps_col, row);
+  float dp[4], im[IMP_ROWS];
+  for (int k = 0; k < 4; ++k) dp[k] = dep[(size_t)k * B + col];
+  for (int k = 0; k < IMP_ROWS; ++k) im[k] = imp[(size_t)k * B + col];
+
+  bool za = true, zb = true;
+  for (int k = 0; k < 7; ++k) {
+    za = za && ra[k] == 0.0f;
+    zb = zb && rb[k] == 0.0f;
+  }
+  *still_a = za;
+  *still_b = zb;
+  va6[0] = va_l.x; va6[1] = va_l.y; va6[2] = va_l.z;
+  va6[3] = va_a.x; va6[4] = va_a.y; va6[5] = va_a.z;
+  vb6[0] = vb_l.x; vb6[1] = vb_l.y; vb6[2] = vb_l.z;
+  vb6[3] = vb_a.x; vb6[4] = vb_a.y; vb6[5] = vb_a.z;
+
+  const float ia_im = ra[0] * sa, ib_im = rb[0] * sbs;
+  const S3 ia_ii = {ra[1] * sa, ra[2] * sa, ra[3] * sa, ra[4] * sa, ra[5] * sa, ra[6] * sa};
+  const S3 ib_ii = {rb[1] * sbs, rb[2] * sbs, rb[3] * sbs, rb[4] * sbs, rb[5] * sbs,
+                    rb[6] * sbs};
+  F3 dva_l, dva_a, dvb_l, dvb_a;
+  if (solve) {
+    solve_contact_rows(row, dp, im, ia_im, ia_ii, ib_im, ib_ii, va_l, va_a, vb_l, vb_a,
+                       inv_h, dva_l, dva_a, dvb_l, dvb_a);
+    for (int k = 0; k < IMP_ROWS; ++k) imp[(size_t)k * B + col] = im[k];
+  } else {
+    warm_start_rows(row, dp, im, ia_im, ia_ii, ib_im, ib_ii, dva_l, dva_a, dvb_l, dvb_a);
+  }
+  da[0] = dva_l.x / sa; da[1] = dva_l.y / sa; da[2] = dva_l.z / sa;
+  da[3] = dva_a.x / sa; da[4] = dva_a.y / sa; da[5] = dva_a.z / sa;
+  db[0] = dvb_l.x / sbs; db[1] = dvb_l.y / sbs; db[2] = dvb_l.z / sbs;
+  db[3] = dvb_a.x / sbs; db[4] = dvb_a.y / sbs; db[5] = dvb_a.z / sbs;
+}
+
 // Per-row incremental depth update of one column (dep rows stride B, updated in place).
 __device__ __forceinline__ void depth_row(const float* ps, int B, int col, float* dep_io,
                                           const float* bg, int ba, int bb, float h) {
@@ -488,16 +537,13 @@ __device__ __forceinline__ void depth_row(const float* ps, int B, int col, float
 // body row of entry q and ord the slice's stable sort of body, so the first entry of
 // each body's run adds the whole run, in ascending entry order. No float atomics: the
 // result is the same on every run. Bodies with zero inverse mass and inertia take no
-// delta (theirs is zero, and statics repeat across rows); with skip_still false (K4,
-// whose body rows hold no inertia) every run is added, a non-dynamic body's run adding
-// exact zeros.
-__device__ void sum_deltas(float* bg, const int* body, const int* ord, const float* D, int m2,
-                           bool skip_still = true) {
+// delta (theirs is zero, and statics repeat across rows).
+__device__ void sum_deltas(float* bg, const int* body, const int* ord, const float* D, int m2) {
   for (int q = threadIdx.x; q < m2; q += blockDim.x) {
     const int b = body[ord[q]];
     if (q > 0 && body[ord[q - 1]] == b) continue;
     float* g = bg + (size_t)b * 16;
-    if (skip_still && g[8] == 0.0f && g[9] == 0.0f && g[10] == 0.0f && g[11] == 0.0f && g[12] == 0.0f &&
+    if (g[8] == 0.0f && g[9] == 0.0f && g[10] == 0.0f && g[11] == 0.0f && g[12] == 0.0f &&
         g[13] == 0.0f && g[14] == 0.0f)
       continue;
     float acc[6];

@@ -1,23 +1,46 @@
-// K1: the whole substepped contact solve in one launch, for NVIDIA Hopper (sm_90a).
+// K1: the whole substepped contact solve in one cooperative launch over the card, for
+// NVIDIA Hopper (sm_90a).
 //
 // Replaces bepuphysics2_tpu/ops/sweep.py::_substeps_kernel (solve_substeps_contacts):
 // per substep, the incremental depth update (substeps after the first), the pose /
 // velocity / world-inertia block, a warm start of every slice, then the velocity
 // iterations over every slice, in the same phase order, slice order and per-row math.
 //
-// What bounds it: latency and L2 traffic, not flops. Each slice is a gather of two body
-// rows per constraint row, ~400 flops of per-row algebra, and a scatter of velocity
-// deltas; slices must run one after another (Gauss-Seidel over color pages), so the
-// critical path is the chain of ~(2 + iterations) x slices x substeps dependent steps.
+// What bounds it: the chain of dependent slice passes, not flops or bandwidth (its work
+// is ~0.003 ms at the card's rates). One block of 512 threads walking every slice in
+// order spent ~15 us per slice pass on one SM of 132 (PERF.md), 7.7 ms per launch on the
+// 4,096-body pile's bank.
 //
-// Design: ONE thread block of 512 threads walks the grid's (substep, phase, slice) order
-// itself; __syncthreads() separates slices. Body state lives in device memory (about
-// 0.5 MB at 4k bodies, L2-resident). Each slice first computes every row's deltas into
-// shared memory, then sums them per body in a fixed order (the wrapper's stable sort of
-// the slice's body list), so the result is deterministic by construction: no float
-// atomics, and rows of a Jacobi page all read the state from before the slice. This
-// uses one SM of 132; spreading the solve over the card is later work. One launch per
-// step.
+// Design: K2's (substeps_contacts_win.cu) over the page-execution order, with the wave
+// walk of waves.cuh. One persistent grid of every block the card can hold at once
+// (occupancy x SMs), launched with cudaLaunchCooperativeKernel, phases separated by grid
+// barriers. The depth update and the body block are grid-stride loops. The warm start and
+// every iteration pass go by the waves of the table (solver/solve.py waves_by_key: a
+// maximal run of consecutive live pages of one color c < C of one bank): a wave's rows
+// are dealt over every thread of the grid, a row per thread, its writing sides stored
+// straight, one grid barrier after the wave (the same bits as its pages dealt to the
+// blocks, and faster on the 4,096-body pile: PERF.md). Jacobi pages stay in order on
+// block 0, one slice pass per page. While block 0 solves one, cp.async copies the next
+// one's prestep rows, scales, body indices and sort into a second shared-memory stage (38
+// words a row: the 4 depth rows of the prestep, which the row math does not read, are
+// copied too, to keep one copy loop), where the two stages fit in a block's shared memory
+// (pages of up to 512 rows: ~210 KB of the H100's 227 KB); larger pages are read from the
+// bank (SimConfig.store_page 1,024 and 2,048). Body rows are read as four 16-byte loads
+// (contact_rows.cuh body_row, shared with K2).
+//
+// Writes: an entry (a row side) writes when its row is valid and its body's inertia is
+// not all zero, so statics and rows of dead slots (which keep their retired bodies) and
+// padding rows (which alias a bank's last row) move nothing: the one-block walk this
+// replaces added their exact zeros instead, which differs only where a velocity is -0.0.
+// Why a wave is exact: the pair store's color claims (and the compound banks' coloring)
+// make a color's valid rows touch pairwise distinct dynamic bodies, so within a wave each
+// written body has one writing entry and no other valid row reads it: every row reads the
+// value the in-order walk would read and every sum is the walk's, bit for bit, with no
+// float atomics. chip_smoke.py checks this on the 4,096-body pile's and the compound
+// pile's tables.
+//
+// Memory visibility: bg, pose, imp and dep are written by one SM and read by another
+// after a grid barrier, so no state pointer is __restrict__ or read through __ldg.
 //
 // Layouts (row-major, f32 unless noted):
 //   bg    (nb, 16)  [vx vy vz wx wy wz 0 0 | im, world inverse inertia xx yx yy zx zy zz, 0]
@@ -28,10 +51,14 @@
 //   imp   (8, B)    accumulated impulses, updated in place
 //   dep   (4, B)    depth scratch
 //   idx2, scale, order  (n_slices * 2 * sb,)  per slice: sb A sides then sb B sides;
-//                   order (int32) is the slice's stable sort of its body list
+//                   order (int32) is the slice's stable sort of its body list with the
+//                   writing entries first (ops/sweep.py writer_order)
 //   slive (n_slices,) int32: slice holds at least one valid row
+//   waves (2 * n_slices + 2,) int32 wave table (waves.cuh) over the live slices
+// ps_t, idx2, scale and order must be 16-byte aligned, sb a multiple of 4.
 
 #include "contact_rows.cuh"
+#include "waves.cuh"
 
 namespace {
 
@@ -39,78 +66,201 @@ constexpr int NTHREADS = 512;
 
 struct Params {
   float* bg; float* pose; const float* aux; const float* ps; float* imp; float* dep;
-  const int* idx2; const float* scale; const int* order; const int* slive;
-  int nb, B, sb, n_slices, n_substeps, n_iters;
+  const int* idx2; const float* scale; const int* order; const int* slive; const int* waves;
+  int nb, B, sb, n_slices, n_substeps, n_iters, staged;
   StepConsts c;
 };
 
-// One slice of warm start (solve = false) or of one velocity iteration (solve = true):
-// every row's deltas go to shared memory, then each body's deltas are summed onto its
-// velocity in the slice's sorted order.
-__device__ void run_slice(const Params& p, int sl, bool solve, float* D) {
-  const int sb = p.sb;
-  const size_t e0 = (size_t)sl * 2 * sb;
-  for (int r = threadIdx.x; r < sb; r += blockDim.x)
-    slice_row(p.ps, p.B, sl * sb + r, p.imp, p.dep, p.bg, p.idx2[e0 + r], p.idx2[e0 + sb + r],
-              p.scale[e0 + r], p.scale[e0 + sb + r], solve, p.c.inv_h, D + (size_t)r * 6,
-              D + (size_t)(sb + r) * 6);
-  __syncthreads();
-  sum_deltas(p.bg, p.idx2 + e0, p.order + e0, D, 2 * sb);
-  __syncthreads();
+// Shared memory, in 4-byte words: when staged, two stages of [prestep 32 sb | idx2 |
+// scale | order (2 sb each)]; the deltas D and velocities V (2 sb x 6 each), the write
+// flags (2 sb), then the plan.
+__host__ __device__ constexpr size_t stage_words(int sb) { return (size_t)(PS_ROWS + 6) * sb; }
+__host__ __device__ constexpr size_t smem_words(int sb, int n, bool staged) {
+  return (staged ? 2 * stage_words(sb) : 0) + (size_t)26 * sb + plan_words(n);
 }
 
-__global__ void __launch_bounds__(NTHREADS) substeps_contacts_kernel(Params p) {
-  extern __shared__ float D[];
+struct Smem {
+  float* stage[2];
+  float* D; float* V; int* wr;
+  Plan plan;
+};
+
+__device__ Smem carve(float* smem, int sb, int n, bool staged) {
+  Smem m;
+  m.stage[0] = smem;
+  m.stage[1] = smem + (staged ? stage_words(sb) : 0);
+  m.D = m.stage[1] + (staged ? stage_words(sb) : 0);
+  m.V = m.D + (size_t)12 * sb;
+  m.wr = reinterpret_cast<int*>(m.V + (size_t)12 * sb);
+  m.plan = carve_plan(m.wr + 2 * sb, n);
+  return m;
+}
+
+// Where one slice's state-independent inputs are read: a stage, or the bank.
+struct SliceIn {
+  const float* ps; int ps_stride, ps_col;  // prestep row k of row r: ps[k * stride + col + r]
+  const int* idx; const float* sc; const int* ord;  // 2 sb entries each
+};
+
+__device__ SliceIn staged_in(const float* st, int sb) {
+  const int* idx = reinterpret_cast<const int*>(st + (size_t)PS_ROWS * sb);
+  const float* sc = reinterpret_cast<const float*>(idx + 2 * sb);
+  return {st, sb, 0, idx, sc, reinterpret_cast<const int*>(sc + 2 * sb)};
+}
+
+__device__ SliceIn bank_in(const Params& p, int sl) {
+  const size_t e0 = (size_t)sl * 2 * p.sb;
+  return {p.ps, p.B, sl * p.sb, p.idx2 + e0, p.scale + e0, p.order + e0};
+}
+
+// Copy slice sl's state-independent inputs into a stage, 16 bytes per copy.
+__device__ void stage_slice(const Params& p, float* st, int sl) {
   const int sb = p.sb;
+  const size_t e0 = (size_t)sl * 2 * sb;
+  stage_rows(st, p.ps + (size_t)sl * sb, p.B, PS_ROWS, sb);
+  stage_arrays(st + (size_t)PS_ROWS * sb, 3, 2 * sb, e0, p.idx2, p.scale, p.order);
+  __pipeline_commit();
+}
+
+// One live slice of warm start (solve = false) or of one velocity iteration: rows
+// (contact_rows.cuh body_row), then each body's run summed in the slice's writer-first
+// stable sort (waves.cuh sum_runs).
+__device__ void run_slice(const Params& p, const Smem& m, const SliceIn& in, int sl,
+                          bool solve) {
+  const int sb = p.sb;
+  for (int r = threadIdx.x; r < sb; r += blockDim.x) {
+    bool still_a, still_b;
+    body_row(p.bg, in.ps, in.ps_stride, in.ps_col + r, p.imp, p.dep, p.B, sl * sb + r,
+             in.idx[r], in.idx[sb + r], in.sc[r], in.sc[sb + r], solve, p.c.inv_h,
+             m.D + (size_t)r * 6, m.D + (size_t)(sb + r) * 6, m.V + (size_t)r * 6,
+             m.V + (size_t)(sb + r) * 6, &still_a, &still_b);
+    const bool valid = in.ps[(size_t)PS_VALID * in.ps_stride + in.ps_col + r] > 0.5f;
+    m.wr[r] = valid && !still_a;
+    m.wr[sb + r] = valid && !still_b;
+  }
+  __syncthreads();
+  sum_runs(p.bg, 16, in.idx, in.ord, m.D, m.V, m.wr, 2 * sb);
+}
+
+// One row of a colored wave dealt over the grid: inputs read from the bank, the writing
+// sides stored straight.
+__device__ void run_row(const Params& p, int sl, int r, bool solve) {
+  const int sb = p.sb;
+  const size_t e0 = (size_t)sl * 2 * sb;
+  const int ba = p.idx2[e0 + r], bb = p.idx2[e0 + sb + r];
+  const int col = sl * sb + r;
+  float da[6], db[6], va6[6], vb6[6];
+  bool still_a, still_b;
+  body_row(p.bg, p.ps, p.B, col, p.imp, p.dep, p.B, col, ba, bb, p.scale[e0 + r],
+           p.scale[e0 + sb + r], solve, p.c.inv_h, da, db, va6, vb6, &still_a, &still_b);
+  const bool valid = p.ps[(size_t)PS_VALID * p.B + col] > 0.5f;
+  store_row(p.bg, 16, ba, bb, valid && !still_a, valid && !still_b, va6, vb6, da, db);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1) substeps_contacts_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const Smem m = carve(smem, p.sb, p.n_slices, p.staged);
+  plan(p.waves, p.n_slices, m.plan, true);
+  const int nseg = m.plan.counts[0], njobs = m.plan.counts[1];
+  const int* jobs = m.plan.jobs;
+  const int sb = p.sb;
+  const int gtid = blockIdx.x * blockDim.x + threadIdx.x, gstride = gridDim.x * blockDim.x;
+  int buf = 0;
+  if (p.staged && njobs > 0) stage_slice(p, m.stage[0], jobs[0]);
   for (int s = 0; s < p.n_substeps; ++s) {
     // Phase 0: incremental depth update for substeps after the first. It reads the
-    // velocities only, so every slice's rows run at once.
+    // velocities only, so every live slice's rows run at once.
     if (s > 0) {
-      for (int col = threadIdx.x; col < p.B; col += blockDim.x) {
+      for (int col = gtid; col < p.B; col += gstride) {
         const int sl = col / sb, r = col - sl * sb;
         if (!p.slive[sl]) continue;
         const size_t e0 = (size_t)sl * 2 * sb;
         depth_row(p.ps, p.B, col, p.dep, p.bg, p.idx2[e0 + r], p.idx2[e0 + sb + r], p.c.h);
       }
-      __syncthreads();
+      grid.sync();
     }
-    // Phase 1: the body block, then (first substep) the depth scratch from the prestep,
-    // then the warm start of every slice.
-    for (int b = threadIdx.x; b < p.nb; b += blockDim.x)
+    // Phase 1: the body block, and (first substep) the depth scratch from the prestep.
+    for (int b = gtid; b < p.nb; b += gstride)
       pose_vel_inertia_body(p.bg + (size_t)b * 16, p.pose + (size_t)b * 8, p.aux + (size_t)b * 8,
                             s, p.c);
     if (s == 0) {
-      for (int col = threadIdx.x; col < p.B; col += blockDim.x)
+      for (int col = gtid; col < p.B; col += gstride)
         for (int k = 0; k < 4; ++k)
           p.dep[(size_t)k * p.B + col] = p.ps[(size_t)(PS_DEPTH + k) * p.B + col];
     }
-    __syncthreads();
-    for (int sl = 0; sl < p.n_slices; ++sl)
-      if (p.slive[sl]) run_slice(p, sl, false, D);
-    // Phases 2+: velocity iterations.
-    for (int it = 0; it < p.n_iters; ++it)
-      for (int sl = 0; sl < p.n_slices; ++sl)
-        if (p.slive[sl]) run_slice(p, sl, true, D);
+    grid.sync();
+    // The warm start, then the velocity iterations: the same waves in every pass.
+    for (int pass = 0; pass <= p.n_iters; ++pass) {
+      int j = 0;
+      for (int g = 0; g < nseg; ++g) {
+        const int len = m.plan.segl[g];
+        if (len > 0) {  // a color's wave: its rows over the grid
+          const int a = m.plan.sega[g];
+          for (int q = gtid; q < len * sb; q += gstride)
+            run_row(p, m.plan.live[a + q / sb], q % sb, pass > 0);
+        } else {  // Jacobi pages, in order on block 0
+          for (int t = 0; t < m.plan.segn[g]; ++t, ++j) {
+            if (p.staged) __pipeline_wait_prior(0);
+            __syncthreads();  // this stage landed; the previous slice is done with the other
+            if (p.staged) stage_slice(p, m.stage[buf ^ 1], jobs[j + 1 < njobs ? j + 1 : 0]);
+            run_slice(p, m, p.staged ? staged_in(m.stage[buf], sb) : bank_in(p, jobs[j]),
+                      jobs[j], pass > 0);
+            buf ^= p.staged;
+          }
+        }
+        grid.sync();
+      }
+    }
   }
+  __pipeline_wait_prior(0);
+}
+
+size_t grid_cache[2] = {0, 0};
+
+// Whether K1 stages its Jacobi pages: the two stages fit beside the rest in one block's
+// shared memory.
+cudaError_t staged_fits(int sb, int n_slices, bool* staged) {
+  size_t limit = 0;
+  const cudaError_t err = smem_limit(&limit);
+  *staged = smem_words(sb, n_slices, true) * 4 <= limit;
+  return err;
 }
 
 }  // namespace
 
+// The number of blocks K1 launches for n_slices slices of sb rows, or minus the CUDA
+// error that keeps it from being co-scheduled.
+extern "C" int substeps_contacts_grid(int sb, int n_slices) {
+  bool staged = false;
+  cudaError_t err = staged_fits(sb, n_slices, &staged);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = grid_for(substeps_contacts_kernel, NTHREADS, smem_words(sb, n_slices, staged) * 4,
+                 grid_cache, &blocks);
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 extern "C" int substeps_contacts_launch(
     float* bg, float* pose, const float* aux, const float* ps_t, float* imp, float* dep,
-    const int* idx2, const float* scale, const int* order, const int* slive,
+    const int* idx2, const float* scale, const int* order, const int* slive, const int* waves,
     int nb, int B, int sb, int n_substeps, int n_iters, int angular_mode,
     float gx, float gy, float gz, float h, float inv_h, float lin_scale, float ang_scale,
     void* stream) {
-  Params p{bg, pose, aux, ps_t, imp, dep, idx2, scale, order, slive,
-           nb, B, sb, B / sb, n_substeps, n_iters,
+  if (sb <= 0 || sb % 4 || B % sb) return (int)cudaErrorInvalidValue;
+  bool staged = false;
+  cudaError_t err = staged_fits(sb, B / sb, &staged);
+  if (err != cudaSuccess) return (int)err;
+  Params p{bg, pose, aux, ps_t, imp, dep, idx2, scale, order, slive, waves,
+           nb, B, sb, B / sb, n_substeps, n_iters, staged,
            {angular_mode, gx, gy, gz, h, inv_h, lin_scale, ang_scale}};
-  const size_t smem = (size_t)2 * sb * 6 * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        substeps_contacts_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  substeps_contacts_kernel<<<1, NTHREADS, smem, (cudaStream_t)stream>>>(p);
+  const size_t smem = smem_words(sb, B / sb, staged) * 4;
+  int blocks = 0;
+  err = grid_for(substeps_contacts_kernel, NTHREADS, smem, grid_cache, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel((const void*)substeps_contacts_kernel, dim3(blocks),
+                                    dim3(NTHREADS), args, smem, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

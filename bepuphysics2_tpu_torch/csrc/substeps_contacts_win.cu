@@ -18,8 +18,10 @@
 //
 // Design: one persistent grid of every block the card can hold at once (occupancy x SMs),
 // launched with cudaLaunchCooperativeKernel, phases separated by grid barriers
-// (cooperative_groups::this_grid().sync()). The depth update and the body block are
-// grid-stride loops. The slice walk goes in WAVES (solver/solve.py wave_table): a wave
+// (cooperative_groups::this_grid().sync()); each block's plan, the staging, the sums and
+// the grid's size are waves.cuh's, shared with K1 and K4, and the row is contact_rows.cuh
+// body_row, shared with K1. The depth update and the body block are grid-stride loops.
+// The slice walk goes in WAVES (solver/solve.py wave_table): a wave
 // is a maximal run of consecutive live slices of one color c < C in the narrow region,
 // and the blocks take its slices round-robin (slice k of the wave to block k mod
 // gridDim.x), one grid barrier after the wave. Every other live slice (the narrow Jacobi
@@ -69,12 +71,8 @@
 //                   slices in ascending order
 // ps_t, whi2, wlo2, scale, order and wseg must be 16-byte aligned, sb a multiple of 4.
 
-#include <cooperative_groups.h>
-#include <cuda_pipeline.h>
-
 #include "contact_rows.cuh"
-
-namespace cg = cooperative_groups;
+#include "waves.cuh"
 
 namespace {
 
@@ -93,18 +91,16 @@ struct WinParams {
 // Shared memory, in 4-byte words, for slices of sb rows (2 sb row sides) and a table of
 // n slices: two stages of [prestep 32 sb | whi2 | wlo2 | scale | order (2 sb each) |
 // window 4], then the deltas D and velocities V (2 sb x 6 each), the positions and the
-// still flags (2 sb each), and this block's jobs: its slices of one pass (n), the count
-// of them in each segment (n + 1), the wave table (n + 1 starts, n live slices), and
-// the segment and job counts.
+// write flags (2 sb each), and this block's plan (waves.cuh).
 __host__ __device__ constexpr size_t stage_words(int sb) { return (size_t)40 * sb + 4; }
 __host__ __device__ constexpr size_t smem_words(int sb, int n) {
-  return 2 * stage_words(sb) + (size_t)28 * sb + (size_t)4 * n + 4;
+  return 2 * stage_words(sb) + (size_t)28 * sb + plan_words(n);
 }
 
 struct Smem {
   float* stage[2];
-  float* D; float* V; int* pos; int* still;
-  int* jobs; int* segn; int* ptr; int* live; int* counts;
+  float* D; float* V; int* pos; int* wr;
+  Plan plan;
 };
 
 __device__ Smem carve(float* smem, int sb, int n) {
@@ -114,12 +110,8 @@ __device__ Smem carve(float* smem, int sb, int n) {
   m.D = m.stage[1] + stage_words(sb);
   m.V = m.D + (size_t)12 * sb;
   m.pos = reinterpret_cast<int*>(m.V + (size_t)12 * sb);
-  m.still = m.pos + 2 * sb;
-  m.jobs = m.still + 2 * sb;
-  m.segn = m.jobs + n;
-  m.ptr = m.segn + n + 1;
-  m.live = m.ptr + n + 1;
-  m.counts = m.live + n;
+  m.wr = m.pos + 2 * sb;
+  m.plan = carve_plan(m.wr + 2 * sb, n);
   return m;
 }
 
@@ -135,84 +127,20 @@ __device__ __forceinline__ int win_pos(const WinParams& p, int sl, size_t e) {
 
 // Copy slice sl's state-independent inputs into a stage, 16 bytes per copy.
 __device__ void stage_slice(const WinParams& p, float* st, int sl) {
-  const int sb = p.sb, v4 = sb / 4, e4 = sb / 2;
+  const int sb = p.sb;
   const size_t e0 = (size_t)sl * 2 * sb;
-  for (int k = threadIdx.x; k < PS_ROWS * v4; k += blockDim.x) {
-    const int c = k / v4, j = 4 * (k - c * v4);
-    __pipeline_memcpy_async(st + (size_t)c * sb + j, p.ps + (size_t)c * p.B + (size_t)sl * sb + j,
-                            16);
-  }
+  stage_rows(st, p.ps + (size_t)sl * sb, p.B, PS_ROWS, sb);
   float* ent = st + (size_t)PS_ROWS * sb;
-  for (int k = threadIdx.x; k < 4 * e4; k += blockDim.x) {
-    const int a = k / e4, j = 4 * (k - a * e4);
-    const void* src = a == 0 ? (const void*)(p.whi2 + e0 + j)
-                    : a == 1 ? (const void*)(p.wlo2 + e0 + j)
-                    : a == 2 ? (const void*)(p.scale + e0 + j)
-                             : (const void*)(p.order + e0 + j);
-    __pipeline_memcpy_async(ent + (size_t)a * 2 * sb + j, src, 16);
-  }
+  stage_arrays(ent, 4, 2 * sb, e0, p.whi2, p.wlo2, p.scale, p.order);
   if (threadIdx.x == 0)
     __pipeline_memcpy_async(ent + (size_t)8 * sb, p.wseg + (size_t)sl * WSEG, 16);
   __pipeline_commit();
 }
 
-// One row of a slice pass (ops/sweep.py _slice_pass): slice_row / row_pass of
-// contact_rows.cuh with the prestep read from the stage, the sides' velocities and still
-// flags kept for the sums. Same arithmetic, same order.
-__device__ __forceinline__ void win_row(const WinParams& p, const float* st_ps, int r, int col,
-                                        int ba, int bb, float sa, float sbs, bool solve,
-                                        float* da, float* db, float* va6, float* vb6,
-                                        int* still_a, int* still_b) {
-  // Each side's body row whole, as four 16-byte loads: a warp's scattered rows cost the
-  // L1 one pass per row and load instruction, so 4 wide loads instead of 13 narrow ones
-  // (9.3 -> 7.5 us per slice pass).
-  const float4* ga = reinterpret_cast<const float4*>(p.bg + (size_t)ba * 16);
-  const float4* gb = reinterpret_cast<const float4*>(p.bg + (size_t)bb * 16);
-  const float4 a0 = ga[0], a1 = ga[1], a2 = ga[2], a3 = ga[3];
-  const float4 b0 = gb[0], b1 = gb[1], b2 = gb[2], b3 = gb[3];
-  const float ra[7] = {a2.x, a2.y, a2.z, a2.w, a3.x, a3.y, a3.z};
-  const float rb[7] = {b2.x, b2.y, b2.z, b2.w, b3.x, b3.y, b3.z};
-  F3 va_l = f3(a0.x, a0.y, a0.z), va_a = f3(a0.w, a1.x, a1.y);
-  F3 vb_l = f3(b0.x, b0.y, b0.z), vb_a = f3(b0.w, b1.x, b1.y);
-  Row row;
-  load_row(st_ps, p.sb, r, row);
-  float dep[4], im[IMP_ROWS];
-  for (int k = 0; k < 4; ++k) dep[k] = p.imp[(size_t)(IMP_ROWS + k) * p.B + col];
-  for (int k = 0; k < IMP_ROWS; ++k) im[k] = p.imp[(size_t)k * p.B + col];
-
-  bool za = true, zb = true;
-  for (int k = 0; k < 7; ++k) {
-    za = za && ra[k] == 0.0f;
-    zb = zb && rb[k] == 0.0f;
-  }
-  *still_a = za;
-  *still_b = zb;
-  va6[0] = va_l.x; va6[1] = va_l.y; va6[2] = va_l.z;
-  va6[3] = va_a.x; va6[4] = va_a.y; va6[5] = va_a.z;
-  vb6[0] = vb_l.x; vb6[1] = vb_l.y; vb6[2] = vb_l.z;
-  vb6[3] = vb_a.x; vb6[4] = vb_a.y; vb6[5] = vb_a.z;
-
-  const float ia_im = ra[0] * sa, ib_im = rb[0] * sbs;
-  const S3 ia_ii = {ra[1] * sa, ra[2] * sa, ra[3] * sa, ra[4] * sa, ra[5] * sa, ra[6] * sa};
-  const S3 ib_ii = {rb[1] * sbs, rb[2] * sbs, rb[3] * sbs, rb[4] * sbs, rb[5] * sbs,
-                    rb[6] * sbs};
-  F3 dva_l, dva_a, dvb_l, dvb_a;
-  if (solve) {
-    solve_contact_rows(row, dep, im, ia_im, ia_ii, ib_im, ib_ii, va_l, va_a, vb_l, vb_a,
-                       p.c.inv_h, dva_l, dva_a, dvb_l, dvb_a);
-    for (int k = 0; k < IMP_ROWS; ++k) p.imp[(size_t)k * p.B + col] = im[k];
-  } else {
-    warm_start_rows(row, dep, im, ia_im, ia_ii, ib_im, ib_ii, dva_l, dva_a, dvb_l, dvb_a);
-  }
-  da[0] = dva_l.x / sa; da[1] = dva_l.y / sa; da[2] = dva_l.z / sa;
-  da[3] = dva_a.x / sa; da[4] = dva_a.y / sa; da[5] = dva_a.z / sa;
-  db[0] = dvb_l.x / sbs; db[1] = dvb_l.y / sbs; db[2] = dvb_l.z / sbs;
-  db[3] = dvb_a.x / sbs; db[4] = dvb_a.y / sbs; db[5] = dvb_a.z / sbs;
-}
-
 // One live slice of warm start (solve = false) or of one velocity iteration, its inputs
-// staged in st: rows, then each position's run summed in the slice's stable sort
-// (contact_rows.cuh sum_deltas' order), seeded with the velocities the rows read.
+// staged in st: rows (contact_rows.cuh body_row, the prestep read from the stage), then
+// each position's run summed in the slice's stable sort, seeded with the velocities the
+// rows read (waves.cuh sum_runs: an entry writes where its body has inertia).
 __device__ void run_slice(const WinParams& p, const Smem& m, const float* st, int sl,
                           bool solve) {
   const int sb = p.sb;
@@ -221,6 +149,7 @@ __device__ void run_slice(const WinParams& p, const Smem& m, const float* st, in
   const float* sc = reinterpret_cast<const float*>(lo + 2 * sb);
   const int* ord = reinterpret_cast<const int*>(sc + 2 * sb);
   const int* seg = ord + 2 * sb;
+  const float* dep = p.imp + (size_t)IMP_ROWS * p.B;
   for (int r = threadIdx.x; r < sb; r += blockDim.x) {
     int ab[2];
     for (int side = 0; side < 2; ++side) {
@@ -229,70 +158,29 @@ __device__ void run_slice(const WinParams& p, const Smem& m, const float* st, in
       ab[side] = max(seg[rel >> 10], 0) * 8 + (rel & (BLK - 1));
       m.pos[e] = ab[side];
     }
-    win_row(p, st, r, sl * sb + r, ab[0], ab[1], sc[r], sc[sb + r], solve, m.D + (size_t)r * 6,
-            m.D + (size_t)(sb + r) * 6, m.V + (size_t)r * 6, m.V + (size_t)(sb + r) * 6,
-            m.still + r, m.still + sb + r);
+    bool still_a, still_b;
+    body_row(p.bg, st, sb, r, p.imp, dep, p.B, sl * sb + r, ab[0], ab[1], sc[r], sc[sb + r],
+             solve, p.c.inv_h, m.D + (size_t)r * 6, m.D + (size_t)(sb + r) * 6,
+             m.V + (size_t)r * 6, m.V + (size_t)(sb + r) * 6, &still_a, &still_b);
+    m.wr[r] = !still_a;
+    m.wr[sb + r] = !still_b;
   }
   __syncthreads();
-  for (int q = threadIdx.x; q < 2 * sb; q += blockDim.x) {
-    const int b = m.pos[ord[q]];
-    if (q > 0 && m.pos[ord[q - 1]] == b) continue;
-    if (m.still[ord[q]]) continue;
-    float acc[6];
-    const float* v0 = m.V + (size_t)ord[q] * 6;
-    for (int c = 0; c < 6; ++c) acc[c] = v0[c];
-    for (int q2 = q; q2 < 2 * sb && m.pos[ord[q2]] == b; ++q2) {
-      const float* d = m.D + (size_t)ord[q2] * 6;
-      for (int c = 0; c < 6; ++c) acc[c] += d[c];
-    }
-    float* g = p.bg + (size_t)b * 16;  // 16-byte aligned rows: two wide stores
-    *reinterpret_cast<float4*>(g) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    *reinterpret_cast<float2*>(g + 4) = make_float2(acc[4], acc[5]);
-  }
-}
-
-// This block's jobs for one pass, from the wave table: per segment (a wave of several
-// slices, or a run of one-slice waves), the slices it runs.
-__device__ void plan(const WinParams& p, const Smem& m) {
-  const int n = p.n_slices;
-  for (int i = threadIdx.x; i < n + 1; i += blockDim.x) m.ptr[i] = p.waves[1 + i];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) m.live[i] = p.waves[n + 2 + i];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int W = p.waves[0];
-    int w = 0, g = 0, j = 0;
-    while (w < W) {
-      const int a = m.ptr[w], b = m.ptr[w + 1];
-      const int before = j;
-      if (b - a == 1) {  // a run of one-slice waves: block 0, in order
-        int w2 = w;
-        while (w2 < W && m.ptr[w2 + 1] - m.ptr[w2] == 1) ++w2;
-        if (blockIdx.x == 0)
-          for (int i = a; i < m.ptr[w2]; ++i) m.jobs[j++] = m.live[i];
-        w = w2;
-      } else {  // one color's wave: round-robin over the blocks
-        for (int k = blockIdx.x; k < b - a; k += gridDim.x) m.jobs[j++] = m.live[a + k];
-        ++w;
-      }
-      m.segn[g++] = j - before;
-    }
-    m.counts[0] = g;
-    m.counts[1] = j;
-  }
-  __syncthreads();
+  sum_runs(p.bg, 16, m.pos, ord, m.D, m.V, m.wr, 2 * sb);
 }
 
 __global__ void __launch_bounds__(NTHREADS, 1) substeps_contacts_win_kernel(WinParams p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const Smem m = carve(smem, p.sb, p.n_slices);
-  plan(p, m);
-  const int nseg = m.counts[0], njobs = m.counts[1];
+  plan(p.waves, p.n_slices, m.plan, false);
+  const int nseg = m.plan.counts[0], njobs = m.plan.counts[1];
+  const int* jobs = m.plan.jobs;
   const int sb = p.sb;
   const int gtid = blockIdx.x * blockDim.x + threadIdx.x, gstride = gridDim.x * blockDim.x;
   float* dep = p.imp + (size_t)IMP_ROWS * p.B;
   int buf = 0;
-  if (njobs > 0) stage_slice(p, m.stage[0], m.jobs[0]);
+  if (njobs > 0) stage_slice(p, m.stage[0], jobs[0]);
   for (int s = 0; s < p.n_substeps; ++s) {
     // Phase 0: incremental depth update for substeps after the first; it reads the
     // velocities only, so every live slice's rows run at once.
@@ -315,11 +203,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) substeps_contacts_win_kernel(WinP
     for (int pass = 0; pass <= p.n_iters; ++pass) {
       int j = 0;
       for (int g = 0; g < nseg; ++g) {
-        for (int t = 0; t < m.segn[g]; ++t, ++j) {
+        for (int t = 0; t < m.plan.segn[g]; ++t, ++j) {
           __pipeline_wait_prior(0);
           __syncthreads();  // this stage landed; the previous slice is done with the other
-          stage_slice(p, m.stage[buf ^ 1], m.jobs[j + 1 < njobs ? j + 1 : 0]);
-          run_slice(p, m, m.stage[buf], m.jobs[j], pass > 0);
+          stage_slice(p, m.stage[buf ^ 1], jobs[j + 1 < njobs ? j + 1 : 0]);
+          run_slice(p, m, m.stage[buf], jobs[j], pass > 0);
           buf ^= 1;
         }
         grid.sync();
@@ -329,39 +217,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) substeps_contacts_win_kernel(WinP
   __pipeline_wait_prior(0);
 }
 
-struct GridInfo {
-  size_t smem = 0;
-  int blocks = 0;
-};
-
-// Blocks of the cooperative grid at this shared memory: co-resident blocks per SM (the
-// occupancy calculator, after raising the kernel's dynamic shared-memory limit) times
-// the SMs. Cached per shared-memory size.
-cudaError_t grid_for(size_t smem, int* blocks) {
-  static GridInfo cached;
-  if (cached.smem == smem && cached.blocks > 0) {
-    *blocks = cached.blocks;
-    return cudaSuccess;
-  }
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(substeps_contacts_win_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, substeps_contacts_win_kernel,
-                                                        NTHREADS, smem);
-  if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
-  if (err != cudaSuccess) return err;
-  cached.smem = smem;
-  cached.blocks = per_sm * sms;
-  *blocks = cached.blocks;
-  return cudaSuccess;
-}
+size_t grid_cache[2] = {0, 0};
 
 }  // namespace
 
@@ -369,7 +225,8 @@ cudaError_t grid_for(size_t smem, int* blocks) {
 // error that keeps it from being co-scheduled.
 extern "C" int substeps_contacts_win_grid(int sb, int n_slices) {
   int blocks = 0;
-  const cudaError_t err = grid_for(smem_words(sb, n_slices) * 4, &blocks);
+  const cudaError_t err = grid_for(substeps_contacts_win_kernel, NTHREADS,
+                                   smem_words(sb, n_slices) * 4, grid_cache, &blocks);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
@@ -385,7 +242,8 @@ extern "C" int substeps_contacts_win_launch(
               {angular_mode, gx, gy, gz, h, inv_h, lin_scale, ang_scale}};
   const size_t smem = smem_words(sb, B / sb) * 4;
   int blocks = 0;
-  cudaError_t err = grid_for(smem, &blocks);
+  cudaError_t err = grid_for(substeps_contacts_win_kernel, NTHREADS, smem, grid_cache,
+                             &blocks);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};
   err = cudaLaunchCooperativeKernel((const void*)substeps_contacts_win_kernel, dim3(blocks),

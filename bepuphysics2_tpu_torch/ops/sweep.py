@@ -37,10 +37,10 @@ from . import build
 
 # Argument types of the kernels' C entry points (pointers and the stream as c_void_p).
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_K1_ARGS = [_P] * 10 + [_I] * 6 + [_F] * 7 + [_P]
+_K1_ARGS = [_P] * 11 + [_I] * 6 + [_F] * 7 + [_P]
 _K2_ARGS = [_P] * 11 + [_I] * 6 + [_F] * 7 + [_P]
 _K3_ARGS = [_P] * 7 + [_I] * 3 + [_F, _P]
-_K4_ARGS = [_P] * 9 + [_I] * 3 + [_F, _P]
+_K4_ARGS = [_P] * 10 + [_I] * 3 + [_F, _P]
 
 # --- packed contact prestep rows (component-major, (PS_ROWS, B)) -----------------------
 PS_N = 0  # 0-2 normal xyz
@@ -291,13 +291,15 @@ def _vel_of(rows):
                    Vec3(rows[:, 3], rows[:, 4], rows[:, 5]))
 
 
-def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h, it_t=None, dst=None):
+def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h, it_t=None, dst=None,
+                writes=None):
     """One slice of a plain walk, warm start (``solve`` False) or one velocity iteration:
     gather both sides from V (NB, 6) and W (NB, 7: inverse mass, world inverse inertia),
     compute every row, then ``index_add_`` the deltas divided by the side's scale into
-    ``dst`` (V when None). ``idx`` and ``sc`` are (n_slices, 2 * sb); ``imp`` (8, B) is
-    updated in place. With ``it_t`` (IT_ROWS, B) each row streams both sides' inertia,
-    already mass-split, and W is unused."""
+    ``dst`` (V when None); with ``writes`` ((n_slices, 2 * sb) bool), only the entries it
+    marks. ``idx`` and ``sc`` are (n_slices, 2 * sb); ``imp`` (8, B) is updated in place.
+    With ``it_t`` (IT_ROWS, B) each row streams both sides' inertia, already mass-split,
+    and W is unused."""
     cols = slice(sl * sb, (sl + 1) * sb)
     ia, ib = idx[sl, :sb], idx[sl, sb:]
     if it_t is None:
@@ -317,7 +319,8 @@ def _slice_pass(V, W, ps_t, imp, dep, idx, sc, sl, sb, solve, inv_h, it_t=None, 
         dva, dvb = _warm_start_rows(ps, dep[:, cols], imp[:, cols], ia_im, ia_ii, ib_im, ib_ii)
     d = torch.cat([torch.stack([*dva[0], *dva[1]], -1),
                    torch.stack([*dvb[0], *dvb[1]], -1)]) / sc[sl][:, None]
-    (V if dst is None else dst).index_add_(0, idx[sl], d)
+    keep = slice(None) if writes is None else writes[sl]
+    (V if dst is None else dst).index_add_(0, idx[sl][keep], d[keep])
 
 
 def _walk_plain(v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask, ps_t, imp,
@@ -415,9 +418,61 @@ def _step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale):
             float(inv_h), float(lin_scale), float(ang_scale)]
 
 
+def writer_order(pos, writes):
+    """(n_slices, 2 * sb) int32 order in which K1 and K4 sum a slice's deltas: each
+    slice's entries (row sides) stably sorted by position, with the writing entries
+    (``writes``, bool of the same shape) before all the others. Every run of one position
+    among the writing entries then starts with a writing entry, and the kernels skip the
+    runs that do not (waves.cuh sum_runs)."""
+    key = pos.long() + torch.where(writes, 0, 1 << 40)
+    return torch.sort(key, dim=1, stable=True).indices.to(torch.int32).contiguous()
+
+
+def body_still(inv_mass, local_inv_inertia):
+    """(n,) bool: the body takes no delta (zero inverse mass and inertia: static,
+    kinematic), as K1 finds it from the world inertia of its body rows."""
+    still = inv_mass == 0
+    for c in local_inv_inertia:
+        still = still & (c == 0)
+    return still
+
+
+def row_valid(ps_t, sb: int):
+    """(n_slices, 2 * sb) bool: each entry's row is valid (``PS_VALID``), A sides then B
+    sides per slice."""
+    v = (ps_t[PS_VALID] > 0.5).reshape(-1, sb)
+    return torch.cat([v, v], 1)
+
+
+def _check_waves(name, waves, n_slices, dev):
+    if waves is None:
+        raise ValueError(f"the card's {name} needs the wave table: pass waves= "
+                         "(ops.sweep.waves_by_key)")
+    _check("waves", waves, (2 * n_slices + 2,), torch.int32, dev)
+
+
+# What the cooperative kernels return when their shared memory (for slices of sb rows and
+# a wave table of n slices) exceeds what one block may use (cudaErrorLaunchOutOfResources).
+_SMEM_TOO_LARGE = 701
+
+
+def _launch_failed(name, err, sb, n_slices):
+    if err == _SMEM_TOO_LARGE:
+        return ValueError(f"{name}: slices of {sb} rows and a wave table of {n_slices} slices "
+                          "need more shared memory than one block of this card may use")
+    return RuntimeError(f"{name} cooperative launch failed: CUDA error {err}")
+
+
+def _check_aligned(name, **tensors):
+    for label, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{label} is not 16-byte aligned: {name} copies it in 16-byte "
+                             "pieces")
+
+
 def _launch_kernel(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask, ps_t, imp_t, idx2,
                    scale, h, inv_h, lin_scale, ang_scale, sb, n_substeps, n_iters,
-                   angular_mode, gravity):
+                   angular_mode, gravity, waves):
     fn = build.bind("substeps_contacts", "substeps_contacts_launch", _K1_ARGS)
     nb = v6.shape[0]
     B = ps_t.shape[1]
@@ -426,18 +481,17 @@ def _launch_kernel(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask, ps_t, imp
     bg, pose, aux = _pack_bodies(v6, pos, orn, inv_mass, lii, grav_mask, integ_mask)
     imp = imp_t.clone()
     dep = torch.empty((4, B), dtype=torch.float32, device=dev)
-    idx = idx2.to(torch.int32).contiguous()
-    sc = scale.to(torch.float32).contiguous()
-    order = torch.sort(idx.view(n_slices, 2 * sb), dim=1, stable=True).indices
-    order = order.to(torch.int32).contiguous()
+    idx = idx2.view(n_slices, 2 * sb)
+    writes = row_valid(ps_t, sb) & ~body_still(inv_mass, lii)[idx.long()]
+    order = writer_order(idx, writes)
     slive = (ps_t[PS_VALID].view(n_slices, sb) > 0.5).any(dim=1).to(torch.int32)
     err = fn(bg.data_ptr(), pose.data_ptr(), aux.data_ptr(), ps_t.data_ptr(), imp.data_ptr(),
-             dep.data_ptr(), idx.data_ptr(), sc.data_ptr(), order.data_ptr(), slive.data_ptr(),
-             nb, B, sb, n_substeps, n_iters,
+             dep.data_ptr(), idx2.data_ptr(), scale.data_ptr(), order.data_ptr(),
+             slive.data_ptr(), waves.data_ptr(), nb, B, sb, n_substeps, n_iters,
              *_step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale),
              build.raw_stream(dev))
     if err != 0:
-        raise RuntimeError(f"substeps_contacts kernel launch failed: CUDA error {err}")
+        raise _launch_failed("substeps_contacts", err, sb, n_slices)
     solve_substeps_contacts.launches += 1
     return (*_unpack_bodies(bg, pose), imp)
 
@@ -460,11 +514,14 @@ def solve_substeps_contacts(
     n_iters: int,
     angular_mode: int,
     gravity: tuple,
+    waves=None,  # (2 * n_slices + 2,) int32 wave table (waves_by_key)
 ):
     """Run the ENTIRE substepped contact solve. Returns (v6', pos', orn', imp_t').
 
-    CUDA tensors go through the CUDA kernel (one launch, counted in
-    ``solve_substeps_contacts.launches``); CPU tensors through the plain version."""
+    CUDA tensors go through the CUDA kernel (one cooperative launch over the card,
+    counted in ``solve_substeps_contacts.launches``), which needs ``waves`` and runs each
+    wave's slices at once; CPU tensors through the plain version, which walks the live
+    slices in order and ignores ``waves``."""
     dev = v6.device
     B = ps_t.shape[1]
     nb = v6.shape[0]
@@ -479,7 +536,9 @@ def solve_substeps_contacts(
     args = (v6, pos, orn, inv_mass, local_inv_inertia, grav_mask, integ_mask, ps_t, imp_t,
             idx2, scale, h, inv_h, lin_scale, ang_scale)
     if dev.type == "cuda":
-        return _launch_kernel(*args, sb, n_substeps, n_iters, angular_mode, gravity)
+        _check_waves("K1", waves, B // sb, dev)
+        _check_aligned("K1", ps_t=ps_t, idx2=idx2, scale=scale)
+        return _launch_kernel(*args, sb, n_substeps, n_iters, angular_mode, gravity, waves)
     if dev.type != "cpu":
         raise ValueError(f"solve_substeps_contacts runs on cuda or cpu, not {dev.type}")
     return _solve_substeps_contacts_plain(
@@ -631,7 +690,7 @@ def window_positions(whi2, wlo2, wseg, sb: int):
 
 def window_order(whi2, wlo2, wseg, sb: int):
     """(n_slices, 2 * sb) int32 stable sort of each slice's layout positions: the order in
-    which K2 and K4 sum each position's deltas within a slice."""
+    which K2 sums each position's deltas within a slice (K4 sums in ``writer_order``)."""
     order = torch.sort(window_positions(whi2, wlo2, wseg, sb), dim=1, stable=True).indices
     return order.to(torch.int32).contiguous()
 
@@ -653,22 +712,61 @@ def _solve_substeps_contacts_win_plain(v6p, pos_p, orn_p, inv_mass_p, local_inv_
     return V, pos, orn, imp
 
 
+def waves_by_key(key, live):
+    """The wave table of K1, K2 and K4 (``csrc/waves.cuh``), int32 of shape (2 * n + 2,)
+    for n slices, by tensor ops alone (no host sync): element 0 is the number of waves W;
+    elements 1 to n + 1 are each wave's first index into the live list, then the live
+    count repeated; the rest is the live list, every live slice in ascending order, then
+    -1. A wave is a maximal run of consecutive live slices of one key; a slice whose key
+    is negative is a wave of its own. The caller gives a slice the key of its color c < C
+    (offset per bank where several banks share a launch) when that color's slices touch
+    pairwise distinct dynamic bodies, and -1 otherwise (Jacobi and wide slices)."""
+    n = key.shape[0]
+    dev = key.device
+    sl = torch.arange(n, device=dev)
+    key = torch.where(key >= 0, key.long(), -1 - sl)  # one key per uncolored slice
+    order = torch.argsort((~live).to(torch.int32), stable=True)  # live slices first, in order
+    n_live = live.sum()
+    in_live = sl < n_live
+    key_o = key[order]
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), key_o[1:] != key_o[:-1]])
+    start = in_live & first
+    wave = torch.cumsum(start.long(), 0) - 1
+    ptr = n_live.expand(n + 2).clone()  # slot n + 1 is a sink for the slices that start none
+    ptr.scatter_(0, torch.where(start, wave, n + 1), sl)
+    return torch.cat([start.sum().view(1), ptr[:n + 1],
+                      torch.where(in_live, order, -1)]).to(torch.int32)
+
+
 def wave_lists(waves):
-    """The waves of a K2 wave table (``solver.solve.wave_table``) as lists of slice
-    indices, in walk order (reads the table to the host)."""
+    """The waves of a wave table (``waves_by_key``) as lists of slice indices, in walk
+    order (reads the table to the host)."""
     w = waves.tolist()
     n_slices = (len(w) - 2) // 2
     ptr, live = w[1:n_slices + 2], w[n_slices + 2:]
     return [live[ptr[k]:ptr[k + 1]] for k in range(w[0])]
 
 
-def k2_grid(sb: int, n_slices: int) -> int:
-    """Blocks of K2's cooperative grid on the current card: the co-resident blocks per SM
-    at K2's shared memory for ``n_slices`` slices of ``sb`` rows, times the SMs."""
-    fn = build.bind("substeps_contacts_win", "substeps_contacts_win_grid", [_I, _I])
+def wave_shape(waves):
+    """(waves, color waves' sizes, tail slices, grid barriers) of one pass over a wave
+    table: a wave of several slices is a color wave dealt over the grid, every other
+    wave a tail slice walked in order on one block; each color wave and each run of tail
+    slices ends at one grid barrier."""
+    sizes = [len(w) for w in wave_lists(waves)]
+    color = [k for k in sizes if k > 1]
+    barriers = len(color) + sum(1 for i, k in enumerate(sizes)
+                                if k == 1 and (i == 0 or sizes[i - 1] > 1))
+    return len(sizes), color, len(sizes) - len(color), barriers
+
+
+def wave_grid(name: str, sb: int, n_slices: int) -> int:
+    """Blocks of a cooperative kernel's grid on the current card (``name`` the source of
+    K1, K2 or K4): the co-resident blocks per SM at its shared memory for ``n_slices``
+    slices of ``sb`` rows, times the SMs."""
+    fn = build.bind(name, f"{name}_grid", [_I, _I])
     grid = fn(sb, n_slices)
     if grid <= 0:
-        raise RuntimeError(f"K2 cannot be co-scheduled on this card: CUDA error {-grid}")
+        raise RuntimeError(f"{name} cannot be co-scheduled on this card: CUDA error {-grid}")
     return grid
 
 
@@ -686,7 +784,7 @@ def _launch_win_kernel(v6p, pos_p, orn_p, inv_mass_p, lii_p, grav_mask_p, integ_
              n_iters, *_step_consts(angular_mode, gravity, h, inv_h, lin_scale, ang_scale),
              build.raw_stream(v6p.device))
     if err != 0:
-        raise RuntimeError(f"substeps_contacts_win cooperative launch failed: CUDA error {err}")
+        raise _launch_failed("substeps_contacts_win", err, sb, ps_t.shape[1] // sb)
     solve_substeps_contacts_win.launches += 1
     return (*_unpack_bodies(bg, pose), imp)
 
@@ -738,15 +836,8 @@ def solve_substeps_contacts_win(
     args = (v6p, pos_p, orn_p, inv_mass_p, local_inv_inertia_p, grav_mask_p, integ_mask_p,
             ps_t, imp_t, whi2, wlo2, scale, wseg, h, inv_h, lin_scale, ang_scale)
     if dev.type == "cuda":
-        if waves is None:
-            raise ValueError("the card's K2 needs the wave table: pass waves= "
-                             "(solver.solve.win_pack's 'waves')")
-        _check("waves", waves, (2 * (B // sb) + 2,), torch.int32, dev)
-        for name, t in (("ps_t", ps_t), ("whi2", whi2), ("wlo2", wlo2), ("scale", scale),
-                        ("wseg", wseg)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name} is not 16-byte aligned: K2 copies it in 16-byte "
-                                 "pieces")
+        _check_waves("K2", waves, B // sb, dev)
+        _check_aligned("K2", ps_t=ps_t, whi2=whi2, wlo2=wlo2, scale=scale, wseg=wseg)
         return _launch_win_kernel(*args, sb, n_substeps, n_iters, angular_mode, gravity, waves)
     if dev.type != "cpu":
         raise ValueError(f"solve_substeps_contacts_win runs on cuda or cpu, not {dev.type}")
@@ -790,18 +881,27 @@ def _contact_sweep_win_plain(v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg, in
     return V, imp
 
 
+def stream_writes(ps_t, it_t, sb: int):
+    """(n_slices, 2 * sb) bool: the entries (row sides) K4 writes: a valid row's side
+    whose streamed inertia is not all zero."""
+    nz = lambda rows: (rows != 0).any(0).reshape(-1, sb)
+    return row_valid(ps_t, sb) & torch.cat([nz(it_t[0:7]), nz(it_t[8:15])], 1)
+
+
 def _launch_sweep_win_kernel(v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg, inv_h, sb,
-                             n_iters, order):
+                             n_iters, order, waves):
     fn = build.bind("contact_sweep_win", "contact_sweep_win_launch", _K4_ARGS)
-    bg = torch.nn.functional.pad(v6p, (0, 10))
+    bg = torch.nn.functional.pad(v6p, (0, 2))
     imp = imp_t.clone()
     if order is None:
-        order = window_order(whi2, wlo2, wseg, sb)
+        order = writer_order(window_positions(whi2, wlo2, wseg, sb),
+                             stream_writes(ps_t, it_t, sb))
     err = fn(bg.data_ptr(), it_t.data_ptr(), ps_t.data_ptr(), imp.data_ptr(), whi2.data_ptr(),
              wlo2.data_ptr(), scale.data_ptr(), wseg.data_ptr(), order.data_ptr(),
-             ps_t.shape[1], sb, n_iters, float(inv_h), build.raw_stream(v6p.device))
+             waves.data_ptr(), ps_t.shape[1], sb, n_iters, float(inv_h),
+             build.raw_stream(v6p.device))
     if err != 0:
-        raise RuntimeError(f"contact_sweep_win kernel launch failed: CUDA error {err}")
+        raise _launch_failed("contact_sweep_win", err, sb, ps_t.shape[1] // sb)
     contact_sweep_win.launches += 1
     return bg[:, :6].contiguous(), imp
 
@@ -819,14 +919,17 @@ def contact_sweep_win(
     *,
     sb: int,
     n_iters: int,
-    order=None,  # window_order(whi2, wlo2, wseg, sb), when the caller keeps it across launches
+    order=None,  # writer_order of the positions and stream_writes, kept across launches
+    waves=None,  # (2 * n_slices + 2,) int32 wave table (solver.solve.wave_table)
 ):
     """The windowed variant of ``contact_sweep``: ``n_iters`` Gauss-Seidel sweeps over the
     slices of one bank in the layout of ``solver/windowing.py`` within one substep, depths
     from the prestep rows. Returns layout-order (v6p', imp_t').
 
-    CUDA tensors go through the CUDA kernel (one launch, counted in
-    ``contact_sweep_win.launches``); CPU tensors through the plain version."""
+    CUDA tensors go through the CUDA kernel (one cooperative launch over the card,
+    counted in ``contact_sweep_win.launches``), which needs ``waves`` and runs each wave's
+    slices at once; CPU tensors through the plain version, which walks the live slices in
+    order and ignores ``waves`` and ``order``."""
     dev = v6p.device
     B = ps_t.shape[1]
     if sb <= 0 or B % sb:
@@ -844,7 +947,10 @@ def contact_sweep_win(
         _check("order", order, (B // sb, 2 * sb), torch.int32, dev)
     args = (v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg, inv_h)
     if dev.type == "cuda":
-        return _launch_sweep_win_kernel(*args, sb, n_iters, order)
+        _check_waves("K4", waves, B // sb, dev)
+        _check_aligned("K4", it_t=it_t, ps_t=ps_t, whi2=whi2, wlo2=wlo2, scale=scale, wseg=wseg,
+                       **({} if order is None else {"order": order}))
+        return _launch_sweep_win_kernel(*args, sb, n_iters, order, waves)
     if dev.type != "cpu":
         raise ValueError(f"contact_sweep_win runs on cuda or cpu, not {dev.type}")
     return _contact_sweep_win_plain(*args, sb=sb, n_iters=n_iters)
@@ -854,12 +960,19 @@ contact_sweep_win.launches = 0
 
 
 def synthetic_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: int,
-                   dt: float = 1.0 / 60.0, substeps: int = 4):
+                   dt: float = 1.0 / 60.0, substeps: int = 4, slices_per_color=None):
     """A seeded K1 input with the structure the solver hands it, as numpy arrays: body 0
     is a static ground, colored slices touch each dynamic body at most once (statics may
     repeat), the trailing Jacobi slices share bodies and carry each side's mass-split
     valence as its scale, and partly filled slices end in padding rows (valid 0, scale
-    1). Used to hold the kernel against its plain version and the JAX kernel."""
+    1). Used to hold the kernel against its plain version and the JAX kernel.
+
+    By default every colored slice is a color of its own (a fresh permutation of the
+    bodies each), so consecutive colored slices share bodies. With ``slices_per_color``
+    (a list of slice counts summing to ``n_colored``) each color draws one permutation and
+    splits it over its slices, as a page stream of that many pages per color: the slices
+    of one color touch pairwise distinct dynamic bodies. ``waves`` is K1's wave table
+    (``waves_by_key``) over either structure."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     n_slices = n_colored + n_jacobi
@@ -885,13 +998,21 @@ def synthetic_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: int,
     a = np.zeros((n_slices, sb), np.int64)
     b = np.zeros((n_slices, sb), np.int64)
     valid = np.zeros((n_slices, sb), bool)
-    for s in range(n_colored):
+    counts = [1] * n_colored if slices_per_color is None else list(slices_per_color)
+    if sum(counts) != n_colored:
+        raise ValueError(f"slices_per_color {counts} does not sum to {n_colored}")
+    key = np.full(n_slices, -1, np.int64)
+    s = 0
+    for color, k in enumerate(counts):
         perm = rng.permutation(dyn)
-        n_pair = min(sb // 2, len(perm) // 4)
-        n_ground = min(sb - n_pair, len(perm) - 2 * n_pair)
-        a[s, :n_pair], b[s, :n_pair] = perm[:n_pair], perm[n_pair:2 * n_pair]
-        a[s, n_pair:n_pair + n_ground] = perm[2 * n_pair:2 * n_pair + n_ground]
-        valid[s, :n_pair + n_ground] = True
+        for part in np.array_split(perm, k):
+            n_pair = min(sb // 2, len(part) // 4)
+            n_ground = min(sb - n_pair, len(part) - 2 * n_pair)
+            a[s, :n_pair], b[s, :n_pair] = part[:n_pair], part[n_pair:2 * n_pair]
+            a[s, n_pair:n_pair + n_ground] = part[2 * n_pair:2 * n_pair + n_ground]
+            valid[s, :n_pair + n_ground] = True
+            key[s] = color
+            s += 1
     hot = rng.choice(dyn, size=max(2, len(dyn) // 3), replace=False)
     for s in range(n_colored, n_slices):
         n_rows = sb // 2
@@ -935,11 +1056,13 @@ def synthetic_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: int,
 
     slice_major = lambda xa, xb: np.concatenate(
         [xa.reshape(n_slices, sb), xb.reshape(n_slices, sb)], 1).reshape(-1)
+    live = torch.from_numpy(valid.reshape(n_slices, sb).any(1))
     return dict(
         v6=v6, pos=pos, orn=orn, inv_mass=inv_mass, local_inv_inertia=lii,
         grav_mask=grav, integ_mask=integ, ps_t=ps, imp_t=imp,
         idx2=slice_major(a, b).astype(np.int32), scale=slice_major(sa, sbs),
         h=float(h), inv_h=float(f32(substeps) / f32(dt)), sb=sb, n_substeps=substeps,
+        waves=waves_by_key(torch.from_numpy(key), live).numpy(),
     )
 
 

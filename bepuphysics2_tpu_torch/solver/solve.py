@@ -88,36 +88,40 @@ def _wide_counts(wide_row, body_a, body_b, n_bodies: int, wide_cap: int):
 
 
 def wave_table(wseg, gid, n_narrow: int, nblk: int, num_colors: int):
-    """K2's wave table, int32 of shape (2 * n_slices + 2,), from ``row_windows``' ``wseg``
-    and ``gid``, by tensor ops alone (no host sync): element 0 is the number of waves
-    W; elements 1 to n_slices + 1 are each wave's first index into the live list, then
-    the live count repeated; the rest is the live list, every live slice
-    (``wseg[:, 0] >= 0``) in ascending order, then -1.
-
-    A wave is a maximal run of consecutive live slices of one color c < C in the narrow
-    region (the first ``n_narrow`` slices; a slice's color is ``gid // nblk``). The pair
-    store's color claims make each such color an independent set over dynamic bodies,
-    so a wave's slices touch pairwise distinct dynamic bodies and K2 runs them at once
-    with the walk's result. Every other live slice (narrow Jacobi color C, wide) shares
-    bodies with its neighbours and is a wave of its own."""
+    """The wave table of K2 and K4 (``ops.sweep.waves_by_key``) over a windowed bank, from
+    ``row_windows``' ``wseg`` and ``gid``, by tensor ops alone (no host sync). A slice of
+    the narrow region (the first ``n_narrow`` slices) keys its color ``gid // nblk`` when
+    that is below C; every other live slice (narrow Jacobi color C, wide) is a wave of its
+    own. The pair store's color claims make each color c < C an independent set over
+    dynamic bodies across all Morton blocks, so a wave's slices touch pairwise distinct
+    dynamic bodies and the kernels run them at once with the walk's result."""
     n = wseg.shape[0]
-    dev = wseg.device
-    sl = torch.arange(n, device=dev)
-    live = wseg[:, 0] >= 0
+    sl = torch.arange(n, device=wseg.device)
     color = torch.div(gid, nblk, rounding_mode="floor").long()
     colored = (sl < n_narrow) & (gid >= 0) & (color < num_colors)
-    key = torch.where(colored, color, num_colors + sl)  # one key per uncolored slice
-    order = torch.argsort((~live).to(torch.int32), stable=True)  # live slices first, in order
-    n_live = live.sum()
-    in_live = sl < n_live
-    key_o = key[order]
-    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), key_o[1:] != key_o[:-1]])
-    start = in_live & first
-    wave = torch.cumsum(start.long(), 0) - 1
-    ptr = n_live.expand(n + 2).clone()  # slot n + 1 is a sink for the slices that start none
-    ptr.scatter_(0, torch.where(start, wave, n + 1), sl)
-    return torch.cat([start.sum().view(1), ptr[:n + 1],
-                      torch.where(in_live, order, -1)]).to(torch.int32)
+    return psweep.waves_by_key(torch.where(colored, color, -1), wseg[:, 0] >= 0)
+
+
+def page_wave_table(page_colors, ps_t, page: int, num_colors: int):
+    """K1's wave table over a page stream, by tensor ops alone: ``page_colors`` is a list
+    of each bank's per-slice colors in stream order (the store's ``page_color`` in
+    execution order; a compound bucket's slice k has color k // (cap / page) while that is
+    below C), ``ps_t`` the packed stream (a slice is live when it holds a valid row). A
+    color c < C keys c offset by C per bank, so no wave spans two banks; Jacobi and empty
+    slices are waves of their own."""
+    C = num_colors
+    key = torch.cat([torch.where((c >= 0) & (c < C), c.long() + C * k, -1)
+                     for k, c in enumerate(page_colors)])
+    live = (ps_t[psweep.PS_VALID].reshape(-1, page) > 0.5).any(dim=1)
+    return psweep.waves_by_key(key, live)
+
+
+def bucket_page_colors(cap: int, n_rows: int, page: int, num_colors: int, device):
+    """Per-slice colors of a compound bucket (``buckets.contact_bucket``): each color's
+    capacity ``cap`` is a whole number of pages, so slice k holds color k // (cap / page)
+    while that is below C, and the Jacobi rows after them."""
+    k = torch.arange(n_rows // page, device=device)
+    return torch.div(k, cap // page, rounding_mode="floor").clamp_max(num_colors)
 
 
 def win_pack(pos, kind, body_a, body_b, valid, color, jacv, M, num_colors: int,
@@ -178,10 +182,10 @@ def _k_kwargs(integrator_cfg, cfg):
                 angular_mode=integrator_cfg.angular_mode, gravity=integrator_cfg.gravity)
 
 
-def _k1_solve(state, integrator_cfg, cfg, ps_t, imp_t, idx2, scale, sb: int, h, inv_h):
-    """The whole substepped contact solve of one slice stream through K1. Returns (state
-    with new poses and velocities, (IMP_ROWS, B) impulses); the final pose integration is
-    the caller's."""
+def _k1_solve(state, integrator_cfg, cfg, ps_t, imp_t, idx2, scale, sb: int, h, inv_h, waves):
+    """The whole substepped contact solve of one slice stream through K1, with its wave
+    table. Returns (state with new poses and velocities, (IMP_ROWS, B) impulses); the
+    final pose integration is the caller's."""
     c = lambda t: t.contiguous()
     lin_scale, ang_scale = _damping_scales(integrator_cfg, h)
     gmask = (state.kind == KIND_DYNAMIC) & state.awake
@@ -189,7 +193,7 @@ def _k1_solve(state, integrator_cfg, cfg, ps_t, imp_t, idx2, scale, sb: int, h, 
         _vel_to6(state), type(state.pos)(*map(c, state.pos)),
         type(state.orn)(*map(c, state.orn)), c(state.inv_mass),
         type(state.inv_inertia)(*map(c, state.inv_inertia)), gmask, state.integrable, ps_t,
-        imp_t, idx2, scale, h, inv_h, lin_scale, ang_scale, sb=sb,
+        imp_t, idx2, scale, h, inv_h, lin_scale, ang_scale, sb=sb, waves=waves,
         **_k_kwargs(integrator_cfg, cfg))
     return _vel_from6(state._replace(pos=pos_n, orn=orn_n), v6n), imp_out
 
@@ -261,9 +265,11 @@ def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool)
         nsl = B // page
         idx2 = torch.cat([Ix[:, 0].reshape(nsl, page), Ix[:, 1].reshape(nsl, page)], 1).reshape(-1)
         scale = torch.cat([sa_x.reshape(nsl, page), sb_x.reshape(nsl, page)], 1).reshape(-1)
-        state, imp_out = _k1_solve(state, integrator_cfg, cfg, Mx[:, :32].T.contiguous(),
-                                   Mx[:, 32:40].T.contiguous(), idx2.to(torch.int32).contiguous(),
-                                   scale.contiguous(), page, h, inv_h)
+        ps_x = Mx[:, :32].T.contiguous()
+        waves = page_wave_table([st.page_color[pp]], ps_x, page, C)
+        state, imp_out = _k1_solve(state, integrator_cfg, cfg, ps_x, Mx[:, 32:40].T.contiguous(),
+                                   idx2.to(torch.int32).contiguous(), scale.contiguous(), page,
+                                   h, inv_h, waves)
         imp_rows = imp_out.T.reshape(P, page, 8)[inv_perm.long()].reshape(B, 8)
         overflow = torch.zeros((), dtype=torch.bool, device=jac_slot.device)
         wide_demand = torch.zeros((), dtype=torch.int32, device=jac_slot.device)
@@ -339,12 +345,19 @@ def _win_store_bucket(state, st, sps, simp, scolor, jrow, cfg, n_bodies: int):
     wlo2 = bk_mod.slice_major(torch.remainder(rel_a, L), torch.remainder(rel_b, L),
                               sb).to(torch.int32)
     wseg = rw["wseg"].contiguous()
+    ps_w = tree(scat, sps)
+    # K4's writing entries: valid rows' sides on bodies with inertia (what K4 finds from
+    # the streamed inertia, each slot's own times its scale), first in its sums' order.
+    still = psweep.body_still(state.inv_mass, state.inv_inertia)
+    writes = bk_mod.slice_major(ps_w.valid & ~still[idx2[:bp]], ps_w.valid & ~still[idx2[bp:]],
+                                sb).reshape(-1, 2 * sb)
     return dict(
-        ps=tree(scat, sps), imp=tree(scat, simp), idx2=idx2, s2=torch.cat([saw, sbw]),
+        ps=ps_w, imp=tree(scat, simp), idx2=idx2, s2=torch.cat([saw, sbw]),
         tgt2=torch.where(torch.cat([present, present]), idx2, n_bodies),
         lay=lay, dest=dest, bp=bp, imp_orig=simp, whi2=whi2, wlo2=wlo2,
         wscale=bk_mod.slice_major(saw, sbw, sb), wseg=wseg,
-        worder=psweep.window_order(whi2, wlo2, wseg, sb),  # K4's sums, fixed for the step
+        worder=psweep.writer_order(psweep.window_positions(whi2, wlo2, wseg, sb), writes),
+        waves=wave_table(wseg, rw["gid"], rw["b_n"] // sb, lay["nblk"], C),
         overflow=rw["wide_overflow"], wide_demand=rw["wide_demand"].to(torch.int32))
 
 
@@ -428,13 +441,18 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
     if ju is None:
         # Contact-only: the JAX package's whole-solve branch (solve.py:1785-1856), one K1
         # launch over the store pages and then each compound bucket, slices of the page.
+        # The wave keys: the store's page colors in execution order, then each bucket's.
         pack = lambda f: torch.cat([f(b) for b in buckets], 1).contiguous()
+        ps_k = pack(lambda b: psweep.pack_contact_prestep_cols(b["ps"], b["spring"]).T)
+        colors = [st.page_color[pp]] + [
+            bucket_page_colors(b["cap"], b["ps"].body_a.shape[0], page, C, dev)
+            for b in buckets[1:]]
         state, imp_out = _k1_solve(
-            state, integrator_cfg, cfg,
-            pack(lambda b: psweep.pack_contact_prestep_cols(b["ps"], b["spring"]).T),
+            state, integrator_cfg, cfg, ps_k,
             pack(lambda b: psweep.pack_contact_impulses_cols(b["imp"]).T),
             torch.cat([b["k_idx2"] for b in buckets]).contiguous(),
-            torch.cat([b["k_scale"] for b in buckets]).contiguous(), page, h, inv_h)
+            torch.cat([b["k_scale"] for b in buckets]).contiguous(), page, h, inv_h,
+            page_wave_table(colors, ps_k, page, C))
         imps, off = [], 0
         for b in buckets:
             n = b["ps"].body_a.shape[0]
@@ -571,7 +589,7 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
         v6p, imp_t = psweep.contact_sweep_win(
             windowing.permute_rows(v6, pos_slot).contiguous(), it_t, ps_t, imp_t, b["whi2"],
             b["wlo2"], b["wscale"], b["wseg"], inv_h, sb=SB_WIN, n_iters=1,
-            order=b["worder"])
+            order=b["worder"], waves=b["waves"])
         return v6p[slot_pos], imp_t
 
     presteps = [b["ps"] for b in buckets]

@@ -8,6 +8,8 @@
   above 8,192 bodies: grid2 and the windowed layout), through K4;
 - ``--scene pile``: the 16,384-body mixed pile (``bench.py``'s scene and sequence: 33
   steps, 152 settle, autosize, 33), the store fast path on the windowed layout through K2;
+  with ``--bodies 4096``, the 4,096-body pile of ``chip_smoke.py`` phase 4 (its 33 + 96
+  steps, no autosize), the store fast path through K1;
 
 then
 
@@ -21,10 +23,11 @@ then
    take the most device time.
 
     python3 chip_profile.py [--scene tube|ragdoll_pile|pile] [--ragdolls N] [--steps 5]
-                            [--settings bench|default]
+                            [--settings bench|default] [--bodies 16384|4096]
 
 Prints one JSON object as its last line and writes it to
-``build/profile_<scene>_<settings>.json``.
+``build/profile_<scene>_<settings>.json`` (``profile_pile4096_bench.json`` for the 4,096-body
+pile).
 Needs a card; imports nothing of JAX.
 """
 import argparse
@@ -60,6 +63,7 @@ def main():
     ap.add_argument("--ragdolls", type=int, default=None)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--settings", choices=("bench", "default"), default="bench")
+    ap.add_argument("--bodies", type=int, choices=(16384, 4096), default=16384)
     args = ap.parse_args()
 
     import chip_smoke
@@ -69,8 +73,10 @@ def main():
     dev = torch.device("cuda")
     smi = chip_smoke._nvidia_smi()
     pile = args.scene == "ragdoll_pile"
-    grid2 = args.scene != "tube"
+    small = args.scene == "pile" and args.bodies <= 8192  # the store fast path through K1
+    grid2 = args.scene != "tube" and not small
     settle = max(31, int(6 * 4096 ** (1 / 3)))
+    scene = f"pile{args.bodies}" if small else args.scene
     if pile:
         from bepuphysics2_tpu_torch.models import build_ragdoll_pile_sim
 
@@ -79,17 +85,21 @@ def main():
         settings, kernel = "default", "contact_sweep_win"
     elif args.scene == "pile":
         n_rag = 0
-        sim = chip_smoke.build_pile(16384, dev)
-        settle = max(31, int(6 * 16384 ** (1 / 3)))
-        settings, kernel = "bench", "solve_substeps_contacts_win"
+        sim = chip_smoke.build_pile(args.bodies, dev)
+        settle = max(31, int(6 * args.bodies ** (1 / 3)))
+        settings = "bench"
+        kernel = "solve_substeps_contacts" if small else "solve_substeps_contacts_win"
     else:
         n_rag = args.ragdolls or 32
         sim = chip_smoke.tube_sim(n_rag, dev, bench=args.settings == "bench")
         settings, kernel = args.settings, "contact_sweep"
-    sim.run(33, DT)
-    sim.run(settle, DT)
-    sim.autosize(DT, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
-    sim.run(33, DT)
+    if small:
+        sim.run(33 + 96, DT)
+    else:
+        sim.run(33, DT)
+        sim.run(settle, DT)
+        sim.autosize(DT, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
+        sim.run(33, DT)
     torch.cuda.synchronize()
 
     # 1. Synced stage times. Stages called from the step (``simulation``) and, inside the
@@ -103,7 +113,7 @@ def main():
                 (tsolve.bk_mod, "color_table"), (tsolve.psweep, kernel)]
     if pile:
         patches.append((tsolve, "_win_store_bucket"))
-    if args.scene == "pile":
+    if args.scene == "pile" and not small:
         patches.append((tsolve, "win_pack"))
     saved = [(mod, n, getattr(mod, n)) for mod, n in patches]
     for mod, n, fn in saved:
@@ -149,7 +159,7 @@ def main():
     kernel_ms = sum(e.self_device_time_total for e in own) / 1e3 / args.steps
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     out = dict(
-        card=smi, scene=args.scene, ragdolls=n_rag, settings=settings, bodies=sim.body_count,
+        card=smi, scene=scene, ragdolls=n_rag, settings=settings, bodies=sim.body_count,
         steps=args.steps, contacts=int(sim.last_diag.contact_count),
         synced_ms_per_step=synced, stage_ms=stage_ms, unsynced_ms_per_step=unsynced,
         profiled_ms_per_step=wall, device_ms_per_step=device_ms,
@@ -161,7 +171,7 @@ def main():
                       e.count // args.steps) for e in top],
     )
     os.makedirs("build", exist_ok=True)
-    with open(f"build/profile_{args.scene}_{settings}.json", "w") as f:
+    with open(f"build/profile_{scene}_{settings}.json", "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))
     return 0

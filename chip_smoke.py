@@ -1,13 +1,15 @@
 """Smoke run of the PyTorch port on one CUDA card: builds kernels K1-K7 from the
 repository's sources, holds each against its plain PyTorch version at its main path's
 shapes, then drives the port's main paths through ``Simulation`` as ``bench.py`` does and
-checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1), the
+checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1: one
+cooperative launch per step, each color's pages in parallel across the SMs), the
 16,384-body pile (grid2 broad phase, autosize, the windowed K2: one cooperative launch per
 step, each color's slices in parallel across the SMs), the ragdoll tube of 32
 ragdolls (joints and a compound: the general path over K3) at bench.py's solver settings
 and at the package's default ones, the pile of 1,024 ragdolls (the general path above
-8,192 bodies: grid2, autosize, the windowed layout, K4) and the contact-only compound
-pile (one K1 launch over the store's and the compound's banks). Last, the TPU design
+8,192 bodies: grid2, autosize, the windowed layout, K4, cooperative as K1 and K2) and the
+contact-only compound pile (one K1 launch over the store's and the compound's banks). The
+wave tables of K1, K2 and K4 are held to their contract on real steps. Last, the TPU design
 probes of ``experiments/`` through their entry points: the sweep prototypes v1-v4 (K5)
 and the gather and scatter probes k1-k6 (K6, K7).
 
@@ -16,9 +18,11 @@ and the gather and scatter probes k1-k6 (K6, K7).
 Each phase prints one line; any failure raises, so the script exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the paths with its launch count on its main path, its error against the
-plain version, its time, the plain version's time, its bound (the least time the card
-could take for the same work) and, where one PyTorch call computes the same function,
-that call's time. Imports nothing of JAX: the machine with the card has none.
+plain version, its time through its wrapper (``ms``), the plain version's time, its bound
+(the least time the card could take for the same work), where one PyTorch call computes
+the same function that call's time, and for K1 and K4 the kernel's C entry point alone
+(``kernel_ms``, null for the others). Imports nothing of JAX: the machine with the card
+has none.
 """
 import dataclasses
 import json
@@ -292,25 +296,103 @@ def _hold(label, kern, plain, v6_in, tol, outputs=_k1_outputs):
     return err, plain_ms
 
 
-def phase_kernel(dev):
-    """K1 against its plain version at the pile's shapes: 4,160 bodies, 64 slices of 512
-    rows (48 colored, 16 Jacobi = 25%), 4 substeps, 1 iteration."""
+K4_ROWS = 111616  # phase 16's store rows when it runs alone (tools/k2_vs_parent.py)
+
+
+def _clone_call(args, kw):
+    """A copy of one recorded kernel call whose tensors no later step can change."""
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, tuple):
+            items = [clone(y) for y in x]
+            return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        return x
+
+    return clone(tuple(args)), {k: clone(v) for k, v in kw.items()}
+
+
+def pile_k1_call(dev, steps=134):
+    """The 4,096-body pile's K1 call of the step after ``steps`` steps, as (args, kw):
+    by default phase 3's (phase 4's 129 steps, 4 counting host syncs, 1 more)."""
+    sim = build_pile(4096, dev)
+    sim.run(steps, DT)
+    calls, _ = _k1_steps(sim, 1)
+    return _clone_call(*calls[-1])
+
+
+def k4_bank(n_rows, dev):
+    """Phase 16's bank: K4's input at the ragdoll pile's shapes (10,256 body slots, 11
+    Morton blocks), ``n_rows`` store rows, 16 colors, half the slots filled, a twentieth
+    of the rows joining far bodies, one velocity iteration. Returns (bank, args, kw)."""
     from bepuphysics2_tpu_torch.ops import sweep
 
-    bank = sweep.synthetic_bank(4160, 512, n_colored=48, n_jacobi=16, seed=1, substeps=4)
-    args = sweep.bank_args(bank, dev)
-    kw = dict(sb=512, n_substeps=4, n_iters=1, angular_mode=0, gravity=(0.0, -10.0, 0.0))
+    bank = sweep.synthetic_win_bank(10 * PILE_RAGDOLLS + 16, n_rows, 16, seed=6, substeps=4,
+                                    wide_frac=0.05, fill=0.5)
+    return bank, sweep.sweep_win_bank_args(bank, dev), dict(sb=bank["sb"], n_iters=1)
+
+
+def _bare_ms(name, call, reps):
+    """CUDA-event ms of a kernel's C entry point alone (``csrc/<name>.cu``), on the
+    arguments its wrapper makes: ``call`` runs the wrapper once, and inside it, while its
+    tensors live, the entry point is launched ``reps`` more times and timed."""
+    from bepuphysics2_tpu_torch.ops import build
+
+    key = (name, f"{name}_launch")
+    real = build._bound[key]
+    out = {}
+
+    def spy(*args):
+        err = real(*args)
+        out["ms"] = _time_ms(lambda: real(*args), reps)
+        return err
+
+    build._bound[key] = spy
+    try:
+        call()
+    finally:
+        build._bound[key] = real
+    return out["ms"]
+
+
+def _shape_note(name, sb, waves):
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    n, color, tail, barriers = sweep.wave_shape(waves)
+    grid = sweep.wave_grid(name, sb, (waves.shape[0] - 2) // 2)
+    return (f"cooperative grid {grid} blocks of 512; per pass {n} waves: {len(color)} color "
+            f"waves of {min(color, default=0)}-{max(color, default=0)} slices and {tail} "
+            f"tail slices on one block, {barriers} grid barriers")
+
+
+def phase_kernel(dev, call):
+    """K1 against its plain version on the 4,096-body pile's own K1 call (``call``, phase
+    4's last step: 4,160 bodies, 64 pages of 512 rows with their live and dead pages, 4
+    substeps, 1 iteration). ``ms`` is the wrapper's call, ``kernel_ms`` its C entry point
+    alone (``_bare_ms``)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    args, kw = call
+    sb, ps_t = kw["sb"], args[7]
     kern = lambda: sweep.solve_substeps_contacts(*args, **kw)
-    plain = lambda: sweep._solve_substeps_contacts_plain(*args, **kw)
+    plain_kw = {k: v for k, v in kw.items() if k != "waves"}
+    plain = lambda: sweep._solve_substeps_contacts_plain(*args, **plain_kw)
     err, plain_ms = _hold("K1", kern, plain, args[0], K1_TOL)
     ms = _time_ms(kern, 20)
-    live_rows = int((args[7][sweep.PS_VALID] > 0.5).sum())
-    bound_ms, bound_by = _whole_solve_bound(args, (7, 9, 10), _valid_slices(args[7], 512),
-                                            live_rows, 4, 1, _row_ops())
-    print(f"[3 kernel] K1 vs plain at NB 4160, B 32768, sb 512, 4 substeps, 25% Jacobi "
-          f"slices: max |diff| {err:.3e} (limit {K1_TOL}); kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms ({bound_by}, {live_rows} live rows)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    kernel_ms = _bare_ms("substeps_contacts", kern, 20)
+    live = _valid_slices(ps_t, sb)
+    live_rows = int((ps_t[sweep.PS_VALID] > 0.5).sum())
+    bound_ms, bound_by = _whole_solve_bound(args, (7, 9, 10), live, live_rows,
+                                            kw["n_substeps"], kw["n_iters"], _row_ops())
+    print(f"[3 kernel] K1 vs plain on the 4096-body pile's own K1 call: NB {args[0].shape[0]}, "
+          f"B {ps_t.shape[1]} ({ps_t.shape[1] // sb} pages of {sb}, {int(live.sum())} live), "
+          f"{kw['n_substeps']} substeps, {kw['n_iters']} iteration: max |diff| {err:.3e} "
+          f"(limit {K1_TOL}); {ms:.3f} ms through the wrapper (bodies packed, sort made), "
+          f"the kernel alone {kernel_ms:.3f} ms; plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}, {live_rows} live rows); "
+          f"{_shape_note('substeps_contacts', sb, kw['waves'])}; bit-identical repeat")
+    return dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _count_host_syncs(sim, steps):
@@ -327,7 +409,40 @@ def _count_host_syncs(sim, steps):
     return sum("synchroniz" in str(w.message) for w in caught) / steps
 
 
+def _k1_steps(sim, steps):
+    """Run ``steps`` steps of a K1 scene, recording every K1 call on the card and the
+    inputs of every K1 wave table (``solver.solve.page_wave_table``). Returns (calls,
+    tables)."""
+    from bepuphysics2_tpu_torch.solver import solve as tsolve
+
+    calls, restore = _capture_calls("solve_substeps_contacts")
+    tables = []
+    fn = tsolve.page_wave_table
+    tsolve.page_wave_table = lambda *a: tables.append(a) or fn(*a)
+    try:
+        sim.run(steps, DT)
+    finally:
+        tsolve.page_wave_table = fn
+        restore()
+    return calls, tables
+
+
+def _k1_structure(page_colors, ps_t, page, num_colors):
+    """(live pages per color, the other live pages: Jacobi) of one K1 wave table's
+    inputs."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    live = (ps_t[sweep.PS_VALID].reshape(-1, page) > 0.5).any(1).cpu()
+    col = torch.cat(list(page_colors)).cpu()
+    per_color = [int((live & (col == c)).sum()) for c in range(num_colors)]
+    return per_color, int(live.sum()) - sum(per_color)
+
+
 def phase_main_path(dev, name, smi):
+    """The 4,096-body pile through bench.py's sequence (33 steps, 96 timed): K1 once per
+    step, no host sync; then two more steps whose K1 wave tables are held to their
+    contract (``_table_check``), the last of which phase 3 holds K1 on. Returns (K1
+    launches over the 129 steps, that K1 call)."""
     from bepuphysics2_tpu_torch.ops import sweep
     from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
 
@@ -357,13 +472,20 @@ def phase_main_path(dev, name, smi):
     _require(pairs > 0 and contacts > 0, "no pairs or no contacts in the pile")
     _require(launches == 33 + 96, f"K1 launched {launches} times in 129 steps")
     syncs = _count_host_syncs(sim, 4)
+    calls, tables = _k1_steps(sim, 2)
+    _require(len(calls) == len(tables) == 2, f"{len(calls)} K1 calls in 2 steps")
+    checked = [_table_check("K1", k["waves"].cpu(), *_k1_entries(a, k["sb"])) for a, k in calls]
+    structure = _k1_structure(*tables[-1])
     sps = 96 / elapsed
     jac = int(diag.demand[5])
     print(f"[4 main path] 4096-body pile, 33 + 96 steps on {name} ({smi}): "
           f"{sps:.2f} steps/s over the 96 timed steps; warm-up {warm:.1f} s; pairs {pairs}, "
           f"contacts {contacts}, peak Jacobi rows {jac}, min dynamic y {min_y:.3f}, "
-          f"K1 launches {launches} (one per step), host syncs per step {syncs:g}")
-    return launches
+          f"K1 launches {launches} (one per step), host syncs per step {syncs:g}; structure "
+          f"of the last step's page stream: live pages per color {structure[0]}, "
+          f"{structure[1]} Jacobi pages; wave tables of 2 more steps: {_tables_note(checked)}"
+          f", each color wave's written bodies named by no other row of the wave")
+    return launches, _clone_call(*calls[-1])
 
 
 def phase_determinism(dev, tag="5 determinism", path="", **overrides):
@@ -411,19 +533,11 @@ def phase_kernel_win(dev):
     live_rows = int((args[7][sweep.PS_VALID] > 0.5).sum())
     bound_ms, bound_by = _whole_solve_bound(args, (7, 9, 10, 11), args[12][:, 0] >= 0,
                                             live_rows, 4, 1, _row_ops())
-    grid = sweep.k2_grid(bank["sb"], bank["wseg"].shape[0])
-    sizes = [len(w) for w in sweep.wave_lists(waves)]
-    color = [k for k in sizes if k > 1]
-    tail = len(sizes) - len(color)
-    barriers = len(color) + sum(1 for i, k in enumerate(sizes)
-                                if k == 1 and (i == 0 or sizes[i - 1] > 1))
     print(f"[7 kernel] K2 vs plain at NP {bank['v6'].shape[0]}, BP {bank['bp']} "
           f"({bank['live_slices']} live slices of 256, {bank['wide_rows']} wide rows), "
           f"4 substeps: max |diff| {err:.3e} (limit {K2_TOL}); kernel {ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms; bound {bound_ms:.4f} ms ({bound_by}, {live_rows} live rows); "
-          f"cooperative grid {grid} blocks of 512; per pass {len(sizes)} waves: "
-          f"{len(color)} color waves of {min(color, default=0)}-{max(color, default=0)} "
-          f"slices and {tail} tail slices on one block, {barriers} grid barriers; "
+          f"{_shape_note('substeps_contacts_win', bank['sb'], waves)}; "
           f"bit-identical repeat; bank built in {made:.1f} s")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -458,6 +572,77 @@ def _wave_check(wp, kind, num_colors):
         _require(len(np.unique(touched)) == len(touched), f"two slices of the wave at slice "
                  f"{w[0]} touch one dynamic body")
     return len(waves), len(multi), max((len(w) for w in multi), default=0)
+
+
+def _k1_entries(args, sb):
+    """(positions, writing entries, valid entries, live slices) of a K1 call's bank on the
+    host: entries (n_slices, 2 * sb), slices (n_slices,)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    inv_mass, lii, ps_t, idx2 = args[3], args[4], args[7], args[9]
+    idx = idx2.reshape(-1, 2 * sb).long()
+    valid = sweep.row_valid(ps_t, sb)
+    writes = valid & ~sweep.body_still(inv_mass, lii)[idx]
+    live = (ps_t[sweep.PS_VALID].reshape(-1, sb) > 0.5).any(1)
+    return [t.cpu() for t in (idx, writes, valid, live)]
+
+
+def _k4_entries(args, sb):
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    it_t, ps_t, whi2, wlo2, wseg = args[1], args[2], args[4], args[5], args[7]
+    pos = sweep.window_positions(whi2, wlo2, wseg, sb)
+    return [t.cpu() for t in (pos, sweep.stream_writes(ps_t, it_t, sb),
+                              sweep.row_valid(ps_t, sb), wseg[:, 0] >= 0)]
+
+
+def _table_check(label, waves, pos, writes, valid, live):
+    """Hold one step's K1 or K4 wave table to its contract (csrc/waves.cuh): the waves
+    cover the live slices in order, and within a wave of several slices each written
+    position (a valid row's side with inertia) is named by exactly one valid entry of the
+    wave, so no two slices write one body and no slice reads what another writes. Returns
+    (waves, color waves, their largest, tail slices)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    lists = sweep.wave_lists(waves)
+    _require([sl for w in lists for sl in w] == torch.nonzero(live).flatten().tolist(),
+             f"{label}: the waves do not cover the live slices in order")
+    multi = [w for w in lists if len(w) > 1]
+    for w in multi:
+        named = pos[w][valid[w]]
+        counts = torch.bincount(named, minlength=int(pos.max()) + 1)
+        _require(bool((counts[pos[w][writes[w]]] == 1).all()), f"{label}: a body written in "
+                 f"the wave at slice {w[0]} is named by another valid row of the wave")
+    return len(lists), len(multi), max((len(w) for w in multi), default=0), len(lists) - len(multi)
+
+
+def _tables_note(checked):
+    return "; ".join(f"{w} waves, {c} color waves of at most {m} slices, {t} tail slices"
+                     for w, c, m, t in checked)
+
+
+def _capture_calls(fn_name):
+    """Record every call of ``ops.sweep.<fn_name>`` on a CUDA tensor. Returns (calls,
+    restore)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    fn = getattr(sweep, fn_name)
+    calls = []
+
+    def wrapped(*a, **k):
+        if a[0].device.type == "cuda":
+            calls.append((a, k))
+        return fn(*a, **k)
+
+    # The wrapper counts its launches on its module name, the wrapped function meanwhile.
+    wrapped.launches = fn.launches
+    setattr(sweep, fn_name, wrapped)
+
+    def restore():
+        fn.launches = wrapped.launches
+        setattr(sweep, fn_name, fn)
+
+    return calls, restore
 
 
 def phase_main_path_win(dev, name, smi, timed=96):
@@ -854,34 +1039,37 @@ def _padded_bank(config, n_bodies):
 
 
 def phase_kernel_k4(dev, n_rows):
-    """K4 against its plain version on a synthetic windowed bank at the ragdoll pile's
-    shapes: 10,256 body slots (11 Morton blocks), ``n_rows`` store rows (the capacity
-    autosize gives the pile), 16 colors, half the slots filled, a twentieth of the rows
-    joining far bodies, one velocity iteration."""
+    """K4 against its plain version on phase 16's bank (``k4_bank``): the ragdoll pile's
+    shapes with ``n_rows`` store rows (the capacity autosize gives the pile)."""
     from bepuphysics2_tpu_torch.ops import sweep
 
     t0 = time.perf_counter()
-    bank = sweep.synthetic_win_bank(10 * PILE_RAGDOLLS + 16, n_rows, 16, seed=6, substeps=4,
-                                    wide_frac=0.05, fill=0.5)
+    bank, args, kw = k4_bank(n_rows, dev)
     made = time.perf_counter() - t0
-    args = sweep.sweep_win_bank_args(bank, dev)
-    kw = dict(sb=bank["sb"], n_iters=1)
-    kern = lambda: sweep.contact_sweep_win(*args, **kw)
+    waves = torch.from_numpy(bank["waves"]).to(dev)
+    v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg = args[:8]
+    # The sums' order, made once as the main path makes it once per step.
+    order = sweep.writer_order(sweep.window_positions(whi2, wlo2, wseg, kw["sb"]),
+                               sweep.stream_writes(ps_t, it_t, kw["sb"]))
+    kern = lambda: sweep.contact_sweep_win(*args, **kw, waves=waves, order=order)
     plain = lambda: sweep._contact_sweep_win_plain(*args, **kw)
     err, plain_ms = _hold("K4", kern, plain, args[0], K4_TOL, outputs=list)
-    ms = _time_ms(kern, 10)
-    v6p, it_t, ps_t, imp_t, whi2, wlo2, scale, wseg = args[:8]
+    ms = _time_ms(kern, 20)
+    kernel_ms = _bare_ms("contact_sweep_win", kern, 20)
     live_rows = int((ps_t[sweep.PS_VALID] > 0.5).sum())
     bound_ms, bound_by = _bound(
         _nbytes(v6p, imp_t, wseg, v6p, imp_t)
         + _live_bytes(wseg[:, 0] >= 0, it_t, ps_t, whi2, wlo2, scale),
         live_rows * _row_ops()["solve"])
-    print(f"[16 kernel] K4 vs plain at NP {v6p.shape[0]}, BP {bank['bp']} "
-          f"({bank['live_slices']} live slices of 256, {bank['wide_rows']} wide rows, "
+    print(f"[16 kernel] K4 vs plain at NP {v6p.shape[0]}, BP {bank['bp']} ({n_rows} store rows; "
+          f"{bank['live_slices']} live slices of 256, {bank['wide_rows']} wide rows, "
           f"{live_rows} live rows), 1 iteration: max |diff| {err:.3e} (limit {K4_TOL}); "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms; bound {bound_ms:.5f} ms ({bound_by}); "
+          f"{ms:.3f} ms through the wrapper, the kernel alone {kernel_ms:.3f} ms; plain "
+          f"{plain_ms:.1f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}); {_shape_note('contact_sweep_win', 256, waves)}; "
           f"bit-identical repeat; bank built in {made:.1f} s")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def _count_plain_calls():
@@ -931,6 +1119,7 @@ def phase_main_path_pile(dev, name, smi, warm=33, timed=32,
     autosize are printed. Returns (K4 launches, the autosized max_pairs)."""
     from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
     from bepuphysics2_tpu_torch.models import build_ragdoll_pile_sim
+    from bepuphysics2_tpu_torch.ops import sweep
     from bepuphysics2_tpu_torch.simulation import D_ENTRIES, D_WIDE
 
     t0 = time.perf_counter()
@@ -955,7 +1144,12 @@ def phase_main_path_pile(dev, name, smi, warm=33, timed=32,
         probe, rest = divmod(_kernel_launches()["K4"] - early, per_step)
         _require(rest == 0 and probe >= 32 and probe % 32 == 0,
                  f"autosize ran {probe} steps and {rest} launches off K4")
-        sim.run(warm, DT)
+        sim.run(warm - 2, DT)
+        k4_calls, restore_k4 = _capture_calls("contact_sweep_win")
+        try:
+            sim.run(2, DT)  # their K4 calls' tables are held to their contract below
+        finally:
+            restore_k4()
         torch.cuda.synchronize()
         stages.append(time.perf_counter() - t0)
         st = sim.state.bodies
@@ -978,6 +1172,13 @@ def phase_main_path_pile(dev, name, smi, warm=33, timed=32,
         restore()
     launches = _kernel_launches()
     steps = warm + settle + probe + warm + timed
+    _require(len(k4_calls) == 2 * per_step, f"{len(k4_calls)} K4 calls in 2 steps")
+    checked = []
+    for a, k in k4_calls:
+        entries = _k4_entries(a, k["sb"])
+        checked.append(_table_check("K4", k["waves"].cpu(), *entries))
+        _require(torch.equal(k["order"].cpu(), sweep.writer_order(entries[0], entries[1])),
+                 "K4's order does not list each slice's writing entries first")
     diag = sim.last_diag
     st = sim.state
     leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
@@ -1001,7 +1202,10 @@ def phase_main_path_pile(dev, name, smi, warm=33, timed=32,
           f"{_padded_bank(c, c.body_capacity)} rows, grid entries {demand[D_ENTRIES]}, min "
           f"dynamic y {min_y:.3f}, max head-torso {apart.max():.3f}; demand {demand}; "
           f"autosized max_pairs {c.max_pairs}, wide_cap_rows {c.wide_cap_rows}; launches "
-          f"{launches} in {steps} steps, plain calls {len(calls)}; host syncs per step {syncs:g}")
+          f"{launches} in {steps} steps, plain calls {len(calls)}; host syncs per step {syncs:g}"
+          f"; K4 wave tables of the 2 steps before the timed window (per step): "
+          f"{_tables_note(checked[::per_step])}, each color wave's written bodies named by no "
+          f"other row of the wave, sums in writer-first order")
     _require(demand[D_ENTRIES] > 0, "the grid2 broad phase did not run")
     _require(launches == dict(K1=0, K2=0, K3=0, K4=per_step * steps),
              f"the pile did not solve through K4 alone, {per_step} launches per step")
@@ -1057,15 +1261,30 @@ def phase_compound_pile(dev, n_bodies=252, frames=10):
     in the ragdoll tube's spinning tube, no joints): ``frames`` frames on the CPU, each
     stepped again on the card from the CPU's state before it within K1's 1e-4 (absolute
     and relative) of the CPU's; on the card K1 launches once per step and K2, K3 and K4
-    never; finite, no overflow."""
+    never; finite, no overflow. The card's own run of the scene holds its last two steps'
+    K1 wave tables to their contract, with no wave across the two banks, and makes no
+    host sync."""
     from bepuphysics2_tpu_torch.models import build_compound_pile_sim
+    from bepuphysics2_tpu_torch.ops import sweep
 
     cpu, _ = build_compound_pile_sim(n_bodies, device="cpu")
     before = _kernel_launches()
     worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
     launches = {k: v - before[k] for k, v in _kernel_launches().items()}
     card, _ = build_compound_pile_sim(n_bodies, device=dev)
-    card.run(frames, DT)
+    k1_before = _kernel_launches()["K1"]
+    card.run(frames - 2, DT)
+    k1_calls, tables = _k1_steps(card, 2)
+    _require(len(k1_calls) == 2 and _kernel_launches()["K1"] - k1_before == frames,
+             "the compound pile's card run did not launch K1 once per step")
+    n_store = card.state.store.page_color.shape[0]
+    checked = []
+    for (a, k), t in zip(k1_calls, tables):
+        checked.append(_table_check("K1", k["waves"].cpu(), *_k1_entries(a, k["sb"])))
+        _require(len(t[0]) == 2, "the compound pile's K1 stream is not the store and one bucket")
+        _require(all(w[0] >= n_store or w[-1] < n_store
+                     for w in sweep.wave_lists(k["waves"])), "a K1 wave spans two banks")
+    syncs = _count_host_syncs(card, 4)
     diag = card.last_diag
     st = card.state
     leaves = [*st.bodies.pos, *st.bodies.vel, st.ccache.penetration, st.store.imp_pen]
@@ -1073,7 +1292,10 @@ def phase_compound_pile(dev, n_bodies=252, frames=10):
     print(f"[20 compound pile] {n_bodies} bodies in the tube, {frames} frames: each card step "
           f"from the CPU's state within {worst:.3e} of the CPU's (limit {K1_TOL:g}); launches "
           f"over those steps {launches}; card run: contacts {int(diag.contact_count)}, "
-          f"overflow {bool(diag.overflow)}")
+          f"overflow {bool(diag.overflow)}, K1 wave tables of its last 2 steps: "
+          f"{_tables_note(checked)}, no wave across the store's {n_store} pages and the "
+          f"bucket; host syncs per step {syncs:g}")
+    _require(syncs == 0, f"{syncs} host syncs per step on the compound pile")
     _require(worst <= K1_TOL, "a card step of the compound pile disagrees with the CPU's")
     _require(launches == dict(K1=frames, K2=0, K3=0, K4=0),
              "the compound pile did not solve through one K1 launch per step")
@@ -1232,8 +1454,10 @@ def main():
     dev = torch.device("cuda")
     name, smi = phase_device()
     phase_build()
-    k1 = phase_kernel(dev)
-    k1["launches"] = phase_main_path(dev, name, smi)
+    # The main path runs first: phase 3 holds K1 on its last step's K1 call.
+    k1_launches, k1_call = phase_main_path(dev, name, smi)
+    k1 = phase_kernel(dev, k1_call)
+    k1["launches"] = k1_launches
     phase_determinism(dev)
     phase_cpu_vs_card(dev)
     k2 = phase_kernel_win(dev)
@@ -1272,6 +1496,7 @@ def main():
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
         bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
+        kernel_ms=k.get("kernel_ms"),
     ) for n, src, rep, k in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

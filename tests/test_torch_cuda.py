@@ -43,12 +43,12 @@ def test_kernel_matches_plain_on_card(cuda_device, angular_mode):
     PyTorch's elementwise ops and ``index_add_``: 1e-4 absolute."""
     bank = sweep.synthetic_bank(64, SB, 2, 1, seed=3, substeps=SUBSTEPS)
     kw = dict(sb=SB, n_substeps=SUBSTEPS, n_iters=ITERS, angular_mode=angular_mode,
-              gravity=GRAVITY)
+              gravity=GRAVITY, waves=torch.from_numpy(bank["waves"]).to(cuda_device))
     before = sweep.solve_substeps_contacts.launches
     got = _outputs(sweep.solve_substeps_contacts(*sweep.bank_args(bank, cuda_device), **kw))
     assert sweep.solve_substeps_contacts.launches == before + 1
     want = _outputs(sweep._solve_substeps_contacts_plain(
-        *sweep.bank_args(bank, cuda_device), **kw))
+        *sweep.bank_args(bank, cuda_device), **{k: v for k, v in kw.items() if k != "waves"}))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
     again = _outputs(sweep.solve_substeps_contacts(*sweep.bank_args(bank, cuda_device), **kw))
@@ -102,20 +102,22 @@ def test_k3_matches_plain_on_card(cuda_device, n_iters):
 @pytest.mark.parametrize("n_iters", [1, 2])
 def test_k4_matches_plain_on_card(cuda_device, n_iters):
     """K4 on a windowed bank with narrow, wide, Jacobi and padding rows and dead slices
-    (2,600 bodies, three Morton blocks): FMA contraction and the kernel's fixed summation
+    (2,600 bodies, three Morton blocks; color waves of several slices run across the
+    grid): FMA contraction and the kernel's fixed summation
     order differ from PyTorch's elementwise ops and ``index_add_``: 1e-4 absolute;
     bit-identical run to run."""
     bank = sweep.synthetic_win_bank(2600, 4096, 4, seed=9, substeps=4, wide_frac=0.05)
     kw = dict(sb=bank["sb"], n_iters=n_iters)
     args = sweep.sweep_win_bank_args(bank, cuda_device)
+    waves = torch.from_numpy(bank["waves"]).to(cuda_device)
     before = sweep.contact_sweep_win.launches
-    got = [t.cpu().numpy() for t in sweep.contact_sweep_win(*args, **kw)]
+    got = [t.cpu().numpy() for t in sweep.contact_sweep_win(*args, **kw, waves=waves)]
     assert sweep.contact_sweep_win.launches == before + 1
     want = [t.cpu().numpy() for t in sweep._contact_sweep_win_plain(*args, **kw)]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
     assert np.abs(got[0] - bank["v6"]).max() > 1e-2
-    again = [t.cpu().numpy() for t in sweep.contact_sweep_win(*args, **kw)]
+    again = [t.cpu().numpy() for t in sweep.contact_sweep_win(*args, **kw, waves=waves)]
     for g, a in zip(got, again):
         np.testing.assert_array_equal(g, a)
 

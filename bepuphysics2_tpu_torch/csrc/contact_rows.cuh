@@ -1,6 +1,6 @@
 // Per-row contact math and the per-body substep block shared by the contact kernels K1
 // (substeps_contacts.cu), K2 (substeps_contacts_win.cu), K3 (contact_sweep.cu) and K4
-// (contact_sweep_win.cu); waves.cuh holds the wave walk of K1, K2 and K4. Each function
+// (contact_sweep_win.cu); waves.cuh holds the wave walk of all four. Each function
 // here is the CUDA restatement of the PyTorch function named
 // beside it in ops/sweep.py, which is itself the counterpart of the JAX package's
 // bepuphysics2_tpu/ops/sweep.py row functions. Included by every kernel, so an edit here
@@ -366,12 +366,6 @@ __device__ __forceinline__ void load_vel(const float* bg, int b, F3& l, F3& a) {
   a = f3(g[3], g[4], g[5]);
 }
 
-__device__ __forceinline__ void load_inertia(const float* bg, int b, float s, float& im, S3& ii) {
-  const float* g = bg + (size_t)b * 16;
-  im = g[8] * s;
-  ii = {g[9] * s, g[10] * s, g[11] * s, g[12] * s, g[13] * s, g[14] * s};
-}
-
 struct StepConsts {
   int angular_mode;
   float gx, gy, gz, h, inv_h, lin_scale, ang_scale;
@@ -416,59 +410,16 @@ __device__ void pose_vel_inertia_body(float* g, float* ps, const float* ax, int 
   g[9] = w.xx; g[10] = w.yx; g[11] = w.yy; g[12] = w.zx; g[13] = w.zy; g[14] = w.zz;
 }
 
-// One row of a slice pass with both sides' inertia given: see slice_row.
-__device__ __forceinline__ void row_pass(const float* ps, int B, int col, float* imp,
-                                         const float* dep_in, const float* bg, int ba, int bb,
-                                         float ia_im, const S3& ia_ii, float ib_im,
-                                         const S3& ib_ii, float sa, float sbs, bool solve,
-                                         float inv_h, float* da, float* db) {
-  Row row;
-  load_row(ps, B, col, row);
-  float dep[4], im[IMP_ROWS];
-  for (int k = 0; k < 4; ++k) dep[k] = dep_in[(size_t)k * B + col];
-  for (int k = 0; k < IMP_ROWS; ++k) im[k] = imp[(size_t)k * B + col];
-  F3 dva_l, dva_a, dvb_l, dvb_a;
-  if (solve) {
-    F3 va_l, va_a, vb_l, vb_a;
-    load_vel(bg, ba, va_l, va_a);
-    load_vel(bg, bb, vb_l, vb_a);
-    solve_contact_rows(row, dep, im, ia_im, ia_ii, ib_im, ib_ii, va_l, va_a, vb_l, vb_a,
-                       inv_h, dva_l, dva_a, dvb_l, dvb_a);
-    for (int k = 0; k < IMP_ROWS; ++k) imp[(size_t)k * B + col] = im[k];
-  } else {
-    warm_start_rows(row, dep, im, ia_im, ia_ii, ib_im, ib_ii, dva_l, dva_a, dvb_l, dvb_a);
-  }
-  da[0] = dva_l.x / sa; da[1] = dva_l.y / sa; da[2] = dva_l.z / sa;
-  da[3] = dva_a.x / sa; da[4] = dva_a.y / sa; da[5] = dva_a.z / sa;
-  db[0] = dvb_l.x / sbs; db[1] = dvb_l.y / sbs; db[2] = dvb_l.z / sbs;
-  db[3] = dvb_a.x / sbs; db[4] = dvb_a.y / sbs; db[5] = dvb_a.z / sbs;
-}
-
-// One row of a slice pass, warm start (solve = false) or one velocity iteration (solve =
-// true): reads both sides from the state as it was at the slice's start, updates the
-// row's impulses in place (imp rows stride B), and writes each side's six-component
-// deltas divided by that side's mass-split scale to da / db.
-__device__ __forceinline__ void slice_row(const float* ps, int B, int col, float* imp,
-                                          const float* dep_in, const float* bg, int ba,
-                                          int bb, float sa, float sbs, bool solve,
-                                          float inv_h, float* da, float* db) {
-  float ia_im, ib_im;
-  S3 ia_ii, ib_ii;
-  load_inertia(bg, ba, sa, ia_im, ia_ii);
-  load_inertia(bg, bb, sbs, ib_im, ib_ii);
-  row_pass(ps, B, col, imp, dep_in, bg, ba, bb, ia_im, ia_ii, ib_im, ib_ii, sa, sbs, solve,
-           inv_h, da, db);
-}
-
-// slice_row's arithmetic in the same order, for the cooperative kernels K1 and K2: each
-// side's body row read whole as four 16-byte loads (a warp's scattered rows cost the L1
-// one pass per row and load instruction, so 4 wide loads instead of 13 narrow ones; 9.3 ->
-// 7.5 us per slice pass of K2, PERF.md), its inertia scaled by the side's mass-split
-// scale. The prestep row comes from ps (row k at ps + k * ps_stride + ps_col: a stage in
-// shared memory or the bank itself), the depths from dep and the impulses from imp (rows
-// stride B, column col; updated in place when solving). Writes each side's delta divided
-// by its scale to da / db, the velocities the row read to va6 / vb6 (they seed the sums),
-// and whether each side's inertia is all zero to still_a / still_b.
+// One row of a slice pass, warm start (solve = false) or one velocity iteration, for K1,
+// K2 and K3: reads both sides from the state as it was at the slice's start, each side's
+// body row whole as four 16-byte loads (a warp's scattered rows cost the L1 one pass per
+// row and load instruction, so 4 wide loads instead of 13 narrow ones; 9.3 -> 7.5 us per
+// slice pass of K2, PERF.md), its inertia scaled by the side's mass-split scale. The
+// prestep row comes from ps (row k at ps + k * ps_stride + ps_col: a stage in shared
+// memory or the bank itself), the depths from dep and the impulses from imp (rows stride
+// B, column col; updated in place when solving). Writes each side's delta divided by its
+// scale to da / db, the velocities the row read to va6 / vb6 (they seed the sums), and
+// whether each side's inertia is all zero to still_a / still_b.
 __device__ __forceinline__ void body_row(const float* bg, const float* ps, int ps_stride,
                                          int ps_col, float* imp, const float* dep, int B,
                                          int col, int ba, int bb, float sa, float sbs,
@@ -531,29 +482,6 @@ __device__ __forceinline__ void depth_row(const float* ps, int B, int col, float
   load_vel(bg, bb, vb_l, vb_a);
   inc_depth_rows(row, dep, va_l, va_a, vb_l, vb_a, h);
   for (int k = 0; k < 4; ++k) dep_io[(size_t)k * B + col] = dep[k];
-}
-
-// Fixed-order per-body sums of one slice's deltas D (m2 entries of 6): body[q] is the
-// body row of entry q and ord the slice's stable sort of body, so the first entry of
-// each body's run adds the whole run, in ascending entry order. No float atomics: the
-// result is the same on every run. Bodies with zero inverse mass and inertia take no
-// delta (theirs is zero, and statics repeat across rows).
-__device__ void sum_deltas(float* bg, const int* body, const int* ord, const float* D, int m2) {
-  for (int q = threadIdx.x; q < m2; q += blockDim.x) {
-    const int b = body[ord[q]];
-    if (q > 0 && body[ord[q - 1]] == b) continue;
-    float* g = bg + (size_t)b * 16;
-    if (g[8] == 0.0f && g[9] == 0.0f && g[10] == 0.0f && g[11] == 0.0f && g[12] == 0.0f &&
-        g[13] == 0.0f && g[14] == 0.0f)
-      continue;
-    float acc[6];
-    for (int c = 0; c < 6; ++c) acc[c] = g[c];
-    for (int q2 = q; q2 < m2 && body[ord[q2]] == b; ++q2) {
-      const float* d = D + (size_t)ord[q2] * 6;
-      for (int c = 0; c < 6; ++c) acc[c] += d[c];
-    }
-    for (int c = 0; c < 6; ++c) g[c] = acc[c];
-  }
 }
 
 }  // namespace

@@ -12,21 +12,21 @@
 // 4,096-body pile's bank.
 //
 // Design: K2's (substeps_contacts_win.cu) over the page-execution order, with the wave
-// walk of waves.cuh. One persistent grid of every block the card can hold at once
-// (occupancy x SMs), launched with cudaLaunchCooperativeKernel, phases separated by grid
-// barriers. The depth update and the body block are grid-stride loops. The warm start and
-// every iteration pass go by the waves of the table (solver/solve.py waves_by_key: a
-// maximal run of consecutive live pages of one color c < C of one bank): a wave's rows
-// are dealt over every thread of the grid, a row per thread, its writing sides stored
-// straight, one grid barrier after the wave (the same bits as its pages dealt to the
-// blocks, and faster on the 4,096-body pile: PERF.md). Jacobi pages stay in order on
-// block 0, one slice pass per page. While block 0 solves one, cp.async copies the next
-// one's prestep rows, scales, body indices and sort into a second shared-memory stage (38
-// words a row: the 4 depth rows of the prestep, which the row math does not read, are
-// copied too, to keep one copy loop), where the two stages fit in a block's shared memory
-// (pages of up to 512 rows: ~210 KB of the H100's 227 KB); larger pages are read from the
-// bank (SimConfig.store_page 1,024 and 2,048). Body rows are read as four 16-byte loads
-// (contact_rows.cuh body_row, shared with K2).
+// walk of waves.cuh (its iteration pass, PAGES_PASS, shared with K3). One persistent grid
+// of every block the card can hold at once (occupancy x SMs), launched with
+// cudaLaunchCooperativeKernel, phases separated by grid barriers. The depth update and the
+// body block are grid-stride loops. The warm start and every iteration pass go by the
+// waves of the table (solver/solve.py waves_by_key: a maximal run of consecutive live
+// pages of one color c < C of one bank): a wave's rows are dealt over every thread of the
+// grid, a row per thread, its writing sides stored straight, one grid barrier after the
+// wave (the same bits as its pages dealt to the blocks, and faster on the 4,096-body pile:
+// PERF.md). Jacobi pages stay in order on block 0, one slice pass per page. While block 0
+// solves one, cp.async copies the next one's prestep rows, scales, body indices and sort
+// into a second shared-memory stage (38 words a row: the 4 depth rows of the prestep,
+// which the row math does not read, are copied too, to keep one copy loop), where the two
+// stages fit in a block's shared memory (pages of up to 512 rows: ~210 KB of the H100's
+// 227 KB); larger pages are read from the bank (SimConfig.store_page 1,024 and 2,048).
+// Body rows are read as four 16-byte loads (contact_rows.cuh body_row, shared with K2).
 //
 // Writes: an entry (a row side) writes when its row is valid and its body's inertia is
 // not all zero, so statics and rows of dead slots (which keep their retired bodies) and
@@ -69,105 +69,18 @@ struct Params {
   const int* idx2; const float* scale; const int* order; const int* slive; const int* waves;
   int nb, B, sb, n_slices, n_substeps, n_iters, staged;
   StepConsts c;
+  __device__ float inv_h() const { return c.inv_h; }
 };
-
-// Shared memory, in 4-byte words: when staged, two stages of [prestep 32 sb | idx2 |
-// scale | order (2 sb each)]; the deltas D and velocities V (2 sb x 6 each), the write
-// flags (2 sb), then the plan.
-__host__ __device__ constexpr size_t stage_words(int sb) { return (size_t)(PS_ROWS + 6) * sb; }
-__host__ __device__ constexpr size_t smem_words(int sb, int n, bool staged) {
-  return (staged ? 2 * stage_words(sb) : 0) + (size_t)26 * sb + plan_words(n);
-}
-
-struct Smem {
-  float* stage[2];
-  float* D; float* V; int* wr;
-  Plan plan;
-};
-
-__device__ Smem carve(float* smem, int sb, int n, bool staged) {
-  Smem m;
-  m.stage[0] = smem;
-  m.stage[1] = smem + (staged ? stage_words(sb) : 0);
-  m.D = m.stage[1] + (staged ? stage_words(sb) : 0);
-  m.V = m.D + (size_t)12 * sb;
-  m.wr = reinterpret_cast<int*>(m.V + (size_t)12 * sb);
-  m.plan = carve_plan(m.wr + 2 * sb, n);
-  return m;
-}
-
-// Where one slice's state-independent inputs are read: a stage, or the bank.
-struct SliceIn {
-  const float* ps; int ps_stride, ps_col;  // prestep row k of row r: ps[k * stride + col + r]
-  const int* idx; const float* sc; const int* ord;  // 2 sb entries each
-};
-
-__device__ SliceIn staged_in(const float* st, int sb) {
-  const int* idx = reinterpret_cast<const int*>(st + (size_t)PS_ROWS * sb);
-  const float* sc = reinterpret_cast<const float*>(idx + 2 * sb);
-  return {st, sb, 0, idx, sc, reinterpret_cast<const int*>(sc + 2 * sb)};
-}
-
-__device__ SliceIn bank_in(const Params& p, int sl) {
-  const size_t e0 = (size_t)sl * 2 * p.sb;
-  return {p.ps, p.B, sl * p.sb, p.idx2 + e0, p.scale + e0, p.order + e0};
-}
-
-// Copy slice sl's state-independent inputs into a stage, 16 bytes per copy.
-__device__ void stage_slice(const Params& p, float* st, int sl) {
-  const int sb = p.sb;
-  const size_t e0 = (size_t)sl * 2 * sb;
-  stage_rows(st, p.ps + (size_t)sl * sb, p.B, PS_ROWS, sb);
-  stage_arrays(st + (size_t)PS_ROWS * sb, 3, 2 * sb, e0, p.idx2, p.scale, p.order);
-  __pipeline_commit();
-}
-
-// One live slice of warm start (solve = false) or of one velocity iteration: rows
-// (contact_rows.cuh body_row), then each body's run summed in the slice's writer-first
-// stable sort (waves.cuh sum_runs).
-__device__ void run_slice(const Params& p, const Smem& m, const SliceIn& in, int sl,
-                          bool solve) {
-  const int sb = p.sb;
-  for (int r = threadIdx.x; r < sb; r += blockDim.x) {
-    bool still_a, still_b;
-    body_row(p.bg, in.ps, in.ps_stride, in.ps_col + r, p.imp, p.dep, p.B, sl * sb + r,
-             in.idx[r], in.idx[sb + r], in.sc[r], in.sc[sb + r], solve, p.c.inv_h,
-             m.D + (size_t)r * 6, m.D + (size_t)(sb + r) * 6, m.V + (size_t)r * 6,
-             m.V + (size_t)(sb + r) * 6, &still_a, &still_b);
-    const bool valid = in.ps[(size_t)PS_VALID * in.ps_stride + in.ps_col + r] > 0.5f;
-    m.wr[r] = valid && !still_a;
-    m.wr[sb + r] = valid && !still_b;
-  }
-  __syncthreads();
-  sum_runs(p.bg, 16, in.idx, in.ord, m.D, m.V, m.wr, 2 * sb);
-}
-
-// One row of a colored wave dealt over the grid: inputs read from the bank, the writing
-// sides stored straight.
-__device__ void run_row(const Params& p, int sl, int r, bool solve) {
-  const int sb = p.sb;
-  const size_t e0 = (size_t)sl * 2 * sb;
-  const int ba = p.idx2[e0 + r], bb = p.idx2[e0 + sb + r];
-  const int col = sl * sb + r;
-  float da[6], db[6], va6[6], vb6[6];
-  bool still_a, still_b;
-  body_row(p.bg, p.ps, p.B, col, p.imp, p.dep, p.B, col, ba, bb, p.scale[e0 + r],
-           p.scale[e0 + sb + r], solve, p.c.inv_h, da, db, va6, vb6, &still_a, &still_b);
-  const bool valid = p.ps[(size_t)PS_VALID * p.B + col] > 0.5f;
-  store_row(p.bg, 16, ba, bb, valid && !still_a, valid && !still_b, va6, vb6, da, db);
-}
 
 __global__ void __launch_bounds__(NTHREADS, 1) substeps_contacts_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
-  const Smem m = carve(smem, p.sb, p.n_slices, p.staged);
+  const pages::Smem m = pages::carve(smem, p.sb, p.n_slices, p.staged);
   plan(p.waves, p.n_slices, m.plan, true);
-  const int nseg = m.plan.counts[0], njobs = m.plan.counts[1];
-  const int* jobs = m.plan.jobs;
-  const int sb = p.sb;
-  const int gtid = blockIdx.x * blockDim.x + threadIdx.x, gstride = gridDim.x * blockDim.x;
+  const pages::Walk w = pages::walk_of(m.plan, p.sb);
+  const int sb = w.sb, gtid = w.gtid, gstride = w.gstride;
   int buf = 0;
-  if (p.staged && njobs > 0) stage_slice(p, m.stage[0], jobs[0]);
+  if (p.staged && w.njobs > 0) pages::stage_slice(p, m.stage[0], m.plan.jobs[0]);
   for (int s = 0; s < p.n_substeps; ++s) {
     // Phase 0: incremental depth update for substeps after the first. It reads the
     // velocities only, so every live slice's rows run at once.
@@ -191,41 +104,13 @@ __global__ void __launch_bounds__(NTHREADS, 1) substeps_contacts_kernel(Params p
     }
     grid.sync();
     // The warm start, then the velocity iterations: the same waves in every pass.
-    for (int pass = 0; pass <= p.n_iters; ++pass) {
-      int j = 0;
-      for (int g = 0; g < nseg; ++g) {
-        const int len = m.plan.segl[g];
-        if (len > 0) {  // a color's wave: its rows over the grid
-          const int a = m.plan.sega[g];
-          for (int q = gtid; q < len * sb; q += gstride)
-            run_row(p, m.plan.live[a + q / sb], q % sb, pass > 0);
-        } else {  // Jacobi pages, in order on block 0
-          for (int t = 0; t < m.plan.segn[g]; ++t, ++j) {
-            if (p.staged) __pipeline_wait_prior(0);
-            __syncthreads();  // this stage landed; the previous slice is done with the other
-            if (p.staged) stage_slice(p, m.stage[buf ^ 1], jobs[j + 1 < njobs ? j + 1 : 0]);
-            run_slice(p, m, p.staged ? staged_in(m.stage[buf], sb) : bank_in(p, jobs[j]),
-                      jobs[j], pass > 0);
-            buf ^= p.staged;
-          }
-        }
-        grid.sync();
-      }
-    }
+    for (int pass = 0; pass <= p.n_iters; ++pass)
+      PAGES_PASS(true, p, m, w, grid, pass > 0, buf);
   }
   __pipeline_wait_prior(0);
 }
 
-size_t grid_cache[2] = {0, 0};
-
-// Whether K1 stages its Jacobi pages: the two stages fit beside the rest in one block's
-// shared memory.
-cudaError_t staged_fits(int sb, int n_slices, bool* staged) {
-  size_t limit = 0;
-  const cudaError_t err = smem_limit(&limit);
-  *staged = smem_words(sb, n_slices, true) * 4 <= limit;
-  return err;
-}
+GridCache grid_cache;
 
 }  // namespace
 
@@ -233,10 +118,10 @@ cudaError_t staged_fits(int sb, int n_slices, bool* staged) {
 // error that keeps it from being co-scheduled.
 extern "C" int substeps_contacts_grid(int sb, int n_slices) {
   bool staged = false;
-  cudaError_t err = staged_fits(sb, n_slices, &staged);
+  cudaError_t err = pages::staged_fits(sb, n_slices, &staged);
   if (err != cudaSuccess) return -(int)err;
   int blocks = 0;
-  err = grid_for(substeps_contacts_kernel, NTHREADS, smem_words(sb, n_slices, staged) * 4,
+  err = grid_for(substeps_contacts_kernel, NTHREADS, pages::smem_words(sb, n_slices, staged) * 4,
                  grid_cache, &blocks);
   return err == cudaSuccess ? blocks : -(int)err;
 }
@@ -249,12 +134,12 @@ extern "C" int substeps_contacts_launch(
     void* stream) {
   if (sb <= 0 || sb % 4 || B % sb) return (int)cudaErrorInvalidValue;
   bool staged = false;
-  cudaError_t err = staged_fits(sb, B / sb, &staged);
+  cudaError_t err = pages::staged_fits(sb, B / sb, &staged);
   if (err != cudaSuccess) return (int)err;
   Params p{bg, pose, aux, ps_t, imp, dep, idx2, scale, order, slive, waves,
            nb, B, sb, B / sb, n_substeps, n_iters, staged,
            {angular_mode, gx, gy, gz, h, inv_h, lin_scale, ang_scale}};
-  const size_t smem = smem_words(sb, B / sb, staged) * 4;
+  const size_t smem = pages::smem_words(sb, B / sb, staged) * 4;
   int blocks = 0;
   err = grid_for(substeps_contacts_kernel, NTHREADS, smem, grid_cache, &blocks);
   if (err != cudaSuccess) return (int)err;

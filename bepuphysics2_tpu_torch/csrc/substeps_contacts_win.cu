@@ -217,7 +217,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) substeps_contacts_win_kernel(WinP
   __pipeline_wait_prior(0);
 }
 
-size_t grid_cache[2] = {0, 0};
+GridCache grid_cache;
 
 }  // namespace
 

@@ -1,7 +1,8 @@
 // The wave walk of the cooperative contact kernels K1 (substeps_contacts.cu), K2
-// (substeps_contacts_win.cu) and K4 (contact_sweep_win.cu): each block's plan read from
-// the wave table, the cp.async staging of a slice's state-independent inputs, the
-// fixed-order sums of its deltas, and the size of a cooperative grid.
+// (substeps_contacts_win.cu), K3 (contact_sweep.cu) and K4 (contact_sweep_win.cu): each
+// block's plan read from the wave table, the cp.async staging of a slice's
+// state-independent inputs, the fixed-order sums of its deltas, the size of a cooperative
+// grid, and (namespace pages) the iteration pass over a page stream that K1 and K3 share.
 //
 // The wave table (solver/solve.py waves_by_key), int32 (2 n + 2,) for n slices: [0] the
 // wave count W; [1 .. n + 1] each wave's first index into the live list, then the live
@@ -15,6 +16,8 @@
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
+
+#include "contact_rows.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -177,36 +180,213 @@ inline cudaError_t smem_limit(size_t* bytes) {
   return err;
 }
 
+// Grid sizes of one kernel found so far, per device and dynamic shared-memory size: a
+// kernel launched on banks of several shapes (K3 on a step's two banks) finds each once.
+struct GridCache {
+  static constexpr int N = 8;
+  int n = 0;
+  int dev[N];
+  size_t smem[N];
+  int blocks[N];
+};
+
 // Blocks of a cooperative grid of `kernel` at `threads` threads and `smem` bytes of dynamic
 // shared memory: co-resident blocks per SM (the occupancy calculator, after raising the
-// kernel's dynamic shared-memory limit) times the SMs. Cached per kernel and size by the
-// caller's `cache` (smem, blocks). cudaErrorLaunchOutOfResources where `smem` is more than
-// one block may use (the wrappers raise ValueError on it).
+// kernel's dynamic shared-memory limit to the largest size cached for the device) times
+// the SMs, from `cache` after the first launch of a size. cudaErrorLaunchOutOfResources
+// where `smem` is more than one block may use (the wrappers raise ValueError on it).
 template <typename Kernel>
-cudaError_t grid_for(Kernel kernel, int threads, size_t smem, size_t cache[2], int* blocks) {
-  if (cache[0] == smem && cache[1] > 0) {
-    *blocks = (int)cache[1];
-    return cudaSuccess;
+cudaError_t grid_for(Kernel kernel, int threads, size_t smem, GridCache& cache, int* blocks) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const int cached = cache.n < GridCache::N ? cache.n : GridCache::N;
+  size_t attr = smem;
+  for (int i = 0; i < cached; ++i) {
+    if (cache.dev[i] != dev) continue;
+    if (cache.smem[i] == smem) {
+      *blocks = cache.blocks[i];
+      return cudaSuccess;
+    }
+    if (cache.smem[i] > attr) attr = cache.smem[i];
   }
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  int sms = 0, coop = 0, per_sm = 0;
   size_t limit = 0;
-  cudaError_t err = smem_limit(&limit);
+  err = smem_limit(&limit);
   if (err == cudaSuccess && smem > limit) err = cudaErrorLaunchOutOfResources;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)attr);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
   if (err != cudaSuccess) return err;
-  cache[0] = smem;
-  cache[1] = (size_t)per_sm * sms;
-  *blocks = (int)cache[1];
+  const int slot = cache.n++ % GridCache::N;
+  cache.dev[slot] = dev;
+  cache.smem[slot] = smem;
+  cache.blocks[slot] = per_sm * sms;
+  *blocks = per_sm * sms;
   return cudaSuccess;
 }
+
+// ---- the iteration pass over a page stream, shared by K1 and K3 --------------------------
+// A bank of slices of sb rows in stream order: P has bg (n, 16) body rows, ps (32, B)
+// prestep rows, imp (8, B) impulses, dep (4, B rows of stride B) depths, idx2 / scale /
+// order (n_slices * 2 * sb), the ints B, sb and staged, and inv_h() the substep's 1 / h.
+namespace pages {
+
+// Shared memory, in 4-byte words: when staged, two stages of [prestep 32 sb | idx2 |
+// scale | order (2 sb each)]; the deltas D and velocities V (2 sb x 6 each), the write
+// flags (2 sb), then the plan.
+__host__ __device__ constexpr size_t stage_words(int sb) { return (size_t)(PS_ROWS + 6) * sb; }
+__host__ __device__ constexpr size_t smem_words(int sb, int n, bool staged) {
+  return (staged ? 2 * stage_words(sb) : 0) + (size_t)26 * sb + plan_words(n);
+}
+
+struct Smem {
+  float* stage[2];
+  float* D; float* V; int* wr;
+  Plan plan;
+};
+
+__device__ Smem carve(float* smem, int sb, int n, bool staged) {
+  Smem m;
+  m.stage[0] = smem;
+  m.stage[1] = smem + (staged ? stage_words(sb) : 0);
+  m.D = m.stage[1] + (staged ? stage_words(sb) : 0);
+  m.V = m.D + (size_t)12 * sb;
+  m.wr = reinterpret_cast<int*>(m.V + (size_t)12 * sb);
+  m.plan = carve_plan(m.wr + 2 * sb, n);
+  return m;
+}
+
+// Where one slice's state-independent inputs are read: a stage, or the bank.
+struct SliceIn {
+  const float* ps; int ps_stride, ps_col;  // prestep row k of row r: ps[k * stride + col + r]
+  const int* idx; const float* sc; const int* ord;  // 2 sb entries each
+};
+
+__device__ SliceIn staged_in(const float* st, int sb) {
+  const int* idx = reinterpret_cast<const int*>(st + (size_t)PS_ROWS * sb);
+  const float* sc = reinterpret_cast<const float*>(idx + 2 * sb);
+  return {st, sb, 0, idx, sc, reinterpret_cast<const int*>(sc + 2 * sb)};
+}
+
+template <typename P>
+__device__ SliceIn bank_in(const P& p, int sl) {
+  const size_t e0 = (size_t)sl * 2 * p.sb;
+  return {p.ps, p.B, sl * p.sb, p.idx2 + e0, p.scale + e0, p.order + e0};
+}
+
+// Copy slice sl's state-independent inputs into a stage, 16 bytes per copy.
+template <typename P>
+__device__ void stage_slice(const P& p, float* st, int sl) {
+  const int sb = p.sb;
+  const size_t e0 = (size_t)sl * 2 * sb;
+  stage_rows(st, p.ps + (size_t)sl * sb, p.B, PS_ROWS, sb);
+  stage_arrays(st + (size_t)PS_ROWS * sb, 3, 2 * sb, e0, p.idx2, p.scale, p.order);
+  __pipeline_commit();
+}
+
+// One live slice of warm start (solve = false) or of one velocity iteration: rows
+// (contact_rows.cuh body_row), then each body's run summed in the slice's writer-first
+// stable sort (sum_runs).
+template <typename P>
+__device__ void run_slice(const P& p, const Smem& m, const SliceIn& in, int sl, bool solve) {
+  const int sb = p.sb;
+  for (int r = threadIdx.x; r < sb; r += blockDim.x) {
+    bool still_a, still_b;
+    body_row(p.bg, in.ps, in.ps_stride, in.ps_col + r, p.imp, p.dep, p.B, sl * sb + r,
+             in.idx[r], in.idx[sb + r], in.sc[r], in.sc[sb + r], solve, p.inv_h(),
+             m.D + (size_t)r * 6, m.D + (size_t)(sb + r) * 6, m.V + (size_t)r * 6,
+             m.V + (size_t)(sb + r) * 6, &still_a, &still_b);
+    const bool valid = in.ps[(size_t)PS_VALID * in.ps_stride + in.ps_col + r] > 0.5f;
+    m.wr[r] = valid && !still_a;
+    m.wr[sb + r] = valid && !still_b;
+  }
+  __syncthreads();
+  sum_runs(p.bg, 16, in.idx, in.ord, m.D, m.V, m.wr, 2 * sb);
+}
+
+// One row of a colored wave dealt over the grid: inputs read from the bank, the writing
+// sides stored straight.
+template <typename P>
+__device__ void run_row(const P& p, int sl, int r, bool solve) {
+  const int sb = p.sb;
+  const size_t e0 = (size_t)sl * 2 * sb;
+  const int ba = p.idx2[e0 + r], bb = p.idx2[e0 + sb + r];
+  const int col = sl * sb + r;
+  float da[6], db[6], va6[6], vb6[6];
+  bool still_a, still_b;
+  body_row(p.bg, p.ps, p.B, col, p.imp, p.dep, p.B, col, ba, bb, p.scale[e0 + r],
+           p.scale[e0 + sb + r], solve, p.inv_h(), da, db, va6, vb6, &still_a, &still_b);
+  const bool valid = p.ps[(size_t)PS_VALID * p.B + col] > 0.5f;
+  store_row(p.bg, 16, ba, bb, valid && !still_a, valid && !still_b, va6, vb6, da, db);
+}
+
+// What a block keeps in registers across its passes, read once after plan(): its plan's
+// segment and job counts, the rows of a slice, and its place in the grid.
+struct Walk {
+  int nseg, njobs, sb, gtid, gstride;
+};
+
+__device__ __forceinline__ Walk walk_of(const Plan& plan, int sb) {
+  return {plan.counts[0], plan.counts[1], sb, (int)(blockIdx.x * blockDim.x + threadIdx.x),
+          (int)(gridDim.x * blockDim.x)};
+}
+
+// One pass over every wave of the plan, warm start (solve false) or one velocity
+// iteration. A color's wave has its rows dealt over every thread of the grid, a row per
+// thread, its writing sides stored straight (deal_rows, with a plan made by rows), or its
+// slices dealt to the blocks (a plan made by slices); Jacobi and other one-slice waves run
+// in order on block 0. A block walking slices stages its next one's inputs (when staged)
+// while it solves this one. One grid barrier after each segment. `buf` (an int lvalue) is
+// the block's current stage, carried across passes; the caller stages the plan's first
+// job before the first pass. A macro, expanded in the kernel: as a function (force-inlined
+// or not, its arguments by reference or by value) nvcc compiled K1 0.7-4% slower than with
+// the loop written in the kernel; expanded, with the slice size read once into the walk,
+// it compiles to the parent K1's SASS and time (PERF.md).
+#define PAGES_PASS(deal_rows, p, m, w, grid, solve, buf)                                      \
+  do {                                                                                        \
+    const int pp_sb = (w).sb, pp_njobs = (w).njobs;                                           \
+    const int* pp_jobs = (m).plan.jobs;                                                       \
+    int pp_j = 0;                                                                             \
+    for (int pp_g = 0; pp_g < (w).nseg; ++pp_g) {                                             \
+      const int pp_len = (m).plan.segl[pp_g];                                                 \
+      if ((deal_rows) && pp_len > 0) { /* a color's wave: its rows over the grid */           \
+        const int pp_a = (m).plan.sega[pp_g];                                                 \
+        for (int pp_q = (w).gtid; pp_q < pp_len * pp_sb; pp_q += (w).gstride)                 \
+          pages::run_row(p, (m).plan.live[pp_a + pp_q / pp_sb], pp_q % pp_sb, solve);         \
+      } else { /* this block's slices of the segment, in order */                             \
+        for (int pp_t = 0; pp_t < (m).plan.segn[pp_g]; ++pp_t, ++pp_j) {                      \
+          if ((p).staged) __pipeline_wait_prior(0);                                           \
+          __syncthreads(); /* this stage landed; the previous slice is done with the other */ \
+          if ((p).staged)                                                                     \
+            pages::stage_slice(p, (m).stage[(buf) ^ 1],                                       \
+                               pp_jobs[pp_j + 1 < pp_njobs ? pp_j + 1 : 0]);                  \
+          pages::run_slice(p, m,                                                              \
+                           (p).staged ? pages::staged_in((m).stage[buf], pp_sb)               \
+                                      : pages::bank_in(p, pp_jobs[pp_j]),                     \
+                           pp_jobs[pp_j], solve);                                             \
+          (buf) ^= (p).staged;                                                                \
+        }                                                                                     \
+      }                                                                                       \
+      (grid).sync();                                                                          \
+    }                                                                                         \
+  } while (0)
+
+// Whether the two stages fit beside the rest in one block's shared memory (pages of up
+// to 512 rows on the H100; larger pages are read from the bank).
+inline cudaError_t staged_fits(int sb, int n_slices, bool* staged) {
+  size_t limit = 0;
+  const cudaError_t err = smem_limit(&limit);
+  *staged = smem_words(sb, n_slices, true) * 4 <= limit;
+  return err;
+}
+
+}  // namespace pages
 
 }  // namespace

@@ -42,64 +42,81 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
-def source_key(name: str, csrc: Path = CSRC) -> str:
+def source_key(name: str, csrc: Path = CSRC, defines=()) -> str:
     """Build key of ``<csrc>/<name>.cu``: a hash of that source, of every header in
-    ``csrc`` (name and bytes, in name order) and of the compiler flags."""
+    ``csrc`` (name and bytes, in name order), of the compiler flags and of the extra
+    ``defines``, if any."""
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if defines:
+        h.update(("\0" + " ".join(defines)).encode())
     return h.hexdigest()[:16]
 
 
-def load_all(names):
-    """Build (where needed) and load ``csrc/<name>.cu`` for every name, one ``nvcc`` per
-    source, all started together. Returns {name: (ctypes.CDLL, build seconds)}; the
-    seconds are 0.0 for a library that was already built or loaded."""
+def label(name: str, defines=()) -> str:
+    """The key of a library in ``load_all``'s result: ``name``, or ``name[defines]`` for a
+    variant built with extra ``-D`` defines."""
+    return f"{name}[{' '.join(defines)}]" if defines else name
+
+
+def load_all(names, variants=()):
+    """Build (where needed) and load ``csrc/<name>.cu`` for every name, and for every
+    (name, defines) pair of ``variants`` the same source built with ``-D`` each define (a
+    variant for measurement, such as K5's ``K5_PARTS``); one ``nvcc`` per library, all
+    started together. Returns {label: (ctypes.CDLL, build seconds)} keyed by ``label``;
+    the seconds are 0.0 for a library that was already built or loaded."""
+    jobs = [(name, ()) for name in names] + [(name, tuple(d)) for name, d in variants]
     procs, out = {}, {}
-    for name in names:
-        if name in _loaded or name in procs:
+    for name, defines in jobs:
+        lab = label(name, defines)
+        if lab in _loaded or lab in procs:
             continue
-        key = source_key(name)
+        key = source_key(name, defines=defines)
         lib_path = BUILD_DIR / f"{name}-{key}.so"
         if lib_path.exists():
-            out[name] = (lib_path, 0.0)
+            out[lab] = (lib_path, 0.0)
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib_path, tmp, key, time.perf_counter())
-    for name, (proc, lib_path, tmp, key, t0) in procs.items():
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[lab] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True), lib_path, tmp, name, key, time.perf_counter())
+    for lab, (proc, lib_path, tmp, name, key, t0) in procs.items():
         log, _ = proc.communicate()
         seconds = time.perf_counter() - t0
         (BUILD_DIR / f"{name}-{key}.log").write_text(log)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+            raise RuntimeError(f"nvcc failed for {lab}:\n{log}")
         os.replace(tmp, lib_path)
-        out[name] = (lib_path, seconds)
-    for name, (lib_path, seconds) in out.items():
-        _loaded[name] = ctypes.CDLL(str(lib_path))
-    return {name: (_loaded[name], out[name][1] if name in out else 0.0) for name in names}
+        out[lab] = (lib_path, seconds)
+    for lab, (lib_path, seconds) in out.items():
+        _loaded[lab] = ctypes.CDLL(str(lib_path))
+    labels = [label(name, defines) for name, defines in jobs]
+    return {lab: (_loaded[lab], out[lab][1] if lab in out else 0.0) for lab in labels}
 
 
-def load(name: str):
-    """Build (if needed) and load ``csrc/<name>.cu``. Returns (ctypes.CDLL, build seconds;
-    0.0 when the library was already built or loaded)."""
-    return load_all([name])[name]
+def load(name: str, defines=()):
+    """Build (if needed) and load ``csrc/<name>.cu`` (with ``defines``, a variant).
+    Returns (ctypes.CDLL, build seconds; 0.0 when the library was already built or
+    loaded)."""
+    return load_all([], [(name, defines)])[label(name, defines)]
 
 
-def bind(name: str, fn_name: str, argtypes):
-    """The C entry point ``fn_name`` of ``csrc/<name>.cu``, built and loaded at the first
-    call, with ``restype`` c_int (the CUDA error code) and ``argtypes`` set then. Later
-    calls return the same cached function object."""
-    fn = _bound.get((name, fn_name))
+def bind(name: str, fn_name: str, argtypes, defines=()):
+    """The C entry point ``fn_name`` of ``csrc/<name>.cu`` (with ``defines``, a variant),
+    built and loaded at the first call, with ``restype`` c_int (the CUDA error code) and
+    ``argtypes`` set then. Later calls return the same cached function object."""
+    key = (label(name, defines), fn_name)
+    fn = _bound.get(key)
     if fn is None:
-        lib, _ = load(name)
+        lib, _ = load(name, defines) if defines else load(name)
         fn = getattr(lib, fn_name)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
-        _bound[(name, fn_name)] = fn
+        _bound[key] = fn
     return fn
 
 

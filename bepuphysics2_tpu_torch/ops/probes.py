@@ -86,9 +86,10 @@ def _route(name, dev):
 
 
 def sweep_smem_bytes(nb, m):
-    """K5's shared memory: the (NB, 8) state, a pass's (M, 8) deltas, its body list and
-    their stable sort, and one partial sum per warp."""
-    return nb * 32 + m * 32 + m * 8 + SWEEP_WARPS * 4
+    """K5's shared memory: the (NB, 8) state, a pass's (M, 8) deltas, two stages of a
+    pass's body list, stable sort and distinct flag (with 3 unused words), and one
+    partial sum per warp."""
+    return nb * 32 + m * 32 + 2 * (2 * m + 4) * 4 + SWEEP_WARPS * 4
 
 
 def _stable_order(idx):
@@ -96,8 +97,16 @@ def _stable_order(idx):
     return torch.sort(idx, dim=-1, stable=True).indices.to(torch.int32).contiguous()
 
 
+def distinct_passes(idx, order):
+    """(passes,) int32: 1 where a pass's bodies are pairwise distinct, from its stable
+    sort ``order`` (``_stable_order``): no two neighbours in sorted order are equal. K5
+    adds such a pass's deltas from registers, one writer per body."""
+    s = torch.gather(idx, 1, order.long())
+    return (s[:, 1:] != s[:, :-1]).all(1).to(torch.int32)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SWEEP_ARGS = [_P] * 4 + [_I] * 6 + [_P]
+_SWEEP_ARGS = [_P] * 5 + [_I] * 6 + [_P]
 _GATHER_ARGS = [_P] * 3 + [_I] * 3 + [_P]
 _SCATTER_ARGS = [_P] * 5 + [_I] * 3 + [_P]
 
@@ -135,16 +144,17 @@ def _probe_sweep_plain(state, idx, lanes, transposed, mode):
     return to_state(V, lanes, transposed)
 
 
-def probe_sweep(state, idx, *, lanes, transposed, mode="B", order=None):
+def probe_sweep(state, idx, *, lanes, transposed, mode="B", order=None, distinct=None):
     """Run every pass of ``idx`` ((passes, M) int32 body lists) over ``state`` (float32,
     the layout of ``lanes`` and ``transposed``). Returns the new state, same layout.
 
     ``mode`` is v2's: "A" and "B" the sweep, "C" gather and arithmetic only (each pass
     adds 1e-30 times the sum of its deltas to ``state[0, 0]``), "D" the sweep with each
     row gathering component 0 of bodies ``idx // L · L`` to ``+ 7``. ``order`` is the
-    per-pass stable sort of ``idx`` (int32, made here when omitted). Indices must lie in
-    [0, NB): the plain version raises on others, the kernel leaves their rows out.
-    Raises ``ValueError`` when K5's shared memory would exceed one block's."""
+    per-pass stable sort of ``idx`` and ``distinct`` its ``distinct_passes`` (int32, made
+    here when omitted). Indices must lie in [0, NB): the plain version raises on others,
+    the kernel leaves their rows out. Raises ``ValueError`` when K5's shared memory would
+    exceed one block's."""
     dev = state.device
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} is not one of {sorted(MODES)}")
@@ -160,6 +170,8 @@ def probe_sweep(state, idx, *, lanes, transposed, mode="B", order=None):
     _check("idx", idx, (passes, m), torch.int32, dev)
     if order is not None:
         _check("order", order, (passes, m), torch.int32, dev)
+    if distinct is not None:
+        _check("distinct", distinct, (passes,), torch.int32, dev)
     if mode == "D" and lanes < 8:
         raise ValueError("mode D gathers 8 lanes of a chunk: it needs lanes >= 8")
     smem = sweep_smem_bytes(nb, m)
@@ -171,8 +183,11 @@ def probe_sweep(state, idx, *, lanes, transposed, mode="B", order=None):
     out = torch.empty_like(state)
     if order is None:
         order = _stable_order(idx)
-    _launch("probe_sweep", "probe_sweep_launch", _SWEEP_ARGS, state.data_ptr(), out.data_ptr(), idx.data_ptr(),
-            order.data_ptr(), nb, m, passes, lanes, int(transposed), MODES[mode], _stream(dev))
+    if distinct is None:
+        distinct = distinct_passes(idx, order)
+    _launch("probe_sweep", "probe_sweep_launch", _SWEEP_ARGS, state.data_ptr(), out.data_ptr(),
+            idx.data_ptr(), order.data_ptr(), distinct.data_ptr(), nb, m, passes, lanes,
+            int(transposed), MODES[mode], _stream(dev))
     probe_sweep.launches += 1
     return out
 

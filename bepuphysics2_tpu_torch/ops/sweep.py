@@ -569,22 +569,28 @@ def _contact_sweep_plain(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, *, sb, n
     return V, imp
 
 
-def _launch_sweep_kernel(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb, n_iters):
+def sweep_writes(ps_t, inertia7, idx2, sb: int):
+    """(n_slices, 2 * sb) bool: the entries (row sides) K3 writes: a valid row's side
+    whose body's ``inertia7`` row is not all zero."""
+    idx = idx2.view(-1, 2 * sb).long()
+    return row_valid(ps_t, sb) & (inertia7 != 0).any(1)[idx]
+
+
+def _launch_sweep_kernel(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb, n_iters, order,
+                         waves):
     fn = build.bind("contact_sweep", "contact_sweep_launch", _K3_ARGS)
     nb, B = v6.shape[0], ps_t.shape[1]
-    n_slices = B // sb
     bg = torch.zeros((nb, 16), dtype=torch.float32, device=v6.device)
     bg[:, :6] = v6
     bg[:, 8:15] = inertia7
     imp = imp_t.clone()
-    order = torch.sort(idx2.view(n_slices, 2 * sb), dim=1, stable=True).indices
-    order = order.to(torch.int32).contiguous()
-    slive = (ps_t[PS_VALID].view(n_slices, sb) > 0.5).any(dim=1).to(torch.int32)
+    if order is None:
+        order = writer_order(idx2.view(-1, 2 * sb), sweep_writes(ps_t, inertia7, idx2, sb))
     err = fn(bg.data_ptr(), ps_t.data_ptr(), imp.data_ptr(), idx2.data_ptr(), scale.data_ptr(),
-             order.data_ptr(), slive.data_ptr(), B, sb, n_iters, float(inv_h),
+             order.data_ptr(), waves.data_ptr(), B, sb, n_iters, float(inv_h),
              build.raw_stream(v6.device))
     if err != 0:
-        raise RuntimeError(f"contact_sweep kernel launch failed: CUDA error {err}")
+        raise _launch_failed("contact_sweep", err, sb, B // sb)
     contact_sweep.launches += 1
     return bg[:, :6].contiguous(), imp
 
@@ -600,13 +606,17 @@ def contact_sweep(
     *,
     sb: int,
     n_iters: int,
+    order=None,  # writer_order of idx2 and sweep_writes, kept across launches
+    waves=None,  # (2 * n_slices + 2,) int32 wave table (solver.solve.page_wave_table)
 ):
     """Run ``n_iters`` Gauss-Seidel sweeps over all slices of one contact bank within one
     substep: no integration, no warm start, depths from the prestep rows. Returns
     (v6', imp_t').
 
-    CUDA tensors go through the CUDA kernel (one launch, counted in
-    ``contact_sweep.launches``); CPU tensors through the plain version."""
+    CUDA tensors go through the CUDA kernel (one cooperative launch over the card,
+    counted in ``contact_sweep.launches``), which needs ``waves`` and runs each wave's
+    rows at once; CPU tensors through the plain version, which walks the live slices in
+    order and ignores ``waves`` and ``order``."""
     dev = v6.device
     B = ps_t.shape[1]
     nb = v6.shape[0]
@@ -619,8 +629,14 @@ def contact_sweep(
     _check("imp_t", imp_t, (IMP_ROWS, B), f32, dev)
     _check("idx2", idx2, (2 * B,), torch.int32, dev)
     _check("scale", scale, (2 * B,), f32, dev)
+    if order is not None:
+        _check("order", order, (B // sb, 2 * sb), torch.int32, dev)
     if dev.type == "cuda":
-        return _launch_sweep_kernel(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb, n_iters)
+        _check_waves("K3", waves, B // sb, dev)
+        _check_aligned("K3", ps_t=ps_t, idx2=idx2, scale=scale,
+                       **({} if order is None else {"order": order}))
+        return _launch_sweep_kernel(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb, n_iters,
+                                    order, waves)
     if dev.type != "cpu":
         raise ValueError(f"contact_sweep runs on cuda or cpu, not {dev.type}")
     return _contact_sweep_plain(v6, inertia7, ps_t, imp_t, idx2, scale, inv_h, sb=sb,
@@ -631,15 +647,17 @@ contact_sweep.launches = 0
 
 
 def synthetic_sweep_bank(nb: int, sb: int, n_colored: int, n_jacobi: int, seed: int,
-                         dt: float = 1.0 / 60.0, substeps: int = 4):
+                         dt: float = 1.0 / 60.0, substeps: int = 4, slices_per_color=None):
     """A seeded K3 input, as numpy arrays: ``synthetic_bank``'s velocities, rows and
-    structure (colored slices, Jacobi slices with mass-split scales, padding), with each
-    body's ``inertia7`` row (inverse mass and world inverse inertia; zero for the static
-    body 0)."""
-    bank = synthetic_bank(nb, sb, n_colored, n_jacobi, seed, dt=dt, substeps=substeps)
+    structure (colored slices, ``slices_per_color`` of them per color when given, Jacobi
+    slices with mass-split scales, padding) and its wave table ``waves``, with each body's
+    ``inertia7`` row (inverse mass and world inverse inertia; zero for the static body
+    0)."""
+    bank = synthetic_bank(nb, sb, n_colored, n_jacobi, seed, dt=dt, substeps=substeps,
+                          slices_per_color=slices_per_color)
     return dict(v6=bank["v6"], inertia7=_inertia7_np(bank), ps_t=bank["ps_t"],
                 imp_t=bank["imp_t"], idx2=bank["idx2"], scale=bank["scale"], h=bank["h"],
-                inv_h=bank["inv_h"], sb=sb)
+                inv_h=bank["inv_h"], sb=sb, waves=bank["waves"])
 
 
 def _inertia7_np(bank: dict):
@@ -761,7 +779,7 @@ def wave_shape(waves):
 
 def wave_grid(name: str, sb: int, n_slices: int) -> int:
     """Blocks of a cooperative kernel's grid on the current card (``name`` the source of
-    K1, K2 or K4): the co-resident blocks per SM at its shared memory for ``n_slices``
+    K1, K2, K3 or K4): the co-resident blocks per SM at its shared memory for ``n_slices``
     slices of ``sb`` rows, times the SMs."""
     fn = build.bind(name, f"{name}_grid", [_I, _I])
     grid = fn(sb, n_slices)

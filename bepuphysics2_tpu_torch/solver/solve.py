@@ -102,18 +102,17 @@ def wave_table(wseg, gid, n_narrow: int, nblk: int, num_colors: int):
     return psweep.waves_by_key(torch.where(colored, color, -1), wseg[:, 0] >= 0)
 
 
-def page_wave_table(page_colors, ps_t, page: int, num_colors: int):
-    """K1's wave table over a page stream, by tensor ops alone: ``page_colors`` is a list
-    of each bank's per-slice colors in stream order (the store's ``page_color`` in
-    execution order; a compound bucket's slice k has color k // (cap / page) while that is
-    below C), ``ps_t`` the packed stream (a slice is live when it holds a valid row). A
-    color c < C keys c offset by C per bank, so no wave spans two banks; Jacobi and empty
-    slices are waves of their own."""
+def page_wave_table(page_colors, valid, page: int, num_colors: int):
+    """The wave table of K1 and K3 over a page stream, by tensor ops alone:
+    ``page_colors`` is a list of each bank's per-slice colors in stream order (the store's
+    ``page_color`` in execution order; a compound bucket's slice k has color k // (cap /
+    page) while that is below C), ``valid`` (B,) bool each row's validity (a slice is live
+    when it holds a valid row). A color c < C keys c offset by C per bank, so no wave spans
+    two banks; Jacobi and empty slices are waves of their own."""
     C = num_colors
     key = torch.cat([torch.where((c >= 0) & (c < C), c.long() + C * k, -1)
                      for k, c in enumerate(page_colors)])
-    live = (ps_t[psweep.PS_VALID].reshape(-1, page) > 0.5).any(dim=1)
-    return psweep.waves_by_key(key, live)
+    return psweep.waves_by_key(key, valid.reshape(-1, page).any(dim=1))
 
 
 def bucket_page_colors(cap: int, n_rows: int, page: int, num_colors: int, device):
@@ -266,7 +265,7 @@ def _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win: bool)
         idx2 = torch.cat([Ix[:, 0].reshape(nsl, page), Ix[:, 1].reshape(nsl, page)], 1).reshape(-1)
         scale = torch.cat([sa_x.reshape(nsl, page), sb_x.reshape(nsl, page)], 1).reshape(-1)
         ps_x = Mx[:, :32].T.contiguous()
-        waves = page_wave_table([st.page_color[pp]], ps_x, page, C)
+        waves = page_wave_table([st.page_color[pp]], ps_x[psweep.PS_VALID] > 0.5, page, C)
         state, imp_out = _k1_solve(state, integrator_cfg, cfg, ps_x, Mx[:, 32:40].T.contiguous(),
                                    idx2.to(torch.int32).contiguous(), scale.contiguous(), page,
                                    h, inv_h, waves)
@@ -437,6 +436,17 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
             b["k_scale"] = bk_mod.slice_major(b["sa"], b["sb"], page)
             b["k_sb"] = page
         b["spring"] = compute_springiness(b["ps"].spring, h)
+    if tb_names and not use_win:
+        # K3's tables, once per step: each bank's waves over its own page colors, and its
+        # sums' order, writing entries (valid rows' sides on bodies with inertia) first.
+        still = psweep.body_still(state.inv_mass, state.inv_inertia)
+        for k, b in enumerate(buckets):
+            valid, idx = b["ps"].valid, b["k_idx2"].view(-1, 2 * page)
+            colors = (st.page_color[pp] if k == 0 else bucket_page_colors(
+                b["cap"], valid.shape[0], page, C, dev))
+            b["k_waves"] = page_wave_table([colors], valid, page, C)
+            writes = bk_mod.slice_major(valid, valid, page).view(-1, 2 * page) & ~still[idx.long()]
+            b["k_order"] = psweep.writer_order(idx, writes)
 
     if ju is None:
         # Contact-only: the JAX package's whole-solve branch (solve.py:1785-1856), one K1
@@ -452,7 +462,7 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
             pack(lambda b: psweep.pack_contact_impulses_cols(b["imp"]).T),
             torch.cat([b["k_idx2"] for b in buckets]).contiguous(),
             torch.cat([b["k_scale"] for b in buckets]).contiguous(), page, h, inv_h,
-            page_wave_table(colors, ps_k, page, C))
+            page_wave_table(colors, ps_k[psweep.PS_VALID] > 0.5, page, C))
         imps, off = [], 0
         for b in buckets:
             n = b["ps"].body_a.shape[0]
@@ -584,7 +594,8 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
         """One velocity iteration of one contact bank through its kernel."""
         if "wseg" not in b:
             return psweep.contact_sweep(v6.contiguous(), it_t, ps_t, imp_t, b["k_idx2"],
-                                        b["k_scale"], inv_h, sb=b["k_sb"], n_iters=1)
+                                        b["k_scale"], inv_h, sb=b["k_sb"], n_iters=1,
+                                        order=b["k_order"], waves=b["k_waves"])
         pos_slot, slot_pos = b["lay"]["pos_slot"], b["lay"]["slot_pos"].long()
         v6p, imp_t = psweep.contact_sweep_win(
             windowing.permute_rows(v6, pos_slot).contiguous(), it_t, ps_t, imp_t, b["whi2"],

@@ -158,19 +158,28 @@ def phase_device():
     return name, smi
 
 
+# K5 built with parts of its one-writer pass left out, to split a pass's time (phase 21):
+# (label, K5_PARTS) as csrc/probe_sweep.cu defines them.
+K5_PARTS = (("indices only", 0), ("no math", 6), ("no scatter", 5))
+
+
 def phase_build():
-    """Every kernel, one nvcc each, started together; they share contact_rows.cuh."""
+    """Every kernel, and K5's breakdown variants, one nvcc each, started together; K1-K4
+    share contact_rows.cuh and waves.cuh."""
     from bepuphysics2_tpu_torch.ops import build
 
     names = tuple(build.KERNELS.items())
     t0 = time.perf_counter()
-    built = build.load_all([n for _, n in names])
+    built = build.load_all([n for _, n in names],
+                           [("probe_sweep", (f"K5_PARTS={k}",)) for _, k in K5_PARTS])
     wall = time.perf_counter() - t0
     for label, name in names:
         report = [ln.strip() for ln in build.build_log(name).splitlines()
                   if "registers" in ln or "spill" in ln]
         print(f"[2 build] {label} built for sm_90a in {built[name][1]:.2f} s "
               f"(all in {wall:.2f} s); ptxas: {' | '.join(report)}")
+    print(f"[2 build] K5 breakdown variants (K5_PARTS {[k for _, k in K5_PARTS]}) built in "
+          f"{max(v[1] for k, v in built.items() if '[' in k):.2f} s")
 
 
 # --- bounds: the least time the card could take for a kernel's work -----------------------
@@ -427,12 +436,10 @@ def _k1_steps(sim, steps):
     return calls, tables
 
 
-def _k1_structure(page_colors, ps_t, page, num_colors):
-    """(live pages per color, the other live pages: Jacobi) of one K1 wave table's
-    inputs."""
-    from bepuphysics2_tpu_torch.ops import sweep
-
-    live = (ps_t[sweep.PS_VALID].reshape(-1, page) > 0.5).any(1).cpu()
+def _k1_structure(page_colors, valid, page, num_colors):
+    """(live pages per color, the other live pages: Jacobi) of one K1 or K3 wave table's
+    inputs (``solver.solve.page_wave_table``)."""
+    live = valid.reshape(-1, page).any(1).cpu()
     col = torch.cat(list(page_colors)).cpu()
     per_color = [int((live & (col == c)).sum()) for c in range(num_colors)]
     return per_color, int(live.sum()) - sum(per_color)
@@ -823,29 +830,127 @@ def _card_steps_from_cpu(sim, dev, state, frames, held=None):
     return worst_held, worst_all, state
 
 
-def phase_kernel_k3(dev):
-    """K3 against its plain version at the tube's compound-bank shapes: 336 bodies, 61
-    slices of 128 rows (48 colored, 13 Jacobi), one velocity iteration."""
+K3_COLORS = (6,) * 8  # phase 11's bank: 8 colors of 6 slices of 128 rows, 13 Jacobi slices
+TUBE_K3_STEPS = 60  # the tube's steps (default settings) before tools/k2_vs_parent.py
+                    # records its K3 calls
+
+
+def k3_bank(dev):
+    """Phase 11's bank: K3's input at the tube's compound-bank shapes (336 bodies, 61
+    slices of 128 rows: 8 colors of 6 slices, then 13 Jacobi slices), one velocity
+    iteration, with its wave table and its sums' order made once, as the main path makes
+    them once per step. Returns (args, kw) of a ``contact_sweep`` call."""
     from bepuphysics2_tpu_torch.ops import sweep
 
-    bank = sweep.synthetic_sweep_bank(336, 128, n_colored=48, n_jacobi=13, seed=4)
+    bank = sweep.synthetic_sweep_bank(336, 128, n_colored=sum(K3_COLORS), n_jacobi=13, seed=4,
+                                      slices_per_color=list(K3_COLORS))
     args = sweep.sweep_bank_args(bank, dev)
-    kw = dict(sb=128, n_iters=1)
+    ps_t, idx2, sb = args[2], args[4], bank["sb"]
+    order = sweep.writer_order(idx2.view(-1, 2 * sb), sweep.sweep_writes(ps_t, args[1], idx2, sb))
+    return args, dict(sb=sb, n_iters=1, waves=torch.from_numpy(bank["waves"]).to(dev),
+                      order=order)
+
+
+def _k3_entries(args, sb):
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    inertia7, ps_t, idx2 = args[1], args[2], args[4]
+    live = (ps_t[sweep.PS_VALID].reshape(-1, sb) > 0.5).any(1)
+    return [t.cpu() for t in (idx2.reshape(-1, 2 * sb).long(),
+                              sweep.sweep_writes(ps_t, inertia7, idx2, sb),
+                              sweep.row_valid(ps_t, sb), live)]
+
+
+def _k3_steps(sim, steps):
+    """Run ``steps`` steps of a K3 scene, recording every K3 call on the card and the
+    inputs of every K3 wave table (``solver.solve.page_wave_table``), then hold each
+    call's table to its contract and its order to ``writer_order``. Returns (calls,
+    tables, checked)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+    from bepuphysics2_tpu_torch.solver import solve as tsolve
+
+    calls, restore = _capture_calls("contact_sweep")
+    tables = []
+    fn = tsolve.page_wave_table
+    tsolve.page_wave_table = lambda *a: tables.append(a) or fn(*a)
+    try:
+        sim.run(steps, DT)
+    finally:
+        tsolve.page_wave_table = fn
+        restore()
+    checked = []
+    for a, k in calls:
+        entries = _k3_entries(a, k["sb"])
+        checked.append(_table_check("K3", k["waves"].cpu(), *entries))
+        _require(torch.equal(k["order"].cpu(), sweep.writer_order(entries[0], entries[1])),
+                 "K3's order does not list each slice's writing entries first")
+    return calls, tables, checked
+
+
+def _k3_structure_note(tables, num_colors):
+    """The structure of one step's two K3 banks, from their wave tables' inputs."""
+    parts = []
+    for label, t in zip(("store", "compound bucket"), tables):
+        per_color, jac = _k1_structure(*t)
+        parts.append(f"{label} {t[1].shape[0] // t[2]} pages of {t[2]}: live pages per color "
+                     f"{per_color}, {jac} Jacobi")
+    return "; ".join(parts)
+
+
+def _k3_hold(label, args, kw, tol):
+    """K3 against its plain version on one call: finite, within ``tol``, bit-identical
+    on a second run. Returns (max |diff|, the kernel's output)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    got = list(sweep.contact_sweep(*args, **kw))
+    want = list(sweep._contact_sweep_plain(*args, sb=kw["sb"], n_iters=kw["n_iters"]))
+    _require(all(bool(torch.isfinite(t).all()) for t in got), f"{label}: a non-finite value")
+    again = list(sweep.contact_sweep(*args, **kw))
+    _require(all(torch.equal(g, a) for g, a in zip(got, again)),
+             f"{label} is not deterministic run to run")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    _require(err <= tol, f"{label} disagrees with its plain version: {err} > {tol}")
+    return err, got
+
+
+def phase_kernel_k3(dev, tube_calls):
+    """K3 against its plain version on phase 11's bank (``k3_bank``) and on the 32-ragdoll
+    tube's own K3 calls of one step (``tube_calls``, recorded by phase 15 at the default
+    settings, where every limb stays in the tube: both banks, 4 substeps; at bench.py's
+    settings limbs fly at ~1e4 m/s, where no absolute limit holds). ``ms`` is the
+    wrapper's call on the bank, ``kernel_ms`` its C entry point alone (``_bare_ms``)."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    args, kw = k3_bank(dev)
     kern = lambda: sweep.contact_sweep(*args, **kw)
-    plain = lambda: sweep._contact_sweep_plain(*args, **kw)
+    plain = lambda: sweep._contact_sweep_plain(*args, sb=kw["sb"], n_iters=kw["n_iters"])
     err, plain_ms = _hold("K3", kern, plain, args[0], K3_TOL, outputs=list)
     ms = _time_ms(kern, 20)
+    kernel_ms = _bare_ms("contact_sweep", kern, 20)
     v6, i7, ps_t, imp_t, idx2, scale = args[:6]
     live_rows = int((ps_t[sweep.PS_VALID] > 0.5).sum())
     live = _valid_slices(ps_t, 128)
     bound_ms, bound_by = _bound(
         _nbytes(v6, i7, imp_t, v6, imp_t) + _live_bytes(live, ps_t, idx2, scale),
         live_rows * _row_ops()["solve"])
-    print(f"[11 kernel] K3 vs plain at NB 336, B 7808 (61 slices of 128, 13 Jacobi), 1 "
-          f"iteration: max |diff| {err:.3e} (limit {K3_TOL}); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; bound {bound_ms:.5f} ms ({bound_by}, {live_rows} live rows); "
-          f"bit-identical repeat")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    tube_err, moved, tube_ms, notes = 0.0, 0.0, 0.0, []
+    for i, (a, k) in enumerate(tube_calls):
+        e, got = _k3_hold(f"K3 on the tube's call {i}", a, k, K3_TOL)
+        tube_err, moved = max(tube_err, e), max(moved, float((got[0] - a[0]).abs().max()))
+        tube_ms += _bare_ms("contact_sweep", lambda: sweep.contact_sweep(*a, **k), 20)
+        if i < 2:
+            notes.append(_shape_note("contact_sweep", k["sb"], k["waves"]))
+    _require(moved > 1e-3, "K3 left the tube's velocities unchanged")
+    print(f"[11 kernel] K3 vs plain at NB 336, B 7808 (61 slices of 128: 8 colors of 6, 13 "
+          f"Jacobi), 1 iteration: max |diff| {err:.3e} (limit {K3_TOL}); {ms:.3f} ms through "
+          f"the wrapper, the kernel alone {kernel_ms:.3f} ms; plain {plain_ms:.3f} ms; bound "
+          f"{bound_ms:.5f} ms ({bound_by}, {live_rows} live rows); "
+          f"{_shape_note('contact_sweep', 128, kw['waves'])}; bit-identical repeat. "
+          f"The tube's own {len(tube_calls)} K3 calls of one step (store, compound bucket per "
+          f"substep): max |diff| {tube_err:.3e}, bit-identical repeats, the kernel alone "
+          f"{tube_ms:.3f} ms per step; store: {notes[0]}; compound bucket: {notes[1]}")
+    return dict(max_abs_err=max(err, tube_err), ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def phase_main_path_tube(dev, name, smi, n_rag=32, warm=33, timed=96,
@@ -908,11 +1013,14 @@ def phase_main_path_tube(dev, name, smi, n_rag=32, warm=33, timed=96,
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t1
         syncs = sum("synchroniz" in str(w.message) for w in caught) / timed
+        k3_calls, tables, checked = _k3_steps(sim, 2)
     finally:
         sweep._contact_sweep_plain = plain
     k1, k2, k3 = (sweep.solve_substeps_contacts.launches,
                   sweep.solve_substeps_contacts_win.launches, sweep.contact_sweep.launches)
-    steps = warm + settle + probe + warm + timed
+    steps = warm + settle + probe + warm + timed + 2
+    _require(len(k3_calls) == 2 * per_step and len(tables) == 2 * 2,
+             f"{len(k3_calls)} K3 calls and {len(tables)} tables in 2 steps")
     diag = sim.last_diag
     st = sim.state
     from bepuphysics2_tpu_torch.interop import state_from_numpy, state_to_numpy
@@ -940,7 +1048,11 @@ def phase_main_path_tube(dev, name, smi, n_rag=32, warm=33, timed=96,
           f"K1 {k1}, K2 {k2}, plain K3 calls {len(plain_calls)}; host syncs per step {syncs:g}; "
           f"{hold_frames} more frames, each card step from the CPU's state within "
           f"{held:.3e} of the CPU's over the {n_held} ragdolls inside the tube (limit "
-          f"{K3_TOL:g}, absolute and relative; {held_all:.3e} over every body, not held)")
+          f"{K3_TOL:g}, absolute and relative; {held_all:.3e} over every body, not held); "
+          f"the last step's banks: {_k3_structure_note(tables[-2:], c.num_colors)}; K3 wave "
+          f"tables of 2 steps after the timed window (store, compound bucket): "
+          f"{_tables_note(checked[:2])}, each color wave's written bodies named by no other "
+          f"row of the wave, sums in writer-first order")
     _require(n_held > 0, "no ragdoll is left inside the tube to hold")
     _require(held <= K3_TOL, "a card step of the tube disagrees with the CPU's beyond K3's limit")
     _require(k3 == per_step * steps and k1 == 0 and k2 == 0,
@@ -957,18 +1069,26 @@ def phase_tube_default_settings(dev, name, smi, n_rag=32, warm=33, timed=96):
     """The 32-ragdoll tube at the package's default solver settings (color_cap_factor
     1.5, jacobi_cap_factor 0.3, color_rounds 3), where the first step's joint Jacobi
     bucket does not spill: 33 steps, then ``timed`` timed. Every dynamic body must stay inside
-    the tube and every ragdoll whole, with no overflow over the timed steps and K3
-    launched 8 times per step."""
+    the tube and every ragdoll whole, with no overflow over the timed steps, K3 launched 8
+    times per step, no plain version and no host sync; two more steps hold their K3 wave
+    tables to their contract. Returns the last step's K3 calls, which phase 11 holds K3
+    on."""
     from bepuphysics2_tpu_torch.ops import sweep
 
     sim = tube_sim(n_rag, dev, bench=False)
     before = sweep.contact_sweep.launches
-    sim.run(warm, DT)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    sim.run(timed, DT)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t1
+    calls, restore = _count_plain_calls()
+    try:
+        sim.run(warm, DT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        sim.run(timed, DT)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t1
+        syncs = _count_host_syncs(sim, 4)
+        k3_calls, tables, checked = _k3_steps(sim, 2)
+    finally:
+        restore()
     k3 = sweep.contact_sweep.launches - before
     diag = sim.last_diag
     outside, n_dyn, min_y, reach, apart = _tube_shape(sim, n_rag)
@@ -977,11 +1097,19 @@ def phase_tube_default_settings(dev, name, smi, n_rag=32, warm=33, timed=96):
           f"{int(diag.pair_count)}, contacts {int(diag.contact_count)}; {outside} of {n_dyn} "
           f"dynamic bodies outside the tube (min y {min_y:.3g}, max distance from the axis "
           f"{reach:.3g}); max head-torso {apart.max():.3g}; demand "
-          f"{[int(x) for x in diag.demand]}; K3 launches {k3} in {warm + timed} steps")
+          f"{[int(x) for x in diag.demand]}; K3 launches {k3} in {warm + timed + 6} steps, "
+          f"plain calls {len(calls)}, host syncs per step {syncs:g}; the last step's banks: "
+          f"{_k3_structure_note(tables[-2:], sim.config.num_colors)}; K3 wave tables of 2 more "
+          f"steps (store, compound bucket): {_tables_note(checked[:2])}, each color wave's "
+          f"written bodies named by no other row of the wave")
     _require(outside == 0, f"{outside} dynamic bodies left the tube")
     _require(apart.max() < 1.2, f"a ragdoll came apart (head-torso {apart.max()})")
     _require(not bool(diag.overflow), f"overflow in the timed steps (src {int(diag.overflow_src)})")
-    _require(k3 == 8 * (warm + timed), "the tube did not launch K3 8 times per step")
+    _require(k3 == 8 * (warm + timed + 6) and len(k3_calls) == 16,
+             "the tube did not launch K3 8 times per step")
+    _require(not calls, f"a plain version ran on the card's main path: {sorted(set(calls))}")
+    _require(syncs == 0, f"{syncs} host syncs per step on the tube")
+    return [_clone_call(a, k) for a, k in k3_calls[8:]]
 
 
 def phase_determinism_tube(dev, steps=60):
@@ -1348,13 +1476,15 @@ def phase_probe_sweep(dev):
     passes = rows[0]["idx"].shape[0]
     for r in rows:
         order = probes._stable_order(r["idx"])
+        distinct = probes.distinct_passes(r["idx"], order)
         r["kernel_ms"] = _time_ms(lambda: probes.probe_sweep(
             r["state"], r["idx"], lanes=r["lanes"], transposed=r["transposed"],
-            mode=r["mode"], order=order), 50)
+            mode=r["mode"], order=order, distinct=distinct), 50)
     parts = [f"{r['name']} {r['max_abs_err']:.2e}, {r['ms']:.4f} ms ({r['us_per_pass']:.3f} "
              f"us/pass), kernel {r['kernel_ms']:.4f} ms ({r['kernel_ms'] * 1e3 / passes:.3f} "
              f"us/pass)" for r in rows] + [f"{dup['name']} {dup['max_abs_err']:.2e}"]
     v1 = rows[0]
+    split = k5_breakdown(k5_parts(v1["idx"]), v1["state"])
     m = v1["idx"].shape[1]
     nb = v1["state"].numel() // 8
     per_row = _ops_per_item(probes._sweep_pass_plain, torch.zeros(nb, 8),
@@ -1364,10 +1494,65 @@ def phase_probe_sweep(dev):
     print(f"[21 probe sweep] K5 through sweep_proto.main: NB {nb}, M {m}, {passes} passes; "
           f"launches {launches}; max |diff| vs plain (limit {K5_TOL:g}), ms per call over 50 "
           f"calls: {'; '.join(parts)}; v1 plain {v1['plain_ms']:.2f} ms; bound "
-          f"{bound_ms:.6f} ms ({bound_by}; {per_row} ops per row); bit-identical repeats")
+          f"{bound_ms:.6f} ms ({bound_by}; {per_row} ops per row); bit-identical repeats; v1's "
+          f"pass split, the kernel alone in turns: {_split_note(split, passes)}")
     return dict(launches=launches, max_abs_err=max(r["max_abs_err"] for r in [*rows, dup]),
                 ms=v1["kernel_ms"], plain_ms=v1["plain_ms"], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None)
+
+
+def k5_c_args(state, idx, kw, flags=True, passes=None):
+    """K5's C arguments as its wrapper makes them (``flags``: with the distinct flags, as
+    the current entry point takes them), with ``passes`` in place of idx's when given, for
+    ``kw``'s layout and mode. Returns (args, the tensors they point to)."""
+    from bepuphysics2_tpu_torch.ops import build, probes
+
+    out = torch.empty_like(state)
+    order = probes._stable_order(idx)
+    distinct = probes.distinct_passes(idx, order)
+    args = (state.data_ptr(), out.data_ptr(), idx.data_ptr(), order.data_ptr(),
+            *([distinct.data_ptr()] if flags else []), state.numel() // 8, idx.shape[1],
+            idx.shape[0] if passes is None else passes, kw["lanes"], int(kw["transposed"]),
+            probes.MODES[kw["mode"]], build.raw_stream(state.device))
+    return args, (out, order, distinct)
+
+
+def k5_parts(idx):
+    """The current K5's runs for ``k5_breakdown``: an empty pass list, passes that only
+    load their indices, passes without the math, passes without the scatter (the
+    ``K5_PARTS`` variants, built in phase 2), and the whole kernel."""
+    from bepuphysics2_tpu_torch.ops import build, probes
+
+    full = build.bind("probe_sweep", "probe_sweep_launch", probes._SWEEP_ARGS)
+    runs = {"empty pass list": (full, True, 0, idx)}
+    for label, k in K5_PARTS:
+        runs[label] = (build.bind("probe_sweep", "probe_sweep_launch", probes._SWEEP_ARGS,
+                                  defines=(f"K5_PARTS={k}",)), True, None, idx)
+    runs["whole"] = (full, True, None, idx)
+    return runs
+
+
+def k5_breakdown(runs, state, reps=50, rounds=2):
+    """Each of ``runs`` ({label: (C entry point, takes the distinct flags, passes or None
+    for all, indices)}) on v1's state, the entry point alone (CUDA events, ``reps`` calls
+    each, ``rounds`` times in turns). Returns {label: mean ms}."""
+    kw = dict(lanes=128, transposed=False, mode="B")
+    times = {label: [] for label in runs}
+    for _ in range(rounds):
+        for label, (fn, flags, passes, idx) in runs.items():
+            args, keep = k5_c_args(state, idx, kw, flags, passes)
+            _require(fn(*args) == 0, f"K5 ({label}) failed to launch")
+            times[label].append(_time_ms(lambda: fn(*args), reps))
+    return {label: float(np.mean(t)) for label, t in times.items()}
+
+
+def _split_note(split, passes):
+    """``k5_breakdown``'s times as each run's microseconds per pass over the empty list's."""
+    base = split["empty pass list"]
+    per = lambda label: (split[label] - base) * 1e3 / passes
+    rest = [label for label in split if label != "empty pass list"]
+    return (f"empty pass list {base:.4f} ms; per pass: "
+            + ", ".join(f"{label} {per(label):.3f} us" for label in rest))
 
 
 def phase_probe_gather_scatter(dev):
@@ -1467,11 +1652,12 @@ def main():
     win = dict(solver_backend="pallas_win", broadphase="grid2")
     phase_determinism(dev, "9 determinism", " on the windowed path (grid2, K2)", **win)
     phase_cpu_vs_card(dev, "10 cpu vs card", " on the windowed path", WIN_TOL, **win)
-    k3 = phase_kernel_k3(dev)
-    k3["launches"] = phase_main_path_tube(dev, name, smi, timed=16)
+    k3_launches = phase_main_path_tube(dev, name, smi, timed=16)
     phase_determinism_tube(dev)
     phase_cpu_vs_card_tube(dev)
-    phase_tube_default_settings(dev, name, smi, timed=16)
+    # Phase 11 holds K3 on the last step's K3 calls of phase 15.
+    k3 = phase_kernel_k3(dev, phase_tube_default_settings(dev, name, smi, timed=16))
+    k3["launches"] = k3_launches
     # The main path runs first: phase 16's bank takes the store rows autosize gives it.
     pile_launches, pile_rows = phase_main_path_pile(dev, name, smi)
     k4 = phase_kernel_k4(dev, pile_rows)

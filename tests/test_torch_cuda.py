@@ -87,14 +87,15 @@ def test_k3_matches_plain_on_card(cuda_device, n_iters):
     elementwise ops and ``index_add_``: 1e-4 absolute; bit-identical run to run."""
     bank = sweep.synthetic_sweep_bank(64, SB, 2, 1, seed=5, substeps=4)
     kw = dict(sb=SB, n_iters=n_iters)
+    waves = torch.from_numpy(bank["waves"]).to(cuda_device)
+    args = sweep.sweep_bank_args(bank, cuda_device)
     before = sweep.contact_sweep.launches
-    got = [t.cpu().numpy() for t in sweep.contact_sweep(*sweep.sweep_bank_args(bank, cuda_device), **kw)]
+    got = [t.cpu().numpy() for t in sweep.contact_sweep(*args, **kw, waves=waves)]
     assert sweep.contact_sweep.launches == before + 1
-    want = [t.cpu().numpy() for t in sweep._contact_sweep_plain(
-        *sweep.sweep_bank_args(bank, cuda_device), **kw)]
+    want = [t.cpu().numpy() for t in sweep._contact_sweep_plain(*args, **kw)]
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
-    again = [t.cpu().numpy() for t in sweep.contact_sweep(*sweep.sweep_bank_args(bank, cuda_device), **kw)]
+    again = [t.cpu().numpy() for t in sweep.contact_sweep(*args, **kw, waves=waves)]
     for g, a in zip(got, again):
         np.testing.assert_array_equal(g, a)
 

@@ -392,13 +392,14 @@ def test_page_wave_table_keys_each_bank_apart():
     ps = torch.zeros(sweep.PS_ROWS, 9 * page)
     ps[sweep.PS_VALID, :8 * page] = 1.0  # the store's empty page, sorted last, is live
     ps[sweep.PS_VALID, 3 * page:4 * page] = 0.0  # ... here not
-    waves = tsolve.page_wave_table([store[:3], colors[:1]], ps[:, :4 * page], page, C)
+    valid = ps[sweep.PS_VALID] > 0.5
+    waves = tsolve.page_wave_table([store[:3], colors[:1]], valid[:4 * page], page, C)
     assert sweep.wave_lists(waves) == [[0], [1, 2]]  # no live slice of the bucket
-    waves = tsolve.page_wave_table([store, torch.tensor([1, 1, 0, 0, 2])], ps, page, C)
+    waves = tsolve.page_wave_table([store, torch.tensor([1, 1, 0, 0, 2])], valid, page, C)
     # The store's color-1 pages and the next bank's color-1 slices are consecutive live
     # slices of one color (the dead slice between them splits nothing): two waves.
     assert sweep.wave_lists(waves) == [[0], [1, 2], [4, 5], [6, 7]]
-    waves = tsolve.page_wave_table([torch.cat([store, torch.tensor([1, 1, 0, 0, 2])])], ps,
+    waves = tsolve.page_wave_table([torch.cat([store, torch.tensor([1, 1, 0, 0, 2])])], valid,
                                    page, C)
     assert sweep.wave_lists(waves) == [[0], [1, 2, 4, 5], [6, 7]]  # one bank: one wave
 

@@ -31,6 +31,25 @@ def inputs(device="cpu"):
     return v6.to(device), idx.to(device), d.to(device)
 
 
+def scatter_cases(device="cpu"):
+    """K7's inputs beside the probe's own: [(label, v, idx, d)], made from numpy's
+    ``default_rng(3)``: the probe's indices with distinct ``d`` rows (where the last
+    writer shows), all rows naming one target, indices outside [0, NB), more rows than
+    targets (M > NB), rows of -0.0 (an untouched row keeps its sign), and rows of 6 floats
+    (not a multiple of 4: one element per thread)."""
+    rng = np.random.default_rng(3)
+    f32 = lambda *shape: torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    i32 = lambda lo, hi, n: torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32))
+    v, idx, _ = inputs()
+    cases = [("distinct d", v, idx, f32(M, 8)),
+             ("one target", v, torch.full((M,), 77, dtype=torch.int32), f32(M, 8)),
+             ("out of range", v, i32(-600, NB + 600, M), f32(M, 8)),
+             ("M > NB", f32(100, 8), i32(0, 100, 1000), f32(1000, 8)),
+             ("-0.0 rows", torch.full((300, 8), -0.0), i32(0, 300, 64), torch.zeros(64, 8)),
+             ("W 6", f32(200, 6), i32(0, 200, 150), f32(150, 6))]
+    return [(label, *(t.to(device) for t in ts)) for label, *ts in cases]
+
+
 def k1(v, idx):
     """``o_ref[:] = v_ref[i_ref[:]]``."""
     return probes.probe_gather(v, idx)

@@ -1,8 +1,8 @@
 """Pose/velocity integration over all bodies, all three angular modes.
 
 Counterpart of ``bepuphysics2_tpu/integrator.py`` (reference PoseIntegrator.cs:23,
-122-255, 424, 707). The port leaves out ``velocity_callback``: a config that sets one is
-refused by the step (ROADMAP queue 1 item 11).
+122-255, 424, 707), ``velocity_callback`` (the reference's
+IPoseIntegratorCallbacks.IntegrateVelocity: user gravity and damping) included.
 """
 from __future__ import annotations
 
@@ -27,8 +27,11 @@ class IntegratorConfig:
     linear_damping: float = 0.0
     angular_damping: float = 0.0
     angular_mode: int = ANGULAR_NONCONSERVING
-    # Kept so configs carry across from the JAX package; the port refuses a non-None
-    # callback (not ported yet).
+    # Optional ``fn(state: BodyState, dt) -> (vel: Vec3, omega: Vec3)`` replacing the
+    # default gravity and damping; its result is kept for awake dynamic bodies only. It
+    # runs once per substep on the state's device, so it should stay in torch ops there
+    # (a host sync in it stalls every substep). It takes the scene off the whole-solve
+    # kernels K1 and K2 (``solver.solve.solve_all``).
     velocity_callback: Optional[Callable] = None
 
 
@@ -76,19 +79,21 @@ def integrate_angular_gyroscopic(orn: Quat, local_inv_inertia: Sym3, omega: Vec3
 
 
 def integrate_velocities(state: BodyState, cfg: IntegratorConfig, dt) -> BodyState:
-    """One substep of velocity integration (gravity, damping) for awake dynamics."""
-    if cfg.velocity_callback is not None:
-        raise NotImplementedError("velocity_callback is not ported yet (ROADMAP queue 1 item 11)")
+    """One substep of velocity integration for awake dynamics: gravity and damping, or
+    the config's ``velocity_callback`` in their place."""
     mask = (state.kind == 1) & state.awake
-    g = Vec3(
-        torch.full_like(state.vel.x, cfg.gravity[0]),
-        torch.full_like(state.vel.x, cfg.gravity[1]),
-        torch.full_like(state.vel.x, cfg.gravity[2]),
-    )
-    lin_scale = (1.0 - cfg.linear_damping) ** dt if cfg.linear_damping else 1.0
-    ang_scale = (1.0 - cfg.angular_damping) ** dt if cfg.angular_damping else 1.0
-    new_vel = (state.vel + g * dt) * lin_scale
-    new_omega = state.omega * ang_scale
+    if cfg.velocity_callback is not None:
+        new_vel, new_omega = cfg.velocity_callback(state, dt)
+    else:
+        g = Vec3(
+            torch.full_like(state.vel.x, cfg.gravity[0]),
+            torch.full_like(state.vel.x, cfg.gravity[1]),
+            torch.full_like(state.vel.x, cfg.gravity[2]),
+        )
+        lin_scale = (1.0 - cfg.linear_damping) ** dt if cfg.linear_damping else 1.0
+        ang_scale = (1.0 - cfg.angular_damping) ** dt if cfg.angular_damping else 1.0
+        new_vel = (state.vel + g * dt) * lin_scale
+        new_omega = state.omega * ang_scale
     return state._replace(
         vel=new_vel.where(mask, state.vel),
         omega=new_omega.where(mask, state.omega),

@@ -108,7 +108,7 @@ def distinct_passes(idx, order):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SWEEP_ARGS = [_P] * 5 + [_I] * 6 + [_P]
 _GATHER_ARGS = [_P] * 3 + [_I] * 3 + [_P]
-_SCATTER_ARGS = [_P] * 5 + [_I] * 3 + [_P]
+_SCATTER_ARGS = [_P] * 4 + [_I] * 3 + [_P]
 
 
 def _launch(name, fn_name, argtypes, *args):
@@ -244,22 +244,45 @@ probe_gather.launches = 0
 # --- K7: the last-writer scatter -------------------------------------------------------
 
 def _probe_scatter_plain(v, idx, d):
-    """``o[idx[j]] = v[idx[j]] + d[j]`` in j order: each target takes its last row."""
+    """``o[idx[j]] = v[idx[j]] + d[j]`` in j order: each target takes its last row; an
+    index outside [0, NB) writes nothing."""
+    nb = v.shape[0]
     rows = idx.long()
-    last = torch.full((v.shape[0],), -1, dtype=torch.long, device=v.device)
-    last.scatter_reduce_(0, rows, torch.arange(rows.numel(), device=v.device), "amax")
-    hit = torch.nonzero(last >= 0).squeeze(1)
+    last = torch.full((nb + 1,), -1, dtype=torch.long, device=v.device)
+    last.scatter_reduce_(0, torch.where((rows >= 0) & (rows < nb), rows, nb),
+                         torch.arange(rows.numel(), device=v.device), "amax")
+    hit = torch.nonzero(last[:nb] >= 0).squeeze(1)
     out = v.clone()
     out[hit] = v[hit] + d[last[hit]]
     return out
 
 
-def probe_scatter(v, idx, d, order=None):
+def probe_scatter(v, idx, d):
     """``o = v; o[idx] += d`` as TPU kernel k5 computes it (read, add, then set), for
     ``v`` (NB, W) and ``d`` (M, W) float32 and ``idx`` (M,) int32: (NB, W). A target
-    named by several rows takes ``v`` plus the last of their ``d`` rows. ``order`` is the
-    stable sort of ``idx`` (int32, made here when omitted). Indices must lie in [0, NB):
-    the plain version raises on others, the kernel leaves their rows out."""
+    named by several rows takes ``v`` plus the last of their ``d`` rows; an index outside
+    [0, NB) writes nothing. One launch of K7, no sort: its blocks own row ranges and find
+    each row's last writer with an integer max.
+
+    As K6's, the host path is short: the checks in one expression of cheap tensor
+    properties (the full ``_check`` runs only to name what failed), the entry point bound
+    once, the raw stream handle."""
+    if (v.is_cuda and idx.is_cuda and d.is_cuda
+            and (dv := v.get_device()) == idx.get_device() == d.get_device()
+            and v.dtype is torch.float32 and d.dtype is torch.float32
+            and idx.dtype is torch.int32 and v.dim() == 2 and idx.dim() == 1 and d.dim() == 2
+            and d.shape[0] == idx.shape[0] and d.shape[1] == v.shape[1]
+            and v.is_contiguous() and idx.is_contiguous() and d.is_contiguous()):
+        (nb, w), m = v.shape, idx.shape[0]
+        out = torch.empty_like(v)
+        if out.numel() == 0:
+            return out
+        err = _scatter_launch()(v.data_ptr(), idx.data_ptr(), d.data_ptr(), out.data_ptr(), nb,
+                                m, w, torch._C._cuda_getCurrentRawStream(dv))
+        if err:
+            raise RuntimeError(f"probe_scatter kernel launch failed: CUDA error {err}")
+        probe_scatter.launches += 1
+        return out
     dev = v.device
     if v.dim() != 2 or idx.dim() != 1:
         raise ValueError(f"v {tuple(v.shape)} and idx {tuple(idx.shape)}: expected (NB, W), (M,)")
@@ -267,17 +290,17 @@ def probe_scatter(v, idx, d, order=None):
     _check("v", v, (nb, w), torch.float32, dev)
     _check("idx", idx, (m,), torch.int32, dev)
     _check("d", d, (m, w), torch.float32, dev)
-    if order is not None:
-        _check("order", order, (m,), torch.int32, dev)
-    if not _route("probe_scatter", dev):
-        return _probe_scatter_plain(v, idx, d)
-    out = torch.empty_like(v)
-    if order is None:
-        order = _stable_order(idx)
-    _launch("probe_scatter", "probe_scatter_launch", _SCATTER_ARGS, v.data_ptr(), idx.data_ptr(), order.data_ptr(), d.data_ptr(),
-            out.data_ptr(), nb, m, w, _stream(dev))
-    probe_scatter.launches += 1
-    return out
+    if _route("probe_scatter", dev):
+        raise ValueError("probe_scatter: v, idx and d must lie on one CUDA device")
+    return _probe_scatter_plain(v, idx, d)
 
 
+def _scatter_launch():
+    """K7's C entry point, bound at the first launch and kept in ``_SCATTER``."""
+    if not _SCATTER:
+        _SCATTER.append(build.bind("probe_scatter", "probe_scatter_launch", _SCATTER_ARGS))
+    return _SCATTER[0]
+
+
+_SCATTER = []
 probe_scatter.launches = 0

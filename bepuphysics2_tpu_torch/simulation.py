@@ -88,6 +88,9 @@ class SimConfig:
     store_dead: int = 0
     store_repair: int = 0
     wide_cap_rows: int = 0
+    # The one field the JAX SimConfig lacks (there only its SolveConfig carries it): a
+    # tuple of velocity iterations per substep (``SolveConfig.iteration_schedule``).
+    iteration_schedule: tuple = None
 
     def store_layout(self):
         """(capacity, page) for the pair store — capacity = max_pairs rounded to pages."""
@@ -117,6 +120,7 @@ class SimConfig:
             color_cap_factor=self.color_cap_factor,
             jacobi_cap_factor=self.jacobi_cap_factor,
             color_rounds=self.color_rounds,
+            iteration_schedule=self.iteration_schedule,
             backend=self.solver_backend,
             wide_cap_rows=self.wide_cap_rows,
         )

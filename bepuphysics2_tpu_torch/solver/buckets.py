@@ -127,12 +127,17 @@ def color_table(state, contact_banks, joint_banks, tb_names, cfg, sb: int, base_
                 round_up(mu_total, 8))
     if mu_total:
         segments.append((joint_start, mu_total, cap_u))
-    all_refs = torch.cat(refs).to(I32)
-    all_dyn = torch.cat(dyns)
-    all_color, all_rank = color_constraints_incremental(
-        all_refs, all_dyn, torch.cat(valids), torch.cat(prevs).to(I32), kind.shape[0], C,
-        segments=segments, rounds=cfg.color_rounds, churn_cap=cfg.color_churn_cap,
-        base_used=base_used)
+    if refs:
+        all_refs = torch.cat(refs).to(I32)
+        all_dyn = torch.cat(dyns)
+        all_color, all_rank = color_constraints_incremental(
+            all_refs, all_dyn, torch.cat(valids), torch.cat(prevs).to(I32), kind.shape[0], C,
+            segments=segments, rounds=cfg.color_rounds, churn_cap=cfg.color_churn_cap,
+            base_used=base_used)
+    else:  # store-only scene: every constraint is colored in the store
+        all_refs = torch.zeros((0, 2), dtype=I32, device=kind.device)
+        all_dyn = torch.zeros((0, 2), dtype=torch.bool, device=kind.device)
+        all_color = all_rank = torch.zeros(0, dtype=I32, device=kind.device)
 
     colors, ranks = [], []
     off = 0
@@ -216,9 +221,12 @@ def joint_bucket(joint_banks, tb_names, table, jacobi_cap_factor: float, C: int)
 
 
 def valence(table, in_jacobi, n_bodies: int, extra_counts):
-    """Per-body mass-split valence over the table's Jacobi rows plus ``extra_counts``
-    (the pair store's live Jacobi rows)."""
-    return jacobi_valence_kary(table["all_refs"], table["all_dyn"], in_jacobi, n_bodies,
+    """Per-body mass-split valence over the table's Jacobi rows (``in_jacobi``, a list of
+    each group's flags, empty for a store-only scene) plus ``extra_counts`` (the pair
+    store's live Jacobi rows)."""
+    flags = torch.cat(in_jacobi) if in_jacobi else torch.zeros(
+        0, dtype=torch.bool, device=table["all_refs"].device)
+    return jacobi_valence_kary(table["all_refs"], table["all_dyn"], flags, n_bodies,
                                extra_counts=extra_counts)
 
 

@@ -8,11 +8,12 @@ move once into the execution layout, the whole substepped solve runs in one kern
 final pose integration follows. Up to 8,192 bodies the layout is the page-execution order
 (pages by color, Jacobi pages last) and the kernel is K1; above that, or with
 ``backend="pallas_win"``, it is the windowed layout of ``windowing.py`` and the kernel is
-K2. Scenes with joints or a compound bank take the general path (``solve_bucketed``):
-per step a coloring over every bank and the color-bucket layout of ``buckets.py``; per
-substep the depth update, pose and velocity integration, one warm start of every bank,
-then per velocity iteration each contact bank through K3 (the pair store through K4 on
-the windowed layout) and the joint bank's color sweep. Without joints the buckets go
+K2. Scenes with joints or a compound bank, and any scene with an iteration schedule or a
+velocity callback, take the general path (``solve_bucketed``): per step a coloring over
+every bank and the color-bucket layout of ``buckets.py``; per substep the depth update,
+pose and velocity integration, one warm start of every bank, then per velocity iteration
+each contact bank through K3 (the pair store through K4 on the windowed layout) and the
+joint bank's color sweep, if any. Without joints, a schedule or a callback the buckets go
 through one K1 launch instead.
 """
 from __future__ import annotations
@@ -40,8 +41,9 @@ SB_WIN = 256  # rows per windowed slice
 
 @dataclasses.dataclass(frozen=True)
 class SolveConfig:
-    """reference SolveDescription (SolveDescription.cs:17). Fields match the JAX config;
-    the port reads substeps, velocity_iterations and num_colors."""
+    """reference SolveDescription (SolveDescription.cs:17). Fields match the JAX config.
+    ``iteration_schedule`` (the reference's VelocityIterationScheduler) is an optional
+    tuple of velocity iterations per substep that overrides ``velocity_iterations``."""
 
     substeps: int = 8
     velocity_iterations: int = 1
@@ -53,6 +55,11 @@ class SolveConfig:
     iteration_schedule: tuple = None
     backend: str = "auto"
     wide_cap_rows: int = 0
+
+    def iterations_for(self, substep: int) -> int:
+        if self.iteration_schedule is not None:
+            return int(self.iteration_schedule[substep])
+        return self.velocity_iterations
 
 
 def substep_scalars(dt, substeps: int):
@@ -360,15 +367,25 @@ def _win_store_bucket(state, st, sps, simp, scolor, jrow, cfg, n_bodies: int):
         overflow=rw["wide_overflow"], wide_demand=rw["wide_demand"].to(torch.int32))
 
 
+def _whole_solve_ok(integrator_cfg, cfg) -> bool:
+    """Whether the whole-solve kernels (K1, K2) may take a contact-only scene: they run
+    the default gravity and damping and a fixed iteration count in every substep, so an
+    iteration schedule or a velocity callback takes the scene off them, as in the JAX
+    package."""
+    return cfg.iteration_schedule is None and integrator_cfg.velocity_callback is None
+
+
 def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg, dt,
                    store_bank: dict, base_used, use_win: bool = False):
-    """The general solve for scenes with joints or a compound bank beside the pair store:
-    the JAX package's bucketed ``substep_bucketed`` loop in its Pallas form. Up to 8,192
-    bodies every contact bank goes through K3 (one launch per bank per velocity iteration
-    per substep); on the windowed layout (``use_win``: joints, no compound bank) the store
-    goes through K4 instead. A contact-only scene (no joints) takes the JAX package's
-    whole-solve branch: one K1 launch over the concatenated banks. Returns as
-    ``solve_all``."""
+    """The general solve for scenes with joints or a compound bank beside the pair store,
+    or with an iteration schedule or a velocity callback: the JAX package's bucketed
+    ``substep_bucketed`` loop in its Pallas form. Up to 8,192 bodies every contact bank
+    goes through K3 (one launch per bank per velocity iteration per substep; a lone
+    contact bank, as JAX runs it, one launch per substep carrying that substep's
+    iterations); on the windowed layout (``use_win``: no compound bank) the store goes
+    through K4 instead. A contact-only scene (no joints) without a schedule or a callback
+    takes the JAX package's whole-solve branch: one K1 launch over the concatenated
+    banks. Returns as ``solve_all``."""
     h, inv_h = substep_scalars(dt, cfg.substeps)
     C = cfg.num_colors
     n_bodies = state.pos.x.shape[0]
@@ -409,7 +426,7 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         jac_demand = torch.maximum(jac_demand, ju["jac_n"])
     for name in tb_names:
         in_jacobi.append(table["bank_valid"][name] & (table["jcolors"][name] == C))
-    valence = bk_mod.valence(table, torch.cat(in_jacobi), n_bodies, st.jacv)
+    valence = bk_mod.valence(table, in_jacobi, n_bodies, st.jacv)
 
     # The store bucket: page order with Jacobi pages mass-split by the global valence, or
     # the windowed layout (its own split scales, K4).
@@ -436,7 +453,8 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
             b["k_scale"] = bk_mod.slice_major(b["sa"], b["sb"], page)
             b["k_sb"] = page
         b["spring"] = compute_springiness(b["ps"].spring, h)
-    if tb_names and not use_win:
+    whole = ju is None and _whole_solve_ok(integrator_cfg, cfg)
+    if not whole and not use_win:
         # K3's tables, once per step: each bank's waves over its own page colors, and its
         # sums' order, writing entries (valid rows' sides on bodies with inertia) first.
         still = psweep.body_still(state.inv_mass, state.inv_inertia)
@@ -448,7 +466,7 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
             writes = bk_mod.slice_major(valid, valid, page).view(-1, 2 * page) & ~still[idx.long()]
             b["k_order"] = psweep.writer_order(idx, writes)
 
-    if ju is None:
+    if whole:
         # Contact-only: the JAX package's whole-solve branch (solve.py:1785-1856), one K1
         # launch over the store pages and then each compound bucket, slices of the page.
         # The wave keys: the store's page colors in execution order, then each bucket's.
@@ -473,14 +491,15 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         state, imps, ju_imp = _substep_loop(state, buckets, ju, tb_names, valence,
                                             integrator_cfg, cfg, h, inv_h, n_bodies)
         joint_imps = {}
-        BU = ju["present"].shape[0]
-        u = torch.where((ju["pos"] < BU)[:, None],
-                        ju_imp[torch.clamp_max(ju["pos"], BU - 1).long()], 0.0)
-        off = 0
-        for name in tb_names:
-            m = joint_banks[name]["bodies"].shape[0]
-            joint_imps[name] = u[off:off + m, :JOINT_TYPES[name].N_IMPULSE]
-            off += m
+        if ju is not None:
+            BU = ju["present"].shape[0]
+            u = torch.where((ju["pos"] < BU)[:, None],
+                            ju_imp[torch.clamp_max(ju["pos"], BU - 1).long()], 0.0)
+            off = 0
+            for name in tb_names:
+                m = joint_banks[name]["bodies"].shape[0]
+                joint_imps[name] = u[off:off + m, :JOINT_TYPES[name].N_IMPULSE]
+                off += m
     state = integrate_poses(state, integrator_cfg, h)
 
     # Impulses back to their banks' order: the store to slot order (from the windowed
@@ -517,27 +536,33 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
                   n_bodies: int):
     """Every substep of the general path (JAX ``substep_bucketed``): the depth update, pose
     and velocity integration, one warm start of every bank, then per velocity iteration
-    each contact bank through its kernel (K3, or K4 for the windowed store bucket) and the
-    joint bank's color sweep. Returns (state, bucket-order impulses, joint impulses)."""
+    (``cfg.iterations_for`` the substep) each contact bank through its kernel (K3, or K4
+    for the windowed store bucket) and the joint bank's color sweep, where there is a
+    joint bank (``ju`` is None without one). A lone contact bank on the page layout runs
+    a substep's iterations in one K3 launch, as the JAX package runs them in one kernel
+    call (JAX ``solve.py:1652-1654``). Returns (state, bucket-order impulses, joint
+    impulses or None)."""
     C = cfg.num_colors
     dev = state.kind.device
-    # Joint bank: per-color gathers, and fixed-order sums for the Jacobi slice.
     sink = n_bodies
-    cap_u, ncap = ju["cap"], ju["ncap"]
-    ja, jb = ju["a"].long(), ju["b"].long()
-    ju["idx2"] = torch.cat([ja, jb])
-    pres2 = torch.cat([ju["present"], ju["present"]])
-    ju["idx2_col"] = [torch.cat([ja[c * cap_u:(c + 1) * cap_u], jb[c * cap_u:(c + 1) * cap_u]])
-                      for c in range(C)]
-    ju["tgt_col"] = [torch.where(pres2.reshape(2, -1)[:, c * cap_u:(c + 1) * cap_u].reshape(-1),
-                                 ju["idx2_col"][c], sink) for c in range(C)]
-    ju["idx2_j"] = torch.cat([ja[ncap:], jb[ncap:]])
-    pj = torch.cat([ju["present"][ncap:], ju["present"][ncap:]])
-    ju["s2_j"] = torch.cat([valence[ja[ncap:]], valence[jb[ncap:]]])
-    ju["sum_j"] = bk_mod.FixedOrderSum(torch.where(pj, ju["idx2_j"], sink), n_bodies)
-    warm_sum = bk_mod.FixedOrderSum(
-        torch.cat([b["tgt2"] for b in buckets] + [torch.where(pres2, ju["idx2"], sink)]),
-        n_bodies)
+    warm_tgt = [b["tgt2"] for b in buckets]
+    if ju is not None:
+        # Joint bank: per-color gathers, and fixed-order sums for the Jacobi slice.
+        cap_u, ncap = ju["cap"], ju["ncap"]
+        ja, jb = ju["a"].long(), ju["b"].long()
+        ju["idx2"] = torch.cat([ja, jb])
+        pres2 = torch.cat([ju["present"], ju["present"]])
+        ju["idx2_col"] = [torch.cat([ja[c * cap_u:(c + 1) * cap_u],
+                                     jb[c * cap_u:(c + 1) * cap_u]]) for c in range(C)]
+        ju["tgt_col"] = [torch.where(
+            pres2.reshape(2, -1)[:, c * cap_u:(c + 1) * cap_u].reshape(-1), ju["idx2_col"][c],
+            sink) for c in range(C)]
+        ju["idx2_j"] = torch.cat([ja[ncap:], jb[ncap:]])
+        pj = torch.cat([ju["present"][ncap:], ju["present"][ncap:]])
+        ju["s2_j"] = torch.cat([valence[ja[ncap:]], valence[jb[ncap:]]])
+        ju["sum_j"] = bk_mod.FixedOrderSum(torch.where(pj, ju["idx2_j"], sink), n_bodies)
+        warm_tgt.append(torch.where(pres2, ju["idx2"], sink))
+    warm_sum = bk_mod.FixedOrderSum(torch.cat(warm_tgt), n_bodies)
 
     def ju_ctx(table14, v6, idx2, active, scale2=None):
         rows = table14[idx2]
@@ -590,11 +615,11 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
         p2 = torch.cat([_pack_dv(dva), _pack_dv(dvb)]) / ju["s2_j"][:, None]
         return ju["sum_j"].add(v6, p2), torch.cat([imp[:ncap], new_imp])
 
-    def sweep_bank(b, v6, ps_t, it_t, imp_t):
-        """One velocity iteration of one contact bank through its kernel."""
+    def sweep_bank(b, v6, ps_t, it_t, imp_t, n_iters=1):
+        """``n_iters`` velocity iterations of one contact bank through its kernel (K4: one)."""
         if "wseg" not in b:
             return psweep.contact_sweep(v6.contiguous(), it_t, ps_t, imp_t, b["k_idx2"],
-                                        b["k_scale"], inv_h, sb=b["k_sb"], n_iters=1,
+                                        b["k_scale"], inv_h, sb=b["k_sb"], n_iters=n_iters,
                                         order=b["k_order"], waves=b["k_waves"])
         pos_slot, slot_pos = b["lay"]["pos_slot"], b["lay"]["slot_pos"].long()
         v6p, imp_t = psweep.contact_sweep_win(
@@ -605,7 +630,8 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
 
     presteps = [b["ps"] for b in buckets]
     imps = [b["imp"] for b in buckets]
-    ju_imp = ju["imp0"]
+    ju_imp = None if ju is None else ju["imp0"]
+    lone = ju is None and len(buckets) == 1 and "wseg" not in buckets[0]
     for s in range(cfg.substeps):
         if s > 0:
             v6 = torch.stack([*state.vel, *state.omega], -1)
@@ -628,9 +654,10 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
             z = Vec3.zeros(n, device=dev)
             dva, dvb = contact_mod.warm_start(ps, im, ia, ib, BodyVel(z, z), BodyVel(z, z))
             p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]) / b["s2"][:, None])
-        ctx_w = ju_ctx(table14, v6, ju["idx2"], ju["live"])
-        _, dva, dvb = ju_apply("warm", ju["ps"], ju_imp, ju["tag"], ctx_w)
-        p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]))
+        if ju is not None:
+            ctx_w = ju_ctx(table14, v6, ju["idx2"], ju["live"])
+            _, dva, dvb = ju_apply("warm", ju["ps"], ju_imp, ju["tag"], ctx_w)
+            p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]))
         v6 = v6 + warm_sum.add(torch.zeros_like(v6), torch.cat(p2s))
 
         # Velocity iterations: each contact bank through its kernel, then the joint sweep.
@@ -639,12 +666,15 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
         inertia7 = table14[:, 7:14].contiguous()
         it_ts = [psweep.pack_inertia_rows(g2[:g2.shape[0] // 2], g2[g2.shape[0] // 2:])
                  if "wseg" in b else inertia7 for g2, b in zip(g2s, buckets)]
-        for _ in range(cfg.velocity_iterations):
+        n_iters = cfg.iterations_for(s)
+        for _ in range(1 if lone and n_iters else n_iters):
             for ci, b in enumerate(buckets):
                 imp_t = psweep.pack_contact_impulses_cols(imps[ci]).T.contiguous()
-                v6, imp_t = sweep_bank(b, v6, ps_ts[ci], it_ts[ci], imp_t)
+                v6, imp_t = sweep_bank(b, v6, ps_ts[ci], it_ts[ci], imp_t,
+                                       n_iters if lone else 1)
                 imps[ci] = _unpack_impulses(imp_t, imps[ci])
-            v6, ju_imp = ju_color_sweep(table14, v6, ju_imp)
+            if ju is not None:
+                v6, ju_imp = ju_color_sweep(table14, v6, ju_imp)
         state = _vel_from6(state, v6)
     return state, imps, ju_imp
 
@@ -669,7 +699,10 @@ def solve_all(
     them. Store-only scenes solve through K1 (up to 8,192 bodies) or K2 (above that, or
     with ``backend="pallas_win"``). Scenes with joints take the general path over K3, or
     over K4 on the windowed layout; a contact-only scene with a compound bank takes one K1
-    launch over the concatenated banks. The JAX package's VMEM and 650k-row feasibility
+    launch over the concatenated banks. An iteration schedule or a velocity callback
+    takes every scene off the whole-solve kernels K1 and K2 (JAX ``solve.py:583-584``,
+    ``:1792-1793``): it runs the general path's substep loop, K3 up to 8,192 bodies and K4
+    on the windowed layout. The JAX package's VMEM and 650k-row feasibility
     guard is a TPU limit with an XLA path behind it; the card has neither, so the windowed
     kernels take every windowed bank. Every other bank shape is refused by name. Returns
     (state, [impulses], {joint impulses}, overflow, [colors], {joint colors}, demand (2,)
@@ -680,15 +713,11 @@ def solve_all(
         raise NotImplementedError(
             "the port solves through the pair store only (the legacy per-frame path is not "
             "ported: ROADMAP queue 1, 'Not to port')")
-    if cfg.iteration_schedule is not None:
-        raise NotImplementedError("iteration schedules are not ported yet (ROADMAP queue 1 item 11)")
-    if integrator_cfg.velocity_callback is not None:
-        raise NotImplementedError("velocity_callback is not ported yet (ROADMAP queue 1 item 11)")
     mb = sorted(n for n in joint_banks if getattr(JOINT_TYPES[n], "N_BODIES", 2) > 2)
     if mb:
         raise NotImplementedError(f"multi-body joints {mb} are not ported yet: {NOT_PORTED_ITEM}")
     use_win = state.pos.x.shape[0] > 8192 or cfg.backend == "pallas_win"
-    if not joint_banks and not contact_banks:
+    if not joint_banks and not contact_banks and _whole_solve_ok(integrator_cfg, cfg):
         return _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win)
     if use_win and contact_banks:
         raise NotImplementedError(

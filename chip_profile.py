@@ -9,7 +9,10 @@
 - ``--scene pile``: the 16,384-body mixed pile (``bench.py``'s scene and sequence: 33
   steps, 152 settle, autosize, 33), the store fast path on the windowed layout through K2;
   with ``--bodies 4096``, the 4,096-body pile of ``chip_smoke.py`` phase 4 (its 33 + 96
-  steps, no autosize), the store fast path through K1;
+  steps, no autosize), the store fast path through K1; with ``--schedule``, the pile of
+  ``chip_smoke.py`` phase 23 (4,096 bodies: the iteration schedule and the velocity
+  callback, the substep loop through K3) or phase 24 (16,384 bodies: the schedule and
+  its capacities, the substep loop through K4);
 
 then
 
@@ -23,11 +26,11 @@ then
    take the most device time.
 
     python3 chip_profile.py [--scene tube|ragdoll_pile|pile] [--ragdolls N] [--steps 5]
-                            [--settings bench|default] [--bodies 16384|4096]
+                            [--settings bench|default] [--bodies 16384|4096] [--schedule]
 
 Prints one JSON object as its last line and writes it to
 ``build/profile_<scene>_<settings>.json`` (``profile_pile4096_bench.json`` for the 4,096-body
-pile).
+pile, ``profile_pile_schedule.json`` with ``--schedule``).
 Needs a card; imports nothing of JAX.
 """
 import argparse
@@ -64,6 +67,7 @@ def main():
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--settings", choices=("bench", "default"), default="bench")
     ap.add_argument("--bodies", type=int, choices=(16384, 4096), default=16384)
+    ap.add_argument("--schedule", action="store_true")
     args = ap.parse_args()
 
     import chip_smoke
@@ -85,10 +89,17 @@ def main():
         settings, kernel = "default", "contact_sweep_win"
     elif args.scene == "pile":
         n_rag = 0
-        sim = chip_smoke.build_pile(args.bodies, dev)
+        overrides = {}
+        if args.schedule:  # chip_smoke.py phase 23 or 24
+            overrides = chip_smoke._schedule_overrides(callback=small)
+            overrides.update({} if small else chip_smoke.SCHEDULE_16K_CAPS)
+        sim = chip_smoke.build_pile(args.bodies, dev, **overrides)
         settle = max(31, int(6 * args.bodies ** (1 / 3)))
-        settings = "bench"
-        kernel = "solve_substeps_contacts" if small else "solve_substeps_contacts_win"
+        settings = "schedule" if args.schedule else "bench"
+        kernel = {(True, False): "solve_substeps_contacts",
+                  (False, False): "solve_substeps_contacts_win",
+                  (True, True): "contact_sweep",
+                  (False, True): "contact_sweep_win"}[small, args.schedule]
     else:
         n_rag = args.ragdolls or 32
         sim = chip_smoke.tube_sim(n_rag, dev, bench=args.settings == "bench")
@@ -111,9 +122,9 @@ def main():
                                    "update_sleep", "update_cache_keyed", "retain_sleeping_when")]
     patches += [(tsim.bp, "grid2" if grid2 else "brute_force"), (tsim.pairstore, "update"),
                 (tsolve.bk_mod, "color_table"), (tsolve.psweep, kernel)]
-    if pile:
+    if pile or (args.schedule and grid2):
         patches.append((tsolve, "_win_store_bucket"))
-    if args.scene == "pile" and not small:
+    elif args.scene == "pile" and not small:
         patches.append((tsolve, "win_pack"))
     saved = [(mod, n, getattr(mod, n)) for mod, n in patches]
     for mod, n, fn in saved:

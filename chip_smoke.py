@@ -9,9 +9,12 @@ ragdolls (joints and a compound: the general path over K3) at bench.py's solver 
 and at the package's default ones, the pile of 1,024 ragdolls (the general path above
 8,192 bodies: grid2, autosize, the windowed layout, K4, cooperative as K1 and K2) and the
 contact-only compound pile (one K1 launch over the store's and the compound's banks). The
-wave tables of K1, K2 and K4 are held to their contract on real steps. Last, the TPU design
+wave tables of K1-K4 are held to their contract on real steps. Then the TPU design
 probes of ``experiments/`` through their entry points: the sweep prototypes v1-v4 (K5)
-and the gather and scatter probes k1-k6 (K6, K7).
+and the gather and scatter probes k1-k6 (K6, K7: one launch of a grid over row ranges).
+Last, the iteration schedule and the velocity callback, which take a store-only scene off
+K1 and K2: the 4,096-body pile with both through K3 (its store's color waves several
+pages of 512 rows each) and the 16,384-body pile with the schedule through K4.
 
     python3 chip_smoke.py
 
@@ -20,9 +23,10 @@ no result. The last line is ``{"ok": true, "device": {...}}``; the line before i
 every kernel of the paths with its launch count on its main path, its error against the
 plain version, its time through its wrapper (``ms``), the plain version's time, its bound
 (the least time the card could take for the same work), where one PyTorch call computes
-the same function that call's time, and for K1 and K4 the kernel's C entry point alone
-(``kernel_ms``, null for the others). Imports nothing of JAX: the machine with the card
-has none.
+the same function that call's time, for K1, K3, K4, K6 and K7 the kernel's C entry point
+alone (``kernel_ms``, null for the others), and for K3 and K4, which two paths launch,
+each path's count (``launches_by_path``). Imports nothing of JAX: the machine with the
+card has none.
 """
 import dataclasses
 import json
@@ -404,10 +408,13 @@ def phase_kernel(dev, call):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def _count_host_syncs(sim, steps):
-    """Synchronising PyTorch calls per step, as the CUDA sync debug mode reports them."""
+def _timed_syncs(sim, steps):
+    """Run ``steps`` steps under the CUDA sync debug mode. Returns (steps/s on the host
+    clock, synchronising PyTorch calls per step as the mode reports them)."""
     import warnings
 
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("warn")
     try:
         with warnings.catch_warnings(record=True) as caught:
@@ -415,7 +422,26 @@ def _count_host_syncs(sim, steps):
             sim.run(steps, DT)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught) / steps
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t1
+    return steps / elapsed, sum("synchroniz" in str(w.message) for w in caught) / steps
+
+
+def _pile_gates(sim, label):
+    """The pile's gates: every state value finite, no overflow, every dynamic body above
+    y = -0.2, pairs and contacts. Returns (min y, pairs, contacts)."""
+    from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
+
+    diag, st = sim.last_diag, sim.state
+    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
+              st.store.imp_pen, st.store.imp_tx, st.store.imp_ty, st.store.imp_tw]
+    _require(all(bool(torch.isfinite(t).all()) for t in leaves), f"{label}: non-finite state")
+    min_y = float(st.bodies.pos.y[st.bodies.kind == KIND_DYNAMIC].min())
+    _require(min_y > -0.2, f"{label}: a dynamic body fell through the ground (y = {min_y})")
+    _require(not bool(diag.overflow), f"{label}: overflow (src {int(diag.overflow_src)})")
+    pairs, contacts = int(diag.pair_count), int(diag.contact_count)
+    _require(pairs > 0 and contacts > 0, f"{label}: no pairs or no contacts")
+    return min_y, pairs, contacts
 
 
 def _k1_steps(sim, steps):
@@ -451,7 +477,6 @@ def phase_main_path(dev, name, smi):
     contract (``_table_check``), the last of which phase 3 holds K1 on. Returns (K1
     launches over the 129 steps, that K1 call)."""
     from bepuphysics2_tpu_torch.ops import sweep
-    from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
 
     t0 = time.perf_counter()
     sim = build_pile(4096, dev)
@@ -467,18 +492,9 @@ def phase_main_path(dev, name, smi):
     elapsed = time.perf_counter() - t1
     launches = sweep.solve_substeps_contacts.launches
     diag = sim.last_diag
-    st = sim.state
-    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
-              st.store.imp_pen, st.store.imp_tx, st.store.imp_ty, st.store.imp_tw]
-    _require(all(bool(torch.isfinite(t).all()) for t in leaves), "non-finite state")
-    dyn = st.bodies.kind == KIND_DYNAMIC
-    min_y = float(st.bodies.pos.y[dyn].min())
-    _require(min_y > -0.2, f"a dynamic body fell through the ground (y = {min_y})")
-    _require(not bool(diag.overflow), f"overflow (src {int(diag.overflow_src)})")
-    pairs, contacts = int(diag.pair_count), int(diag.contact_count)
-    _require(pairs > 0 and contacts > 0, "no pairs or no contacts in the pile")
+    min_y, pairs, contacts = _pile_gates(sim, "the 4k pile")
     _require(launches == 33 + 96, f"K1 launched {launches} times in 129 steps")
-    syncs = _count_host_syncs(sim, 4)
+    _, syncs = _timed_syncs(sim, 4)
     calls, tables = _k1_steps(sim, 2)
     _require(len(calls) == len(tables) == 2, f"{len(calls)} K1 calls in 2 steps")
     checked = [_table_check("K1", k["waves"].cpu(), *_k1_entries(a, k["sb"])) for a, k in calls]
@@ -496,6 +512,7 @@ def phase_main_path(dev, name, smi):
 
 
 def phase_determinism(dev, tag="5 determinism", path="", **overrides):
+    """The 512-body pile, 60 steps twice on the card: the same ``state_hash``."""
     hashes = []
     for _ in range(2):
         sim = build_pile(512, dev, **overrides)
@@ -507,14 +524,18 @@ def phase_determinism(dev, tag="5 determinism", path="", **overrides):
     _require(hashes[0] == hashes[1], "two identical runs on the card differ")
 
 
-def phase_cpu_vs_card(dev, tag="6 cpu vs card", path="", tol=(5e-3, 1e-4), **overrides):
+def phase_cpu_vs_card(dev, tag="6 cpu vs card", path="", tol=(5e-3, 1e-4), n_bodies=None,
+                      **overrides):
+    """20 frames of a pile on the CPU and on the card, held to ``tol`` (max, median): the
+    24-body pile, or ``build_pile(n_bodies)``."""
     runs = {}
     for d in ("cpu", dev):
-        sim = small_pile(d, **overrides)
+        sim = small_pile(d, **overrides) if n_bodies is None else build_pile(n_bodies, d,
+                                                                              **overrides)
         sim.run(20, DT)
         runs[str(d)] = positions(sim)
     diff = np.abs(runs["cpu"] - runs[str(dev)])
-    print(f"[{tag}] 24-body pile{path}, 20 frames: max |dpos| {diff.max():.3e} "
+    print(f"[{tag}] {n_bodies or 24}-body pile{path}, 20 frames: max |dpos| {diff.max():.3e} "
           f"(limit {tol[0]:g}), median {np.median(diff):.3e} (limit {tol[1]:g})")
     _require(diff.max() <= tol[0] and np.median(diff) <= tol[1],
              "the card and the CPU disagree beyond the reference's own envelope")
@@ -657,7 +678,6 @@ def phase_main_path_win(dev, name, smi, timed=96):
     33 steps, ``timed`` timed steps (bench.py: 96). Every step must launch K2 once and K1
     never; the plain K2 must never run. Two steps before the timed window hold each
     step's wave table to its contract (``_wave_check``)."""
-    from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
     from bepuphysics2_tpu_torch.ops import sweep
     from bepuphysics2_tpu_torch.simulation import D_ENTRIES, D_WIDE
     from bepuphysics2_tpu_torch.solver import solve as tsolve
@@ -703,32 +723,13 @@ def phase_main_path_win(dev, name, smi, timed=96):
         stages.append(time.perf_counter() - t0)
         checked = [_wave_check(wp, kind, ncol) for wp, kind, ncol in packs]
         _require(len(checked) == 2, f"{len(checked)} wave tables in 2 steps")
-        import warnings
-
-        t1 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                run(timed)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t1
-        syncs = sum("synchroniz" in str(w.message) for w in caught) / timed
+        sps, syncs = _timed_syncs(sim, timed)
     finally:
         sweep._solve_substeps_contacts_win_plain = plain
     k1, k2 = sweep.solve_substeps_contacts.launches, sweep.solve_substeps_contacts_win.launches
     steps = warm + settle + probe + warm + timed
-    diag = sim.last_diag
-    st = sim.state
-    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
-              st.store.imp_pen, st.store.imp_tx, st.store.imp_ty, st.store.imp_tw]
-    _require(all(bool(torch.isfinite(t).all()) for t in leaves), "non-finite state")
-    dyn = st.bodies.kind == KIND_DYNAMIC
-    min_y = float(st.bodies.pos.y[dyn].min())
-    demand = [int(x) for x in diag.demand]
-    pairs, contacts = int(diag.pair_count), int(diag.contact_count)
+    demand = [int(x) for x in sim.last_diag.demand]
+    min_y, pairs, contacts = _pile_gates(sim, "the 16k pile after autosize")
     c = sim.config
     caps = dict(max_pairs=c.max_pairs, wide_cap_rows=c.wide_cap_rows, store_churn=c.store_churn,
                 store_dead=c.store_dead, store_repair=c.store_repair,
@@ -736,7 +737,7 @@ def phase_main_path_win(dev, name, smi, timed=96):
                 grid_cell_capacity=c.grid_cell_capacity, grid_pair_k=c.grid_pair_k)
     print(f"[8 main path] {n}-body pile, {warm} + {settle} settle + autosize ({probe} probe "
           f"steps, {sized['rounds']} rounds) + {warm} + {timed} steps on {name} ({smi}): "
-          f"{timed / elapsed:.2f} steps/s over the {timed} timed steps; warm-up + settle "
+          f"{sps:.2f} steps/s over the {timed} timed steps; warm-up + settle "
           f"{stages[0]:.1f} s, to the timed window {stages[1]:.1f} s; pairs {pairs}, contacts "
           f"{contacts}, wide rows {demand[D_WIDE]}, grid entries {demand[D_ENTRIES]}, min "
           f"dynamic y {min_y:.3f}; demand {demand}; autosized {caps}; K2 launches {k2} in "
@@ -747,9 +748,6 @@ def phase_main_path_win(dev, name, smi, timed=96):
     _require(demand[D_ENTRIES] > 0, "the grid2 broad phase did not run")
     _require(k2 == steps and k1 == 0, "the 16k pile did not solve through K2 alone")
     _require(not plain_calls, "the plain K2 ran on the card's main path")
-    _require(not bool(diag.overflow), f"overflow after autosize (src {int(diag.overflow_src)})")
-    _require(min_y > -0.2, f"a dynamic body fell through the ground (y = {min_y})")
-    _require(pairs > 0 and contacts > 0, "no pairs or no contacts in the pile")
     _require(syncs == 0, f"{syncs} host syncs per step in the timed window")
     return k2
 
@@ -897,15 +895,14 @@ def _k3_structure_note(tables, num_colors):
     return "; ".join(parts)
 
 
-def _k3_hold(label, args, kw, tol):
-    """K3 against its plain version on one call: finite, within ``tol``, bit-identical
-    on a second run. Returns (max |diff|, the kernel's output)."""
-    from bepuphysics2_tpu_torch.ops import sweep
-
-    got = list(sweep.contact_sweep(*args, **kw))
-    want = list(sweep._contact_sweep_plain(*args, sb=kw["sb"], n_iters=kw["n_iters"]))
+def _sweep_hold(label, kern, plain, args, kw, tol):
+    """K3 or K4 (``kern``) against its plain version on one recorded call: finite,
+    within ``tol``, bit-identical on a second run. Returns (max |diff|, the kernel's
+    output)."""
+    got = list(kern(*args, **kw))
+    want = list(plain(*args, sb=kw["sb"], n_iters=kw["n_iters"]))
     _require(all(bool(torch.isfinite(t).all()) for t in got), f"{label}: a non-finite value")
-    again = list(sweep.contact_sweep(*args, **kw))
+    again = list(kern(*args, **kw))
     _require(all(torch.equal(g, a) for g, a in zip(got, again)),
              f"{label} is not deterministic run to run")
     err = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -935,7 +932,8 @@ def phase_kernel_k3(dev, tube_calls):
         live_rows * _row_ops()["solve"])
     tube_err, moved, tube_ms, notes = 0.0, 0.0, 0.0, []
     for i, (a, k) in enumerate(tube_calls):
-        e, got = _k3_hold(f"K3 on the tube's call {i}", a, k, K3_TOL)
+        e, got = _sweep_hold(f"K3 on the tube's call {i}", sweep.contact_sweep,
+                             sweep._contact_sweep_plain, a, k, K3_TOL)
         tube_err, moved = max(tube_err, e), max(moved, float((got[0] - a[0]).abs().max()))
         tube_ms += _bare_ms("contact_sweep", lambda: sweep.contact_sweep(*a, **k), 20)
         if i < 2:
@@ -1000,19 +998,7 @@ def phase_main_path_tube(dev, name, smi, n_rag=32, warm=33, timed=96,
         sim.run(warm, DT)
         torch.cuda.synchronize()
         stages.append(time.perf_counter() - t0)
-        import warnings
-
-        t1 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                sim.run(timed, DT)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t1
-        syncs = sum("synchroniz" in str(w.message) for w in caught) / timed
+        sps, syncs = _timed_syncs(sim, timed)
         k3_calls, tables, checked = _k3_steps(sim, 2)
     finally:
         sweep._contact_sweep_plain = plain
@@ -1037,7 +1023,7 @@ def phase_main_path_tube(dev, name, smi, n_rag=32, warm=33, timed=96,
     print(f"[12 main path] {n_rag}-ragdoll tube ({sim.body_count} bodies, "
           f"{sim.constraint_count} joints), {warm} + {settle} settle "
           f"+ autosize ({probe} probe steps, {sized['rounds']} rounds) + {warm} + {timed} "
-          f"steps on {name} ({smi}): {timed / elapsed:.2f} steps/s over the {timed} timed "
+          f"steps on {name} ({smi}): {sps:.2f} steps/s over the {timed} timed "
           f"steps; warm-up + settle {stages[0]:.1f} s, to the timed window {stages[1]:.1f} s; "
           f"pairs {int(diag.pair_count)}, contacts {int(diag.contact_count)}; {outside} of "
           f"{n_dyn} dynamic bodies outside the tube (min y {min_y:.3g}, max distance "
@@ -1085,7 +1071,7 @@ def phase_tube_default_settings(dev, name, smi, n_rag=32, warm=33, timed=96):
         sim.run(timed, DT)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t1
-        syncs = _count_host_syncs(sim, 4)
+        _, syncs = _timed_syncs(sim, 4)
         k3_calls, tables, checked = _k3_steps(sim, 2)
     finally:
         restore()
@@ -1283,19 +1269,7 @@ def phase_main_path_pile(dev, name, smi, warm=33, timed=32,
         st = sim.state.bodies
         dyn = st.kind == KIND_DYNAMIC
         awake = float((st.awake & dyn).sum()) / float(dyn.sum())
-        import warnings
-
-        t1 = time.perf_counter()
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                sim.run(timed, DT)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        elapsed = time.perf_counter() - t1
-        syncs = sum("synchroniz" in str(w.message) for w in caught) / timed
+        sps, syncs = _timed_syncs(sim, timed)
     finally:
         restore()
     launches = _kernel_launches()
@@ -1322,7 +1296,7 @@ def phase_main_path_pile(dev, name, smi, warm=33, timed=32,
     print(f"[17 main path] {PILE_RAGDOLLS}-ragdoll pile ({sim.body_count} bodies, "
           f"{sim.constraint_count} joints, {c.num_colors} colors), built in {built:.1f} s, "
           f"{warm} + {settle} settle + autosize ({probe} probe steps, {sized['rounds']} "
-          f"rounds) + {warm} + {timed} steps on {name} ({smi}): {timed / elapsed:.3f} steps/s "
+          f"rounds) + {warm} + {timed} steps on {name} ({smi}): {sps:.3f} steps/s "
           f"over the {timed} timed steps ({awake:.3f} of the dynamic bodies awake at their "
           f"start); warm-up + settle {stages[0]:.1f} s (overflow bits {early_src}), to the "
           f"timed window {stages[1]:.1f} s; pairs {pairs}, "
@@ -1412,7 +1386,7 @@ def phase_compound_pile(dev, n_bodies=252, frames=10):
         _require(len(t[0]) == 2, "the compound pile's K1 stream is not the store and one bucket")
         _require(all(w[0] >= n_store or w[-1] < n_store
                      for w in sweep.wave_lists(k["waves"])), "a K1 wave spans two banks")
-    syncs = _count_host_syncs(card, 4)
+    _, syncs = _timed_syncs(card, 4)
     diag = card.last_diag
     st = card.state
     leaves = [*st.bodies.pos, *st.bodies.vel, st.ccache.penetration, st.store.imp_pen]
@@ -1429,6 +1403,174 @@ def phase_compound_pile(dev, n_bodies=252, frames=10):
              "the compound pile did not solve through one K1 launch per step")
     _require(not bool(diag.overflow), f"overflow (src {int(diag.overflow_src)})")
     _require(int(diag.contact_count) > 0, "no contacts in the compound pile")
+
+
+# --- slice 9: iteration schedules and velocity callbacks (K3, K4) ---------------------------
+
+SCHEDULE = (2, 1, 1, 1)  # velocity iterations per substep (SolveConfig.iteration_schedule)
+# Phase 24's capacities, sized up front for the settled 16k pile (its peak demand: ~97k
+# pairs, ~32k wide rows, cell windows over 16 and rows over 8 candidates), as the ragdoll
+# pile's builder sizes for its landing: at bench.py's capacities the pile overflows the
+# broad phase's cell windows, the store's pages and the wide rows before autosize, and
+# the substep loop's bucket, which orders rows by page execution, drops other rows than
+# K2's slot-order pack: three bodies fell through the ground (ROADMAP queue 3).
+SCHEDULE_16K_CAPS = dict(max_pairs=196608, wide_cap_rows=65536, grid_cell_capacity=64,
+                         grid_pair_k=32)
+RADIAL_CENTRE = (0.0, -1000.5, 0.0)  # 1,000 m below the ground box's centre
+
+
+def radial_gravity(state, dt):
+    """Phase 23's velocity callback (``IntegratorConfig.velocity_callback``): gravity of
+    magnitude 10 toward ``RADIAL_CENTRE`` and a linear damping of 0.05/s, computed from
+    the state on its device, no host sync."""
+    from bepuphysics2_tpu_torch.utils.vec import Vec3
+
+    rx, ry, rz = (RADIAL_CENTRE[0] - state.pos.x, RADIAL_CENTRE[1] - state.pos.y,
+                  RADIAL_CENTRE[2] - state.pos.z)
+    k = 10.0 / torch.sqrt(rx * rx + ry * ry + rz * rz)
+    return (state.vel + Vec3(rx * k, ry * k, rz * k) * dt) * (1.0 - 0.05) ** dt, state.omega
+
+
+def _schedule_overrides(callback=True):
+    from bepuphysics2_tpu_torch.integrator import IntegratorConfig
+
+    out = dict(iteration_schedule=SCHEDULE)
+    if callback:
+        out["integrator"] = IntegratorConfig(velocity_callback=radial_gravity)
+    return out
+
+
+def phase_schedule_pile(dev, name, smi, warm=33, timed=32, settle=64):
+    """The 4,096-body pile of phase 4 (bench.py's settings) with the iteration schedule
+    (2, 1, 1, 1) and the radial-gravity callback: off K1, through the general path's
+    substep loop, its store a K3 bank of 512-row pages whose color waves hold several
+    pages. Every step launches K3 once per substep (the store is the lone contact bank:
+    as in the JAX package, one kernel call per substep carries that substep's
+    iterations, 5 in all), K1, K2 and K4 never, no plain version, no host sync. After
+    ``warm`` steps, ``timed`` steps are timed; after ``settle`` more (phase 4's 129 in all,
+    when the store holds its settled pages) two steps' K3 wave tables are held to their
+    contract and K3 is held against its plain version on the scene's own last K3 call.
+    Returns the K3 launches."""
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    sim = build_pile(4096, dev, **_schedule_overrides())
+    c = sim.config
+    _require((c.body_capacity, c.max_pairs, c.substeps) == (4160, 32768, len(SCHEDULE)),
+             "pile configuration drifted from bench.py's")
+    calls, restore = _count_plain_calls()
+    try:
+        _zero_launches()
+        sim.run(warm, DT)
+        sps, syncs = _timed_syncs(sim, timed)
+        sim.run(settle, DT)
+        k3_calls, tables, checked = _k3_steps(sim, 2)
+    finally:
+        restore()
+    launches = _kernel_launches()
+    steps = warm + timed + settle + 2
+    min_y, pairs, contacts = _pile_gates(sim, "the scheduled 4k pile")
+    per_step = len(SCHEDULE)
+    iters = [k["n_iters"] for _, k in k3_calls]
+    _require(launches == dict(K1=0, K2=0, K3=per_step * steps, K4=0),
+             f"the pile did not solve through K3 alone, {per_step} launches per step: {launches}")
+    _require(iters == list(SCHEDULE) * 2, f"K3's iterations per call {iters}, not the schedule's")
+    _require(len(tables) == 2, f"{len(tables)} K3 wave tables in 2 steps")
+    _require(not calls, f"a plain version ran on the card's main path: {sorted(set(calls))}")
+    _require(syncs == 0, f"{syncs} host syncs per step in the timed window")
+    per_color, jac = _k1_structure(*tables[-1])
+    a, k = _clone_call(*k3_calls[-1])
+    err, got = _sweep_hold("K3 on the scheduled pile's last call", sweep.contact_sweep,
+                           sweep._contact_sweep_plain, a, k, K3_TOL)
+    _require(float((got[0] - a[0]).abs().max()) > 1e-4, "K3 left the pile's velocities unchanged")
+    kernel_ms = _bare_ms("contact_sweep", lambda: sweep.contact_sweep(*a, **k), 20)
+    note = (f"the pile's last K3 call ({k['n_iters']} iteration, "
+            f"{a[2].shape[1] // k['sb']} pages of {k['sb']}): max |diff| {err:.3e}, the kernel "
+            f"alone {kernel_ms:.3f} ms; {_shape_note('contact_sweep', k['sb'], k['waves'])}")
+    print(f"[23 schedule pile] 4096-body pile, schedule {SCHEDULE}, radial gravity toward "
+          f"{RADIAL_CENTRE} with damping 0.05/s, {warm} + {timed} + {settle} + 2 steps on "
+          f"{name} ({smi}): "
+          f"{sps:.2f} steps/s over the {timed} timed steps; pairs {pairs}, contacts "
+          f"{contacts}, min dynamic y {min_y:.3f}; launches {launches} in {steps} steps "
+          f"({per_step} K3 per step carrying {sum(SCHEDULE)} iterations: {iters[:per_step]}), "
+          f"plain calls {len(calls)}, host syncs per step {syncs:g}; the last step's store: "
+          f"{a[2].shape[1] // k['sb']} pages of {k['sb']}, live pages per color {per_color}, "
+          f"{jac} Jacobi; K3 wave tables of 2 steps: {_tables_note(checked[::per_step])}, "
+          f"each color wave's written bodies named by no other row of the wave, sums in "
+          f"writer-first order; K3 vs plain on {note} (limit {K3_TOL:g}), bit-identical repeat")
+    return launches["K3"]
+
+
+def phase_schedule_pile_win(dev, name, smi, warm=33, timed=32,
+                            settle=max(31, int(6 * 16384 ** (1 / 3)))):
+    """The 16,384-body pile of phase 8 with the iteration schedule (2, 1, 1, 1) and
+    ``SCHEDULE_16K_CAPS``: grid2, bench.py's sequence with autosize (``warm`` steps, the
+    settle, autosize, ``warm``, ``timed`` timed), off K2, through the substep loop's
+    windowed store bucket: K4 once per iteration (5 per step), K1, K2 and K3 never, no
+    plain version, no host sync, no overflow bit before autosize; the pile's gates after
+    it; two steps' K4 wave tables held to their contract and K4 held against its plain
+    version on the scene's own last K4 call. Returns the K4 launches."""
+    from bepuphysics2_tpu_torch.ops import sweep
+    from bepuphysics2_tpu_torch.simulation import D_ENTRIES
+
+    n = 16384
+    sim = build_pile(n, dev, **_schedule_overrides(callback=False), **SCHEDULE_16K_CAPS)
+    per_step = sum(SCHEDULE)
+    calls, restore = _count_plain_calls()
+    try:
+        _zero_launches()
+        t0 = time.perf_counter()
+        sim.run(warm + settle, DT)
+        early_src = int(sim.last_diag.overflow_src)
+        _require(early_src == 0, f"overflow before autosize (src {early_src})")
+        before = _kernel_launches()["K4"]
+        sized = sim.autosize(DT, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
+        probe, rest = divmod(_kernel_launches()["K4"] - before, per_step)
+        _require(rest == 0 and probe >= 32 and probe % 32 == 0,
+                 f"autosize ran {probe} steps and {rest} launches off K4")
+        sim.run(warm - 2, DT)
+        k4_calls, restore_k4 = _capture_calls("contact_sweep_win")
+        try:
+            sim.run(2, DT)
+        finally:
+            restore_k4()
+        torch.cuda.synchronize()
+        to_window = time.perf_counter() - t0
+        sps, syncs = _timed_syncs(sim, timed)
+    finally:
+        restore()
+    launches = _kernel_launches()
+    steps = warm + settle + probe + warm + timed
+    min_y, pairs, contacts = _pile_gates(sim, "the scheduled 16k pile after autosize")
+    demand = [int(x) for x in sim.last_diag.demand]
+    _require(demand[D_ENTRIES] > 0, "the grid2 broad phase did not run")
+    _require(launches == dict(K1=0, K2=0, K3=0, K4=per_step * steps),
+             f"the pile did not solve through K4 alone, {per_step} launches per step: {launches}")
+    _require(len(k4_calls) == 2 * per_step, f"{len(k4_calls)} K4 calls in 2 steps")
+    _require(not calls, f"a plain version ran on the card's main path: {sorted(set(calls))}")
+    _require(syncs == 0, f"{syncs} host syncs per step in the timed window")
+    checked = []
+    for a, k in k4_calls[::per_step]:
+        entries = _k4_entries(a, k["sb"])
+        checked.append(_table_check("K4", k["waves"].cpu(), *entries))
+        _require(torch.equal(k["order"].cpu(), sweep.writer_order(entries[0], entries[1])),
+                 "K4's order does not list each slice's writing entries first")
+    a, k = _clone_call(*k4_calls[-1])
+    err, _ = _sweep_hold("K4 on the scheduled 16k pile's last call", sweep.contact_sweep_win,
+                         sweep._contact_sweep_win_plain, a, k, K4_TOL)
+    c = sim.config
+    print(f"[24 schedule pile, windowed] {n}-body pile, schedule {SCHEDULE}, capacities "
+          f"{SCHEDULE_16K_CAPS} (no overflow bit before autosize), {warm} + {settle} "
+          f"settle + autosize ({probe} probe steps, {sized['rounds']} rounds) + {warm} + "
+          f"{timed} steps on {name} ({smi}): {sps:.2f} steps/s over the {timed} timed steps; "
+          f"to the timed window {to_window:.1f} s; pairs {pairs}, contacts {contacts}, min "
+          f"dynamic y {min_y:.3f}; demand {demand}; autosized max_pairs {c.max_pairs}, "
+          f"wide_cap_rows {c.wide_cap_rows}; launches {launches} in {steps} steps "
+          f"({per_step} K4 per step, one per iteration), plain calls {len(calls)}, host syncs "
+          f"per step {syncs:g}; K4 wave tables of 2 steps: {_tables_note(checked)}, each color "
+          f"wave's written bodies named by no other row of the wave, sums in writer-first "
+          f"order; K4 vs plain on the last K4 call: max |diff| {err:.3e} (limit {K4_TOL:g}), "
+          f"bit-identical repeat")
+    return launches["K4"]
 
 
 # --- slice 5: the TPU design probes of experiments/ (K5, K6, K7) ----------------------------
@@ -1559,10 +1701,12 @@ def phase_probe_gather_scatter(dev):
     """The gather probe's main (``experiments.gather_probe``) on the card, K6's and K7's
     counts zeroed before it: k1-k4 and k6 through K6 and k5 through K7, each exactly its
     plain version (a gather and a last-writer copy are exact) and again on a repeat; k5
-    also with distinct ``d`` rows, where the last writer shows. K6's library call is
-    ``torch.index_select``, timed in turns with K6 through its wrapper; K6's bare C call
-    and an empty ctypes call of its arguments show what the wrapper's floor is. K7 has no
-    library call (no one PyTorch call keeps the last writer)."""
+    also bit for bit on ``gather_probe.scatter_cases`` (distinct ``d`` rows, where the
+    last writer shows, and K7's edge cases). K6's library call is ``torch.index_select``,
+    timed in turns with K6 through its wrapper; K6's bare C call and an empty ctypes call
+    of its arguments show what the wrapper's floor is. K7 is timed on main's own call
+    through its wrapper, as its bare C call and as its grid of an empty kernel (the launch
+    floor); it has no library call (no one PyTorch call keeps the last writer)."""
     from bepuphysics2_tpu_torch.experiments import gather_probe
     from bepuphysics2_tpu_torch.ops import probes
 
@@ -1571,30 +1715,42 @@ def phase_probe_gather_scatter(dev):
     k6, k7 = probes.probe_gather.launches, probes.probe_scatter.launches
     _require((k6, k7) == (52 * 5, 52), f"K6 and K7 launched {k6} and {k7} times in the main")
     v, idx, d = next(r for r in rows if r["kernel"] == "K7")["args"]
-    d2 = torch.from_numpy(np.random.default_rng(3).normal(size=tuple(d.shape))
-                          .astype(np.float32)).to(dev)
-    distinct = dict(label="k5 distinct d", fn=gather_probe.k5, args=(v, idx, d2),
-                    out=gather_probe.k5(v, idx, d2), kernel="K7")
-    distinct["max_abs_err"] = float((distinct["out"]
-                                     - probes._probe_scatter_plain(v, idx, d2)).abs().max())
-    for r in [*rows, distinct]:
+    bits = lambda t: t.view(torch.int32)
+    cases = []
+    for label, *args in gather_probe.scatter_cases(dev):
+        out = gather_probe.k5(*args)
+        same = torch.equal(bits(out), bits(probes._probe_scatter_plain(*args)))
+        cases.append(dict(label=f"k5 {label}", fn=gather_probe.k5, args=tuple(args), out=out,
+                          max_abs_err=0.0 if same else float("inf")))
+    for r in [*rows, *cases]:
         _require(r["max_abs_err"] == 0.0, f"{r['label']} differs from its plain version")
-        _require(torch.equal(r["fn"](*r["args"]), r["out"]), f"{r['label']} is not "
-                 "deterministic run to run")
+        _require(torch.equal(bits(r["fn"](*r["args"])), bits(r["out"])), f"{r['label']} is "
+                 "not deterministic run to run")
     nb, w = v.shape
     m, uniq = idx.numel(), int(torch.unique(idx).numel())
     gather = rows[0]
     g_bound = _bound(uniq * w * 4 + _nbytes(idx, gather["out"]), 0)  # distinct rows read
-    order = probes._stable_order(idx)
-    s_ms = _time_ms(lambda: probes.probe_scatter(v, idx, d, order=order), 50)
+    # K7 on gather_probe.main's own call (one launch, no sort ahead of it): through its
+    # wrapper, its bare C entry point, and the same grid of an empty kernel through the
+    # same binding (the launch floor under it).
+    from bepuphysics2_tpu_torch.ops import build
+
+    s_ms = _time_ms(lambda: probes.probe_scatter(v, idx, d), 200)
+    s_out = torch.empty_like(v)
+    s_args = (v.data_ptr(), idx.data_ptr(), d.data_ptr(), s_out.data_ptr(), nb, m, w,
+              build.raw_stream(dev))
+    s_bare_fn = build.bind("probe_scatter", "probe_scatter_launch", probes._SCATTER_ARGS)
+    s_empty_fn = build.bind("probe_scatter", "probe_scatter_empty_launch", probes._SCATTER_ARGS)
+    s_bare = _time_ms(lambda: s_bare_fn(*s_args), 200)
+    _require(torch.equal(s_out, next(r for r in rows if r["kernel"] == "K7")["out"]),
+             "K7's bare call differs from its wrapper's")
+    s_empty = _time_ms(lambda: s_empty_fn(*s_args), 200)
     # K7 reads v and writes the output whole, reads the indices and each target's last
     # d row, and adds once per component of a target.
     s_bound = _bound(2 * _nbytes(v) + _nbytes(idx) + uniq * w * 4, uniq * w)
     # K6 three ways: through the wrapper (gather_probe.main's k1), the bare C entry point
     # (bound once, pointers and stream taken beforehand) and torch.index_select, then the
     # same entry point's empty twin: what a ctypes call costs here.
-    from bepuphysics2_tpu_torch.ops import build
-
     out = torch.empty_like(gather["out"])
     c_args = (v.data_ptr(), idx.data_ptr(), out.data_ptr(), nb, m, w, build.raw_stream(dev))
     bare = build.bind("probe_gather", "probe_gather_launch", probes._GATHER_ARGS)
@@ -1612,19 +1768,22 @@ def phase_probe_gather_scatter(dev):
     s_plain = _host_ms(lambda: probes._probe_scatter_plain(v, idx, d))
     scatter = next(r for r in rows if r["kernel"] == "K7")
     print(f"[22 probe gather/scatter] gather_probe.main: NB {nb}, M {m} ({uniq} distinct); "
-          f"launches K6 {k6}, K7 {k7}; k1-k6 and k5 with distinct d rows exact and repeated; "
+          f"launches K6 {k6}, K7 {k7}; k1-k6 exact and repeated; k5 bit for bit and "
+          f"repeated on {', '.join(c['label'][3:] for c in cases)}; "
           f"K6 (k1) {gather['ms']:.4f} ms, torch.index_select {gather['library_ms']:.4f} ms; "
           f"per call over 200 calls (4 runs each, in turns): K6 through its wrapper "
           f"{g_wrap:.4f} ms, torch.index_select {g_lib:.4f} ms; the bare C call "
           f"{g_bare:.4f} ms, an empty ctypes call of "
           f"the same 7 arguments {g_noop:.4f} ms (host clock); "
           f"plain {g_plain:.3f} ms, bound {g_bound[0]:.7f} ms ({g_bound[1]}); K7 "
-          f"{scatter['ms']:.4f} ms per call, kernel {s_ms:.4f} ms, plain {s_plain:.3f} ms, "
-          f"bound {s_bound[0]:.7f} ms ({s_bound[1]})")
-    return (dict(launches=k6, max_abs_err=0.0, ms=g_wrap, plain_ms=g_plain,
+          f"(k5) {scatter['ms']:.4f} ms per call in main; over 200 calls through its "
+          f"wrapper {s_ms:.4f} ms, the bare C call {s_bare:.4f} ms, its grid of an empty "
+          f"kernel through the same binding {s_empty:.4f} ms (the launch floor); plain "
+          f"{s_plain:.3f} ms, bound {s_bound[0]:.7f} ms ({s_bound[1]})")
+    return (dict(launches=k6, max_abs_err=0.0, ms=g_wrap, kernel_ms=g_bare, plain_ms=g_plain,
                  bound_ms=g_bound[0], bound_by=g_bound[1], library_ms=g_lib),
-            dict(launches=k7, max_abs_err=0.0, ms=s_ms, plain_ms=s_plain, bound_ms=s_bound[0],
-                 bound_by=s_bound[1], library_ms=None))
+            dict(launches=k7, max_abs_err=0.0, ms=s_ms, kernel_ms=s_bare, plain_ms=s_plain,
+                 bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=None))
 
 
 def main():
@@ -1667,6 +1826,17 @@ def main():
     phase_compound_pile(dev)
     k5 = phase_probe_sweep(dev)
     k6, k7 = phase_probe_gather_scatter(dev)
+    # Slice 9: the schedule and the callback off K1 and K2, through K3 and K4.
+    k3["paths"] = {"32-ragdoll tube": k3["launches"],
+                   "4k pile, schedule and callback": phase_schedule_pile(dev, name, smi)}
+    sched = _schedule_overrides()
+    phase_determinism(dev, "23 determinism", " with the schedule and the callback", **sched)
+    phase_cpu_vs_card(dev, "23 cpu vs card", " with the schedule and the callback",
+                      n_bodies=512, **sched)
+    k4["paths"] = {"1,024-ragdoll pile": k4["launches"],
+                   "16k pile, schedule": phase_schedule_pile_win(dev, name, smi)}
+    phase_cpu_vs_card(dev, "24 cpu vs card", " on the windowed path with the schedule",
+                      WIN_TOL, **_schedule_overrides(callback=False), **win)
     # No single PyTorch call computes K1-K5 or K7 (ordered Gauss-Seidel walks; 36
     # dependent passes; a read-add-set whose last writer wins): their library_ms is null.
     for k in (k1, k2, k3, k4):
@@ -1682,7 +1852,7 @@ def main():
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
         bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
-        kernel_ms=k.get("kernel_ms"),
+        kernel_ms=k.get("kernel_ms"), launches_by_path=k.get("paths"),
     ) for n, src, rep, k in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,7 @@ from bepuphysics2_tpu_torch.models import (
     build_compound_pile_sim, build_ragdoll_pile_sim, build_ragdoll_tube_sim,
 )
 from bepuphysics2_tpu_torch.experiments import gather_probe, sweep_proto
+from bepuphysics2_tpu_torch.integrator import IntegratorConfig
 from bepuphysics2_tpu_torch.ops import probes, sweep
 
 pytestmark = pytest.mark.cuda
@@ -326,3 +327,60 @@ def test_k6_equals_plain_at_each_width(cuda_device, width):
     got = probes.probe_gather(v, idx)
     assert probes.probe_gather.launches == before + 1
     np.testing.assert_array_equal(got.cpu().numpy(), probes._probe_gather_plain(v, idx).cpu().numpy())
+
+
+@pytest.mark.parametrize("case", [c[0] for c in gather_probe.scatter_cases()])
+def test_k7_equals_plain_bit_for_bit_on_card(cuda_device, case):
+    """K7 on its edge cases (``gather_probe.scatter_cases``: distinct ``d`` rows, one
+    target, indices outside [0, NB), M > NB, -0.0 rows, rows of 6 floats): the plain
+    version's bits, in one launch and no sort, and the same bits on a repeat."""
+    _, v, idx, d = next(c for c in gather_probe.scatter_cases(cuda_device) if c[0] == case)
+    bits = lambda t: t.cpu().view(torch.int32)
+    sort = torch.sort
+    torch.sort = None  # K7 sorts nothing: a call of torch.sort would fail here
+    try:
+        before = probes.probe_scatter.launches
+        got = probes.probe_scatter(v, idx, d)
+        assert probes.probe_scatter.launches == before + 1
+        again = probes.probe_scatter(v, idx, d)
+    finally:
+        torch.sort = sort
+    assert torch.equal(bits(got), bits(probes._probe_scatter_plain(v, idx, d)))
+    assert torch.equal(bits(again), bits(got))
+
+
+def _radial_gravity(state, dt):
+    """Gravity of 10 toward a point 1,000 m below the ground and a damping of 0.05/s."""
+    from bepuphysics2_tpu_torch.utils.vec import Vec3
+
+    rx, ry, rz = -state.pos.x, -1000.5 - state.pos.y, -state.pos.z
+    k = 10.0 / torch.sqrt(rx * rx + ry * ry + rz * rz)
+    return (state.vel + Vec3(rx * k, ry * k, rz * k) * dt) * 0.95 ** dt, state.omega
+
+
+@pytest.mark.parametrize("layout", ["page", "windowed"])
+def test_scheduled_pile_on_card_matches_cpu_and_repeats(cuda_device, layout):
+    """The iteration schedule (2, 1) and a velocity callback take the pile off K1 and K2:
+    K3 once per substep (page layout, the store a lone bank) or K4 once per iteration
+    (windowed), K1 and K2 never; 20 frames within the envelope of that layout (5e-3 / 1e-4,
+    windowed 2e-2 / 1e-3) of the CPU's; two card runs are bit-identical."""
+    win = dict(solver_backend="pallas_win", broadphase="grid2") if layout == "windowed" else {}
+    kernel, per_step = ((sweep.contact_sweep_win, 3) if win else (sweep.contact_sweep, 2))
+    runs = []
+    for dev in (cuda_device, cuda_device, "cpu"):
+        sim = _pile(dev, iteration_schedule=(2, 1), integrator=IntegratorConfig(
+            velocity_callback=_radial_gravity), **win)
+        before = dict(k=kernel.launches, k1=sweep.solve_substeps_contacts.launches,
+                      k2=sweep.solve_substeps_contacts_win.launches)
+        sim.run(20, DT)
+        if dev != "cpu":
+            assert kernel.launches == before["k"] + per_step * 20
+            assert sweep.solve_substeps_contacts.launches == before["k1"]
+            assert sweep.solve_substeps_contacts_win.launches == before["k2"]
+        runs.append((_positions(sim), sim.state_hash()))
+    (card, h1), (card2, h2), (cpu, _) = runs
+    assert h1 == h2
+    np.testing.assert_array_equal(card, card2)
+    diff = np.abs(card - cpu)
+    tol = (2e-2, 1e-3) if win else (5e-3, 1e-4)
+    assert diff.max() < tol[0] and np.median(diff) < tol[1]

@@ -1,9 +1,10 @@
-"""K1, K2, K3, K4 or K5 against an earlier version of its own source, on one CUDA card:
+"""K1, K2, K3, K4, K5 or K7 against an earlier version of its own source, on one CUDA card:
 both run the kernel's inputs of ``chip_smoke.py`` (K1: phase 3's, the 4,096-body pile's own
 K1 call, which this script takes from the pile; K2: phase 7's bank; K3: phase 11's bank
 and the 32-ragdoll tube's own K3 calls of one step, which this script takes from the tube;
 K4: phase 16's bank; K5: every variant of the sweep prototypes' main, and v1 on passes
-that repeat bodies), and the script prints whether their results are equal bit for bit
+that repeat bodies; K7: the gather probe's main call and ``gather_probe.scatter_cases``),
+and the script prints whether their results are equal bit for bit
 (int32 views; else the largest difference per output), then each one's CUDA-event time
 per call, taken in turns (earlier, current, current, earlier), the kernel alone (its C
 entry point on the arguments its wrapper makes) and through its wrapper, beside the card's
@@ -14,7 +15,7 @@ waves). With ``--sass`` it also counts the current kernel's global loads in its 
 (``LDG.E.CONSTANT``), which a kernel that reads what other SMs wrote must not use.
 
     git archive <commit> | tar -x -C build/parent
-    python3 tools/k2_vs_parent.py --parent build/parent [--kernel k1|k2|k3|k4|k5] [--sass]
+    python3 tools/k2_vs_parent.py --parent build/parent [--kernel k1|k2|k3|k4|k5|k7] [--sass]
                                   [--breakdown] [--other-deal]
 
 The earlier source is ``<parent>/bepuphysics2_tpu_torch/csrc/<kernel>.cu`` with its
@@ -27,8 +28,11 @@ an empty table; for K5, both the earlier and the current kernel on v1's inputs w
 empty pass list, passes that only load their indices, passes without the math and passes
 without the scatter (the earlier source with those lines changed; the current built with
 ``K5_PARTS``). ``--other-deal`` (K3) also times the current source with the other deal of
-a color wave (its rows over the grid, or its slices to the blocks: ``DEAL_ROWS``). Imports
-nothing of JAX.
+a color wave (its rows over the grid, or its slices to the blocks: ``DEAL_ROWS``). For K7
+the earlier kernel is run as its wrapper ran it, with its own stable sort of the indices
+(through the wrapper: sort and launch; alone: the launch on a sort made beforehand), and
+the current kernel's grid of an empty kernel, launched through the same binding, gives the
+launch floor. Imports nothing of JAX.
 """
 import argparse
 import ctypes
@@ -44,22 +48,23 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
-from bepuphysics2_tpu_torch.experiments import sweep_proto  # noqa: E402
+from bepuphysics2_tpu_torch.experiments import gather_probe, sweep_proto  # noqa: E402
 from bepuphysics2_tpu_torch.ops import build, probes, sweep  # noqa: E402
 
 NAMES = {"k1": "substeps_contacts", "k2": "substeps_contacts_win", "k3": "contact_sweep",
-         "k4": "contact_sweep_win", "k5": "probe_sweep"}
+         "k4": "contact_sweep_win", "k5": "probe_sweep", "k7": "probe_scatter"}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # The one-block kernels' C arguments, before the wave table (K5: before its flags).
 ONE_BLOCK_ARGS = {"k1": [_P] * 10 + [_I] * 6 + [_F] * 7 + [_P],
                   "k2": sweep._K2_ARGS[:10] + sweep._K2_ARGS[11:],
                   "k3": [_P] * 7 + [_I] * 3 + [_F, _P],
                   "k4": [_P] * 9 + [_I] * 3 + [_F, _P],
-                  "k5": [_P] * 4 + [_I] * 6 + [_P]}
+                  "k5": [_P] * 4 + [_I] * 6 + [_P],
+                  "k7": [_P] * 5 + [_I] * 3 + [_P]}
 CURRENT_ARGS = {"k1": sweep._K1_ARGS, "k2": sweep._K2_ARGS, "k3": sweep._K3_ARGS,
-                "k4": sweep._K4_ARGS, "k5": probes._SWEEP_ARGS}
+                "k4": sweep._K4_ARGS, "k5": probes._SWEEP_ARGS, "k7": probes._SCATTER_ARGS}
 # What marks the current signature in a source.
-CURRENT_MARK = {"k5": "const int* distinct"}
+CURRENT_MARK = {"k5": "const int* distinct", "k7": "probe_scatter_empty_launch"}
 # The earlier K5 with parts of each pass left out (--breakdown): its source's lines changed.
 K5_EARLIER_PARTS = {
     "no math": [("d[c] = math_block(g);", "d[c] = g;")],
@@ -212,6 +217,57 @@ def _run_earlier_k5(fn, args, kw, current):
     return [keep[0]]
 
 
+def _k7_c_args(v, idx, d, order=None):
+    """K7's C arguments for (v, idx, d): the earlier one-block kernel's (with ``order``,
+    the stable sort of idx) or the current grid's. Returns (args, out)."""
+    out = torch.empty_like(v)
+    (nb, w), m = v.shape, idx.shape[0]
+    mid = [] if order is None else [order.data_ptr()]
+    lead = [v.data_ptr(), idx.data_ptr(), *mid, d.data_ptr(), out.data_ptr()]
+    return (*lead, nb, m, w, build.raw_stream(v.device)), out
+
+
+def main_k7(parent, reps):
+    """K7 against its earlier source: bit for bit on the gather probe's main call and
+    ``gather_probe.scatter_cases``; then on main's call, in turns, the earlier kernel
+    (alone on a sort made beforehand, and through its wrapper's path: its stable sort
+    and the launch) against the current (alone, and through its wrapper), and the
+    current grid of an empty kernel through the same binding (the launch floor)."""
+    dev = torch.device("cuda")
+    earlier, current = _earlier_launch(parent, "k7")
+    if current:
+        raise RuntimeError("the earlier K7 already takes the current arguments")
+    now = build.bind("probe_scatter", "probe_scatter_launch", probes._SCATTER_ARGS)
+    empty = build.bind("probe_scatter", "probe_scatter_empty_launch", probes._SCATTER_ARGS)
+    sort = lambda idx: torch.sort(idx, stable=True).indices.to(torch.int32).contiguous()
+    calls = [("main's call", *gather_probe.inputs(dev))] + gather_probe.scatter_cases(dev)
+    for label, v, idx, d in calls:
+        c_args, out = _k7_c_args(v, idx, d, sort(idx))
+        if earlier(*c_args):
+            raise RuntimeError("the earlier K7 failed to launch")
+        got = probes.probe_scatter(v, idx, d)
+        print(f"K7 vs earlier on {label} (NB {v.shape[0]}, M {idx.shape[0]}, W {v.shape[1]}): "
+              f"bit-identical {_same([got], [out])}, repeat identical "
+              f"{_same([got], [probes.probe_scatter(v, idx, d)])}")
+    _, v, idx, d = calls[0]
+    order = sort(idx)
+    e_args, _ = _k7_c_args(v, idx, d, order)
+    c_args, _ = _k7_c_args(v, idx, d)
+    runs = {"earlier alone": lambda: earlier(*e_args),
+            "earlier with its sort": lambda: earlier(*_k7_c_args(v, idx, d, sort(idx))[0]),
+            "current alone": lambda: now(*c_args),
+            "current through its wrapper": lambda: probes.probe_scatter(v, idx, d),
+            "empty kernel, same grid and binding": lambda: empty(*c_args)}
+    times = {k: [] for k in runs}
+    for turn in ("earlier", "current", "current", "earlier"):
+        for k, fn in runs.items():
+            if k.startswith(turn) or (turn == "current" and k.startswith("empty")):
+                times[k].append(round(chip_smoke._time_ms(fn, reps), 5))
+    print(f"main's call, ms per call over {reps} calls, in turns (earlier, current, current, "
+          f"earlier): " + "; ".join(f"{k} {v} (mean {np.mean(v):.5f})" for k, v in times.items()))
+    return 0
+
+
 def _sass_loads(name):
     """(global loads, of them LDG.E.CONSTANT) in the current kernel's SASS."""
     lib = next(build.BUILD_DIR.glob(f"{name}-{build.source_key(name)}.so"))
@@ -309,6 +365,8 @@ def main():
     kernel, name = args.kernel, NAMES[args.kernel]
     print(chip_smoke._nvidia_smi())
     build.load(name)
+    if kernel == "k7":
+        return main_k7(args.parent, args.reps)
     earlier, current_args = _earlier_launch(args.parent, kernel)
     calls, wrapper, passes, label = _calls(kernel, dev, args.k4_rows)
     run_earlier = {"k1": _run_earlier_k1, "k2": _run_earlier_k2, "k3": _run_earlier_k3,

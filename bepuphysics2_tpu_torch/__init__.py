@@ -4,10 +4,11 @@ The same ``Simulation`` / ``SimConfig`` API and step stages as the JAX package, 
 tensors: bounds, broad phase (brute force, or grid2 above 8,192 bodies), persistent pair
 store, narrow phase (with compound children), the substepped TGS solve (kernel K1, or the
 windowed kernel K2 above 8,192 bodies, for store-only scenes; the general path over
-kernel K3 for scenes with joints: hand-written CUDA for sm_90a on a CUDA device, their
-plain PyTorch versions on the CPU), island sleep, and demand-driven ``autosize``. A
-``Simulation`` runs on the CUDA card unless it is given ``device="cpu"``. The port carries
-sphere, capsule, box and compound scenes with ball-socket and swing-limit joints. The TPU
+kernel K3 for scenes with joints, or K4 above 8,192 bodies: hand-written CUDA for sm_90a
+on a CUDA device, their plain PyTorch versions on the CPU), island sleep, and
+demand-driven ``autosize``. A ``Simulation`` runs on the CUDA card unless it is given
+``device="cpu"``. The port carries sphere, capsule, box and compound scenes with all 30
+joint types of the reference (``models``: the ragdoll, the colosseum, the cloth). The TPU
 design probes of the repository's ``experiments/`` run in ``experiments`` (kernels K5-K7).
 """
 

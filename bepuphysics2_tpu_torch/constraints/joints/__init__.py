@@ -1,50 +1,58 @@
-"""Joint registry: the 30 constraint type names of the reference (DefaultTypes.cs:18-49).
+"""Joint registry: all 30 constraint types of the reference (DefaultTypes.cs:18-49).
 
-Counterpart of ``bepuphysics2_tpu/constraints/joints/__init__.py``. ``JOINT_TYPES`` names
-every type; the port carries ``ball_socket`` and ``swing_limit`` (the ragdoll's joints),
-and every other name maps to a stand-in that refuses to be banked, naming the ROADMAP
-item that brings it.
+Counterpart of ``bepuphysics2_tpu/constraints/joints/__init__.py``: the same names,
+classes, bank layouts and host-side store.
 """
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from .angular import SwingLimit
+from .angular import (
+    AngularAxisGearMotor,
+    AngularAxisMotor,
+    AngularHinge,
+    AngularMotor,
+    AngularServo,
+    AngularSwivelHinge,
+    SwingLimit,
+    TwistLimit,
+    TwistMotor,
+    TwistServo,
+)
 from .base import JointBank, JointContext, MotorSettingsDesc, ServoSettingsDesc
-from .linear import BallSocket
+from .combo import Hinge, SwivelHinge, Weld
+from .linear import (
+    BallSocket,
+    BallSocketMotor,
+    BallSocketServo,
+    CenterDistance,
+    CenterDistanceLimit,
+    DistanceLimit,
+    DistanceServo,
+)
+from .linear_axis import LinearAxisLimit, LinearAxisMotor, LinearAxisServo, PointOnLineServo
+from .multibody import AreaConstraint, MultiBodyContext, VolumeConstraint
+from .onebody import (
+    OneBodyAngularMotor,
+    OneBodyAngularServo,
+    OneBodyLinearMotor,
+    OneBodyLinearServo,
+)
 
-NOT_PORTED_ITEM = "ROADMAP queue 1 item 16 (the other joint types and multi-body joints)"
-
-
-class _NotPortedJoint:
-    """Stands in for a joint type of the JAX package that the port does not have yet."""
-
-    def __init__(self, name: str, n_bodies: int = 2):
-        self.name = name
-        self.N_BODIES = n_bodies
-
-    def __getattr__(self, attr):
-        if attr.startswith("__"):
-            raise AttributeError(attr)
-        raise NotImplementedError(f"joint type {self.name!r} is not ported yet: {NOT_PORTED_ITEM}")
-
-
-_TWO_BODY_NAMES = [
-    "ball_socket", "ball_socket_servo", "ball_socket_motor",
-    "center_distance", "center_distance_limit", "distance_servo", "distance_limit",
-    "angular_hinge", "angular_swivel_hinge", "swing_limit",
-    "twist_servo", "twist_limit", "twist_motor",
-    "angular_servo", "angular_motor", "angular_axis_motor", "angular_axis_gear_motor",
-    "weld", "hinge", "swivel_hinge",
-    "point_on_line_servo", "linear_axis_servo", "linear_axis_motor", "linear_axis_limit",
-    "one_body_linear_servo", "one_body_linear_motor", "one_body_angular_servo",
-    "one_body_angular_motor",
+TWO_BODY_TYPES = [
+    BallSocket, BallSocketServo, BallSocketMotor,
+    CenterDistance, CenterDistanceLimit, DistanceServo, DistanceLimit,
+    AngularHinge, AngularSwivelHinge, SwingLimit,
+    TwistServo, TwistLimit, TwistMotor,
+    AngularServo, AngularMotor, AngularAxisMotor, AngularAxisGearMotor,
+    Weld, Hinge, SwivelHinge,
+    PointOnLineServo, LinearAxisServo, LinearAxisMotor, LinearAxisLimit,
+    OneBodyLinearServo, OneBodyLinearMotor, OneBodyAngularServo, OneBodyAngularMotor,
 ]
-_MULTI_BODY = {"area": 3, "volume": 4}
-PORTED_TYPES = {BallSocket.name: BallSocket, SwingLimit.name: SwingLimit}
-JOINT_TYPES = {n: PORTED_TYPES.get(n) or _NotPortedJoint(n) for n in _TWO_BODY_NAMES}
-JOINT_TYPES.update({n: _NotPortedJoint(n, k) for n, k in _MULTI_BODY.items()})
+MULTI_BODY_TYPES = [AreaConstraint, VolumeConstraint]
+ALL_TYPES = TWO_BODY_TYPES + MULTI_BODY_TYPES
+JOINT_TYPES = {t.name: t for t in ALL_TYPES}
 
 ONE_BODY_NAMES = {
     "one_body_linear_servo", "one_body_linear_motor",
@@ -70,9 +78,6 @@ class JointTypeStore:
     bank cached per device until the host copy changes)."""
 
     def __init__(self, joint_cls, capacity: int):
-        if isinstance(joint_cls, _NotPortedJoint):
-            raise NotImplementedError(
-                f"joint type {joint_cls.name!r} is not ported yet: {NOT_PORTED_ITEM}")
         self.cls = joint_cls
         self.capacity = capacity
         self.n_bodies = getattr(joint_cls, "N_BODIES", 2)
@@ -149,7 +154,7 @@ class JointTypeStore:
 
 
 __all__ = [
-    "JOINT_TYPES", "PORTED_TYPES", "ONE_BODY_NAMES", "NOT_PORTED_ITEM", "JointBank",
-    "JointContext", "JointTypeStore", "ServoSettingsDesc", "MotorSettingsDesc",
-    "make_description",
+    "JOINT_TYPES", "ALL_TYPES", "TWO_BODY_TYPES", "MULTI_BODY_TYPES", "ONE_BODY_NAMES",
+    "JointBank", "JointContext", "MultiBodyContext", "JointTypeStore", "ServoSettingsDesc",
+    "MotorSettingsDesc", "make_description",
 ]

@@ -227,6 +227,22 @@ def zero_dv(n, device=None) -> BodyVel:
     return BodyVel(Vec3.zeros(n, device=device), Vec3.zeros(n, device=device))
 
 
+def zero3(like: torch.Tensor) -> Vec3:
+    """A zero Vec3 of ``like``'s shape on its device."""
+    return Vec3.zeros(like.shape, device=like.device)
+
+
+def full3(like: torch.Tensor, x: float, y: float, z: float) -> Vec3:
+    """The constant Vec3 (x, y, z) of ``like``'s shape on its device."""
+    return Vec3.full(like.shape, x, y, z, device=like.device)
+
+
+def safe_eff(cfm, inv_eff):
+    """cfm / inv_eff guarded for zero total inverse mass (a joint between two
+    locked-inertia bodies moves nothing; raw division gives inf, then NaN velocities)."""
+    return torch.where(inv_eff > 0.0, cfm / inv_eff.clamp_min(1e-30), 0.0)
+
+
 def apply_linear_offset_impulse(impulse: Vec3, offset_a: Vec3, offset_b: Vec3,
                                 ia: GatheredInertia, ib: GatheredInertia):
     """A world-space linear impulse acting at offsets (the ball-socket jacobian):

@@ -1,6 +1,11 @@
 """Scene models built through the public ``Simulation`` API."""
+from .cloth import add_cloth, build_cloth_sim
 from .ragdoll import add_ragdoll
-from .scenes import build_compound_pile_sim, build_ragdoll_pile_sim, build_ragdoll_tube_sim
+from .scenes import (
+    awake_fraction, build_colosseum_sim, build_compound_pile_sim, build_ragdoll_pile_sim,
+    build_ragdoll_tube_sim, run_colosseum,
+)
 
-__all__ = ["add_ragdoll", "build_compound_pile_sim", "build_ragdoll_pile_sim",
-           "build_ragdoll_tube_sim"]
+__all__ = ["add_cloth", "add_ragdoll", "awake_fraction", "build_cloth_sim",
+           "build_colosseum_sim", "build_compound_pile_sim", "build_ragdoll_pile_sim",
+           "build_ragdoll_tube_sim", "run_colosseum"]

@@ -1,9 +1,13 @@
-"""Scene builders: the port's own copy of ``__graft_entry__._build_ragdoll_tube_sim``, and
+"""Scene builders: the port's own copies of ``__graft_entry__._build_ragdoll_tube_sim`` and
+``_build_colosseum_sim`` (with ``run_colosseum``, ``bench.py``'s colosseum sequence), and
 two scenes built from the same parts, the ragdoll pile (the general solve above 8,192
 bodies) and the compound pile (a contact-only scene with a compound bank)."""
 from __future__ import annotations
 
+import time
+
 import numpy as np
+import torch
 
 from ..bodies import BodyDescription, StaticDescription
 from ..shapes import Box, Compound, Sphere
@@ -133,3 +137,112 @@ def build_compound_pile_sim(n_bodies: int, substeps: int = 4, num_colors: int = 
         sid, obj = (sphere_id, sphere) if i % 2 == 0 else (box_id, box)
         sim.add_body(BodyDescription.dynamic(tuple(float(c) for c in p), sid, 1.0, obj))
     return sim, config
+
+
+def build_colosseum_sim(n_bodies: int, substeps: int = 4, num_colors: int = 8,
+                        ring_count: int = 48, layers: int = 15, enable_sleep: bool = True,
+                        device="cuda", **overrides):
+    """The colosseum (reference Demos/ColosseumDemo.cs and PyramidDemo.cs): a square grid of
+    ``n_bodies // (ring_count * layers)`` colosseums (at least one), each a ring of
+    ``ring_count`` bricks of half extents (1.0, 0.5, 0.5) stacked ``layers`` high in a
+    brick pattern (odd layers turned by half a brick), 5% tangential slack and a 2 mm gap
+    between layers, colosseum centers ``2.6 * radius`` apart, on a static ground box that
+    covers the grid. Once settled its islands sleep; toppling one colosseum wakes it alone.
+    ``max_pairs`` is 4 per body (at least 4,096), rounded up to whole 512-row pages above
+    8,192 body slots, where the windowed layout runs in 256-row slices. ``overrides``
+    replace config fields. Returns (sim, config, handles, colosseum index per body)."""
+    per_col = ring_count * layers
+    n_cols = max(1, n_bodies // per_col)
+    grid = int(np.ceil(np.sqrt(n_cols)))
+    bw, bh, bd = 1.0, 0.5, 0.5
+    spacing = 2.0 * bw * 1.05
+    radius = ring_count * spacing / (2 * np.pi)
+    pitch = 2.6 * radius
+    capacity = n_cols * per_col + 64
+    max_pairs = max(4096, 4 * n_cols * per_col)
+    if capacity > 8192:
+        max_pairs = -(-max_pairs // 512) * 512
+    config = SimConfig(**{**dict(body_capacity=capacity, max_pairs=max_pairs,
+                                 substeps=substeps, num_colors=num_colors, broadphase="auto",
+                                 enable_sleep=enable_sleep), **overrides})
+    sim = Simulation(config, device=device)
+    world = grid * pitch + 4 * radius
+    ground = sim.add_shape(Box(world, 0.5, world))  # top face at y = 0
+    sim.add_static(StaticDescription(position=(0, -0.5, 0), shape=ground))
+    box = Box(bw, bh, bd)
+    box_id = sim.add_shape(box)
+    handles, col_of = [], []
+    for c in range(n_cols):
+        cx = (c % grid - (grid - 1) / 2) * pitch
+        cz = (c // grid - (grid - 1) / 2) * pitch
+        for ly in range(layers):
+            y = bh + ly * (2.0 * bh + 0.002)
+            off = (0.5 / ring_count) * (ly % 2)
+            for k in range(ring_count):
+                th = 2 * np.pi * (k / ring_count + off)
+                # The brick's long axis along the ring's tangent: R_y(-(th + pi/2)).
+                half = -(th + np.pi / 2) * 0.5
+                q = (0.0, float(np.sin(half)), 0.0, float(np.cos(half)))
+                p = (cx + radius * np.cos(th), y, cz + radius * np.sin(th))
+                handles.append(sim.add_body(
+                    BodyDescription.dynamic(p, box_id, 1.0, box, orientation=q)))
+                col_of.append(c)
+    return sim, config, handles, np.asarray(col_of)
+
+
+def awake_fraction(sim) -> float:
+    """The share of dynamic bodies awake (one read from the device)."""
+    from ..bodies import KIND_DYNAMIC
+
+    b = sim.state.bodies
+    dyn = b.kind == KIND_DYNAMIC
+    return float((b.awake & dyn).sum()) / max(1, int(dyn.sum()))
+
+
+def _timed(sim, steps: int, dt: float) -> float:
+    """``steps`` steps; steps per second on the host clock, the device drained."""
+    sync = torch.cuda.synchronize if sim.device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    sim.run(steps, dt)
+    sync()
+    return steps / (time.perf_counter() - t0)
+
+
+def run_colosseum(sim, handles, col_of, dt: float = 1.0 / 60.0, window=_timed,
+                  settle_runs: int = 20, timed: int = 32) -> dict:
+    """``bench.py``'s colosseum sequence through the public API: 33 steps, ``autosize``
+    (32 probe steps, headroom 2.0, pairs headroom 1.4), 33 steps; runs of 30 steps (at
+    most ``settle_runs``) until under 5% of the dynamic bodies are awake; a timed
+    settled window of ``timed`` steps; the topple (4 m/s added to the x velocity of every
+    body of colosseum 0, through ``get_body`` and ``set_velocity``, before the clock
+    starts: each call reads the host, and the edits reach the device before it too); a
+    timed churn window of ``timed`` steps.
+    ``window(sim, steps, dt)`` runs and times a window (steps/s). Returns the awake-fraction
+    curve, the settled and post-topple fractions, the awake handles after the churn
+    window, both steps/s, autosize's result, and the settled window's start and end
+    positions and awake flags (device tensors)."""
+    sim.run(33, dt)
+    sized = sim.autosize(dt, probe_steps=32, headroom=2.0, pairs_headroom=1.4)
+    sim.run(33, dt)
+    curve = []
+    for _ in range(settle_runs):
+        sim.run(30, dt)
+        curve.append(awake_fraction(sim))
+        if curve[-1] < 0.05:
+            break
+    b = sim.state.bodies
+    before = (torch.stack(list(b.pos)).clone(), b.awake.clone())
+    settled_sps = window(sim, timed, dt)
+    b = sim.state.bodies
+    after = (torch.stack(list(b.pos)).clone(), b.awake.clone())
+    for h in np.asarray(handles)[col_of == 0]:
+        v = sim.get_body(int(h))[2]
+        sim.set_velocity(int(h), linear=(float(v[0]) + 4.0, float(v[1]), float(v[2])))
+    sim.state  # the host's edits go to the device here, before the clock starts
+    churn_sps = window(sim, timed, dt)
+    awake = sim.state.bodies.awake.cpu().numpy()
+    hs = np.asarray(handles)
+    return dict(curve=curve, settled=curve[-1], post_topple=awake_fraction(sim),
+                awake_handles=set(int(h) for h in hs[awake[hs]]), settled_sps=settled_sps,
+                churn_sps=churn_sps, autosize=sized, settled_window=(before, after))

@@ -480,7 +480,7 @@ class Simulation:
     def add_constraint(self, type_name: str, bodies, **params):
         """Add a joint (reference Solver.Add, Solver.cs:1208). ``bodies`` is a body handle
         or a list of handles; ``params`` are the type's description fields. Returns a
-        handle (type_name, slot). Types the port does not carry yet raise."""
+        handle (type_name, slot)."""
         if type_name not in JOINT_TYPES:
             raise KeyError(f"unknown constraint type '{type_name}'")
         if type_name not in self.joints:

@@ -19,16 +19,16 @@ from __future__ import annotations
 import torch
 
 from ..bodies import KIND_DYNAMIC
-from ..constraints.joints import JOINT_TYPES, ONE_BODY_NAMES, PORTED_TYPES
+from ..constraints.joints import JOINT_TYPES, ONE_BODY_NAMES, TWO_BODY_TYPES
 from ..utils.packing import gather_rows
 from .coloring import color_constraints_incremental, jacobi_valence_kary
 
 I32 = torch.int32
 
-# Unified two-body joint bank widths (max over the ported types; padded columns are zero
-# and ignored by each type's kernel).
-U_PRESTEP = max(t.N_PRESTEP for t in PORTED_TYPES.values())
-U_IMPULSE = max(t.N_IMPULSE for t in PORTED_TYPES.values())
+# Unified two-body joint bank widths (max over the two-body and one-body types, as the JAX
+# package's; padded columns are zero and ignored by each type's kernel).
+U_PRESTEP = max(t.N_PRESTEP for t in TWO_BODY_TYPES)
+U_IMPULSE = max(t.N_IMPULSE for t in TWO_BODY_TYPES)
 
 
 def round_up(x: int, mult: int) -> int:
@@ -83,20 +83,34 @@ def bank_live(awake, bank: dict, name: str):
     return live & awake_any
 
 
-def color_table(state, contact_banks, joint_banks, tb_names, cfg, sb: int, base_used):
-    """The unified coloring over every contact bank (one segment each) and the unified
-    joint bank (one segment), with the pair store's claims as ``base_used``. Returns a dict
+def color_table(state, contact_banks, joint_banks, tb_names, mb_names, cfg, sb: int,
+                base_used):
+    """The unified coloring over every contact bank (one segment each), the unified
+    two-body joint bank (one segment) and the multi-body banks (uncapped, after it), with
+    the pair store's claims as ``base_used``. The table has as many body columns as the
+    scene's widest constraint; narrower groups pad with body 0, not dynamic. Returns a dict
     of per-group colors and ranks, the segments' caps, the table, the joint banks'
     liveness and the colors to persist (-1 = Jacobi or unassigned, retried next frame)."""
     C = cfg.num_colors
     kind = state.kind
-    dyn_of = lambda idx: kind[idx.long()] == KIND_DYNAMIC
+    dev = kind.device
+    arity = max([2] + [JOINT_TYPES[n].N_BODIES for n in mb_names])
+
+    def group(cols):
+        """(m, arity) body refs and dynamic flags of a group's body columns."""
+        zero = torch.zeros_like(cols[0])
+        dyn = [kind[c.long()] == KIND_DYNAMIC for c in cols]
+        pad = arity - len(cols)
+        return (torch.stack(cols + [zero] * pad, -1),
+                torch.stack(dyn + [torch.zeros_like(dyn[0])] * pad, -1))
+
     refs, dyns, valids, prevs, segments, caps = [], [], [], [], [], []
     off = 0
     for ps, _, prev in contact_banks:
         mi = ps.body_a.shape[0]
-        refs.append(torch.stack([ps.body_a, ps.body_b], -1))
-        dyns.append(torch.stack([dyn_of(ps.body_a), dyn_of(ps.body_b)], -1))
+        r, d = group([ps.body_a, ps.body_b])
+        refs.append(r)
+        dyns.append(d)
         valids.append(ps.valid)
         prevs.append(prev)
         # Capacities are multiples of the streamed slice, so no slice straddles a color.
@@ -107,26 +121,22 @@ def color_table(state, contact_banks, joint_banks, tb_names, cfg, sb: int, base_
         off += mi
     bank_valid = {}
     mu_total = 0
-    joint_start = off
-    for name in tb_names:
+    for name in tb_names + mb_names:
         bank = joint_banks[name]
         m = bank["bodies"].shape[0]
-        a = bank["bodies"][:, 0]
-        if name in ONE_BODY_NAMES:
-            refs.append(torch.stack([a, torch.zeros_like(a)], -1))
-            dyns.append(torch.stack([dyn_of(a), torch.zeros_like(dyn_of(a))], -1))
-        else:
-            b = bank["bodies"][:, 1]
-            refs.append(torch.stack([a, b], -1))
-            dyns.append(torch.stack([dyn_of(a), dyn_of(b)], -1))
+        nb = 1 if name in ONE_BODY_NAMES else getattr(JOINT_TYPES[name], "N_BODIES", 2)
+        r, d = group([bank["bodies"][:, j] for j in range(nb)])
+        refs.append(r)
+        dyns.append(d)
         bank_valid[name] = bank_live(state.awake, bank, name)
         valids.append(bank_valid[name])
-        prevs.append(bank.get("color", torch.full((m,), -1, dtype=I32, device=a.device)))
-        mu_total += m
+        prevs.append(bank.get("color", torch.full((m,), -1, dtype=I32, device=dev)))
+        if name in tb_names:
+            mu_total += m
     cap_u = min(round_up(max(1, -(-int(cfg.color_cap_factor * mu_total) // C)), 8),
                 round_up(mu_total, 8))
     if mu_total:
-        segments.append((joint_start, mu_total, cap_u))
+        segments.append((off, mu_total, cap_u))
     if refs:
         all_refs = torch.cat(refs).to(I32)
         all_dyn = torch.cat(dyns)
@@ -135,9 +145,9 @@ def color_table(state, contact_banks, joint_banks, tb_names, cfg, sb: int, base_
             segments=segments, rounds=cfg.color_rounds, churn_cap=cfg.color_churn_cap,
             base_used=base_used)
     else:  # store-only scene: every constraint is colored in the store
-        all_refs = torch.zeros((0, 2), dtype=I32, device=kind.device)
-        all_dyn = torch.zeros((0, 2), dtype=torch.bool, device=kind.device)
-        all_color = all_rank = torch.zeros(0, dtype=I32, device=kind.device)
+        all_refs = torch.zeros((0, 2), dtype=I32, device=dev)
+        all_dyn = torch.zeros((0, 2), dtype=torch.bool, device=dev)
+        all_color = all_rank = torch.zeros(0, dtype=I32, device=dev)
 
     colors, ranks = [], []
     off = 0
@@ -147,12 +157,12 @@ def color_table(state, contact_banks, joint_banks, tb_names, cfg, sb: int, base_
         off += r.shape[0]
     n_c = len(contact_banks)
     ccolors = colors[:n_c]
-    jcolors = dict(zip(tb_names, colors[n_c:]))
-    jranks = dict(zip(tb_names, ranks[n_c:]))
+    jcolors = dict(zip(tb_names + mb_names, colors[n_c:]))
+    jranks = dict(zip(tb_names + mb_names, ranks[n_c:]))
     persist_c = [torch.where(ps.valid & (c < C), c, -1).to(I32)
                  for (ps, _, _), c in zip(contact_banks, ccolors)]
     persist_j = {n: torch.where(bank_valid[n] & (jcolors[n] < C), jcolors[n], -1).to(I32)
-                 for n in tb_names}
+                 for n in tb_names + mb_names}
     return dict(ccolors=ccolors, cranks=ranks[:n_c], jcolors=jcolors, jranks=jranks,
                 caps=caps, cap_u=cap_u, mu_total=mu_total, all_refs=all_refs,
                 all_dyn=all_dyn, bank_valid=bank_valid, persist_c=persist_c,

@@ -28,7 +28,7 @@ from ..collision import pairstore as _ps
 from ..collision.pairstore import _compact
 from ..constraints import contact as contact_mod
 from ..constraints.contact import BodyVel, GatheredInertia
-from ..constraints.joints import JOINT_TYPES, NOT_PORTED_ITEM, JointContext
+from ..constraints.joints import JOINT_TYPES, JointContext, MultiBodyContext
 from ..integrator import IntegratorConfig, integrate_poses, integrate_velocities
 from ..ops import sweep as psweep
 from ..utils.spring import compute_springiness
@@ -390,7 +390,10 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
     C = cfg.num_colors
     n_bodies = state.pos.x.shape[0]
     dev = state.kind.device
-    tb_names = sorted(joint_banks)
+    # Two-body (and one-body) types first, one segment of the coloring table; the
+    # multi-body types after them, uncapped (JAX solve.py:503-512).
+    tb_names = sorted(n for n in joint_banks if getattr(JOINT_TYPES[n], "N_BODIES", 2) <= 2)
+    mb_names = sorted(n for n in joint_banks if getattr(JOINT_TYPES[n], "N_BODIES", 2) > 2)
     contact_banks = [(cb[0], cb[1], cb[2] if len(cb) > 2 and cb[2] is not None else
                       torch.full((cb[0].body_a.shape[0],), -1, dtype=torch.int32, device=dev))
                      for cb in contact_banks]
@@ -406,7 +409,8 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
     sps = tree(pg, store_bank["ps"])
     jrow = is_jac_pages.repeat_interleave(page)
 
-    table = bk_mod.color_table(state, contact_banks, joint_banks, tb_names, cfg, page, base_used)
+    table = bk_mod.color_table(state, contact_banks, joint_banks, tb_names, mb_names, cfg, page,
+                               base_used)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     jac_demand = torch.zeros((), dtype=torch.int32, device=dev)
     wide_demand = torch.zeros((), dtype=torch.int32, device=dev)
@@ -424,7 +428,7 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         ju = bk_mod.joint_bucket(joint_banks, tb_names, table, cfg.jacobi_cap_factor, C)
         overflow = overflow | ju["spill"]
         jac_demand = torch.maximum(jac_demand, ju["jac_n"])
-    for name in tb_names:
+    for name in tb_names + mb_names:
         in_jacobi.append(table["bank_valid"][name] & (table["jcolors"][name] == C))
     valence = bk_mod.valence(table, in_jacobi, n_bodies, st.jacv)
 
@@ -453,7 +457,7 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
             b["k_scale"] = bk_mod.slice_major(b["sa"], b["sb"], page)
             b["k_sb"] = page
         b["spring"] = compute_springiness(b["ps"].spring, h)
-    whole = ju is None and _whole_solve_ok(integrator_cfg, cfg)
+    whole = ju is None and not mb_names and _whole_solve_ok(integrator_cfg, cfg)
     if not whole and not use_win:
         # K3's tables, once per step: each bank's waves over its own page colors, and its
         # sums' order, writing entries (valid rows' sides on bodies with inertia) first.
@@ -488,9 +492,10 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
             off += n
         joint_imps = {}
     else:
-        state, imps, ju_imp = _substep_loop(state, buckets, ju, tb_names, valence,
-                                            integrator_cfg, cfg, h, inv_h, n_bodies)
-        joint_imps = {}
+        mb = _multibody_banks(joint_banks, mb_names, table, C)
+        state, imps, ju_imp, mb_imps = _substep_loop(state, buckets, ju, tb_names, mb, valence,
+                                                     integrator_cfg, cfg, h, inv_h, n_bodies)
+        joint_imps = dict(mb_imps)
         if ju is not None:
             BU = ju["present"].shape[0]
             u = torch.where((ju["pos"] < BU)[:, None],
@@ -532,16 +537,33 @@ def _map_impulses(f, new, old):
                      f(new.twist, old.twist))
 
 
-def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h, inv_h,
+def _multibody_banks(joint_banks, mb_names, table, C: int):
+    """The three- and four-body banks as the substep loop runs them (JAX ``solve_all``
+    :1238-1263): each whole bank masked per color, after the unified joint sweep. Per
+    bank its class, body columns, prestep, liveness, colors and impulses (zero where the
+    record is not live, so that warm starts skip it)."""
+    out = []
+    for name in mb_names:
+        bank, cls = joint_banks[name], JOINT_TYPES[name]
+        live = table["bank_valid"][name]
+        out.append(dict(name=name, cls=cls, ps=bank["prestep"], live=live,
+                        color=table["jcolors"][name],
+                        idx=[bank["bodies"][:, j].long() for j in range(cls.N_BODIES)],
+                        imp=bank["impulse"] * live[:, None].float()))
+    return out
+
+
+def _substep_loop(state, buckets, ju, tb_names, mb, valence, integrator_cfg, cfg, h, inv_h,
                   n_bodies: int):
     """Every substep of the general path (JAX ``substep_bucketed``): the depth update, pose
     and velocity integration, one warm start of every bank, then per velocity iteration
     (``cfg.iterations_for`` the substep) each contact bank through its kernel (K3, or K4
-    for the windowed store bucket) and the joint bank's color sweep, where there is a
-    joint bank (``ju`` is None without one). A lone contact bank on the page layout runs
-    a substep's iterations in one K3 launch, as the JAX package runs them in one kernel
-    call (JAX ``solve.py:1652-1654``). Returns (state, bucket-order impulses, joint
-    impulses or None)."""
+    for the windowed store bucket), the joint bank's color sweep, where there is a joint
+    bank (``ju`` is None without one), and the multi-body banks' passes (``mb``, from
+    ``_multibody_banks``). A lone contact bank on the page layout runs a substep's
+    iterations in one K3 launch, as the JAX package runs them in one kernel call (JAX
+    ``solve.py:1652-1654``). Returns (state, bucket-order impulses, joint impulses or None,
+    the multi-body banks' impulses by name)."""
     C = cfg.num_colors
     dev = state.kind.device
     sink = n_bodies
@@ -561,8 +583,61 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
         pj = torch.cat([ju["present"][ncap:], ju["present"][ncap:]])
         ju["s2_j"] = torch.cat([valence[ja[ncap:]], valence[jb[ncap:]]])
         ju["sum_j"] = bk_mod.FixedOrderSum(torch.where(pj, ju["idx2_j"], sink), n_bodies)
+        # The types each pass runs (C colors, then the Jacobi slice). With more types than
+        # passes most (type, pass) pairs hold no live row: one read of the table below per
+        # step lets the sweep skip them. With fewer, every type runs every pass and nothing
+        # is read from the device.
+        T = len(tb_names)
+        ju["names"] = [tb_names] * (C + 1)
+        if T > C + 1:
+            row_pass = torch.clamp_max(torch.arange(ja.shape[0], device=dev) // cap_u, C)
+            seen = torch.zeros((C + 1) * T, dtype=torch.float32, device=dev).index_add_(
+                0, row_pass * T + ju["tag"].long(), ju["live"].float())
+            seen = (seen > 0).view(C + 1, T).tolist()
+            ju["names"] = [[n for t, n in enumerate(tb_names) if row[t]] for row in seen]
+        ju["warm_names"] = [n for n in tb_names if any(n in names for names in ju["names"])]
         warm_tgt.append(torch.where(pres2, ju["idx2"], sink))
+    for b in mb:
+        # Warm starts after the unified bank's; the Jacobi pass sums its rows in fixed order.
+        warm_tgt += [torch.where(b["live"], i, sink) for i in b["idx"]]
+        b["jac"] = b["live"] & (b["color"] == C)
+        b["s"] = [valence[i] for i in b["idx"]]
+    if mb:
+        mb_sum = bk_mod.FixedOrderSum(torch.cat(
+            [torch.where(b["jac"], i, sink) for b in mb for i in b["idx"]]), n_bodies)
     warm_sum = bk_mod.FixedOrderSum(torch.cat(warm_tgt), n_bodies)
+
+    def mb_ctx(table14, v6, b, active, jacobi: bool):
+        rows = [table14[i] for i in b["idx"]]
+        return MultiBodyContext(
+            pos=[Vec3(r[:, 0], r[:, 1], r[:, 2]) for r in rows],
+            vel=[BodyVel(Vec3(g[:, 0], g[:, 1], g[:, 2]), Vec3(g[:, 3], g[:, 4], g[:, 5]))
+                 for g in (v6[i] for i in b["idx"])],
+            inv_mass=[r[:, 7] * s if jacobi else r[:, 7] for r, s in zip(rows, b["s"])],
+            active=active)
+
+    def mb_tail(table14, v6, imps):
+        """One iteration of the multi-body banks (JAX ``mb_iteration_tail``): per color a
+        masked pass over every bank (within a color no two live rows share a dynamic body,
+        so the deltas add in any order), then the Jacobi pass, mass-split by the valence."""
+        imps = dict(imps)
+        for c in range(C):
+            tgt, vals = [], []
+            for b in mb:
+                new, dvs = b["cls"].solve(b["ps"], imps[b["name"]],
+                                          mb_ctx(table14, v6, b, b["live"] & (b["color"] == c),
+                                                 False), h, inv_h)
+                imps[b["name"]] = new
+                tgt += b["idx"]
+                vals += [_pack_dv(d) for d in dvs[:len(b["idx"])]]
+            v6 = v6.index_add(0, torch.cat(tgt), torch.cat(vals))
+        vals = []
+        for b in mb:
+            new, dvs = b["cls"].solve(b["ps"], imps[b["name"]],
+                                      mb_ctx(table14, v6, b, b["jac"], True), h, inv_h)
+            imps[b["name"]] = new
+            vals += [_pack_dv(d) * (1.0 / s)[:, None] for d, s in zip(dvs, b["s"])]
+        return mb_sum.add(v6, torch.cat(vals)), imps
 
     def ju_ctx(table14, v6, idx2, active, scale2=None):
         rows = table14[idx2]
@@ -573,13 +648,14 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
         return JointContext(pos_a=pos_a, orn_a=orn_a, inertia_a=gi_a, vel_a=va, pos_b=pos_b,
                             orn_b=orn_b, inertia_b=gi_b, vel_b=vb, active=active)
 
-    def ju_apply(fn_name, ps, imp, tag, ctx):
-        """Every present type's solve / warm start masked by the row tag, merged."""
+    def ju_apply(fn_name, ps, imp, tag, ctx, names):
+        """The solve / warm start of each type in ``names`` masked by the row tag, merged.
+        Returns the impulses and the (2n, 6) velocity deltas, the A sides then the B
+        sides."""
         n = tag.shape[0]
-        z = Vec3.zeros(n, device=dev)
-        dva, dvb = BodyVel(z, z), BodyVel(z, z)
+        d12 = torch.zeros((n, 12), dtype=torch.float32, device=dev)
         new_imp = imp
-        for name in tb_names:
+        for name in names:
             cls = JOINT_TYPES[name]
             m_t = ctx.active & (tag == ju["type_ids"][name])
             ctx_t = ctx._replace(active=m_t)
@@ -590,12 +666,9 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
                                       new_imp)
             else:
                 da, db = cls.warm_start(ps_t, imp_t, ctx_t)
-            sel = lambda d: BodyVel(Vec3(*(torch.where(m_t, c, 0.0) for c in d.linear)),
-                                    Vec3(*(torch.where(m_t, c, 0.0) for c in d.angular)))
-            da, db = sel(da), sel(db)
-            dva = BodyVel(dva.linear + da.linear, dva.angular + da.angular)
-            dvb = BodyVel(dvb.linear + db.linear, dvb.angular + db.angular)
-        return new_imp, dva, dvb
+            d = torch.stack([*da.linear, *da.angular, *db.linear, *db.angular], -1)
+            d12 = d12 + torch.where(m_t[:, None], d, 0.0)
+        return new_imp, torch.cat([d12[:, :6], d12[:, 6:]])
 
     def ju_color_sweep(table14, v6, imp):
         """One Gauss-Seidel sweep over the unified joint bank. Within a color no two live
@@ -606,14 +679,15 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
         for c in range(C):
             cs = slice(c * cap_u, (c + 1) * cap_u)
             ctx = ju_ctx(table14, ext[:n_bodies], ju["idx2_col"][c], ju["live"][cs])
-            new_imp, dva, dvb = ju_apply("solve", ju["ps"][cs], imp[cs], ju["tag"][cs], ctx)
-            ext = ext.index_add(0, ju["tgt_col"][c], torch.cat([_pack_dv(dva), _pack_dv(dvb)]))
+            new_imp, p2 = ju_apply("solve", ju["ps"][cs], imp[cs], ju["tag"][cs], ctx,
+                                   ju["names"][c])
+            ext = ext.index_add(0, ju["tgt_col"][c], p2)
             imp = torch.cat([imp[:c * cap_u], new_imp, imp[(c + 1) * cap_u:]])
         v6 = ext[:n_bodies]
         ctx_j = ju_ctx(table14, v6, ju["idx2_j"], ju["live"][ncap:], ju["s2_j"])
-        new_imp, dva, dvb = ju_apply("solve", ju["ps"][ncap:], imp[ncap:], ju["tag"][ncap:], ctx_j)
-        p2 = torch.cat([_pack_dv(dva), _pack_dv(dvb)]) / ju["s2_j"][:, None]
-        return ju["sum_j"].add(v6, p2), torch.cat([imp[:ncap], new_imp])
+        new_imp, p2 = ju_apply("solve", ju["ps"][ncap:], imp[ncap:], ju["tag"][ncap:], ctx_j,
+                               ju["names"][C])
+        return ju["sum_j"].add(v6, p2 / ju["s2_j"][:, None]), torch.cat([imp[:ncap], new_imp])
 
     def sweep_bank(b, v6, ps_t, it_t, imp_t, n_iters=1):
         """``n_iters`` velocity iterations of one contact bank through its kernel (K4: one)."""
@@ -631,7 +705,8 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
     presteps = [b["ps"] for b in buckets]
     imps = [b["imp"] for b in buckets]
     ju_imp = None if ju is None else ju["imp0"]
-    lone = ju is None and len(buckets) == 1 and "wseg" not in buckets[0]
+    mb_imps = {b["name"]: b["imp"] for b in mb}
+    lone = ju is None and not mb and len(buckets) == 1 and "wseg" not in buckets[0]
     for s in range(cfg.substeps):
         if s > 0:
             v6 = torch.stack([*state.vel, *state.omega], -1)
@@ -656,8 +731,11 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
             p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]) / b["s2"][:, None])
         if ju is not None:
             ctx_w = ju_ctx(table14, v6, ju["idx2"], ju["live"])
-            _, dva, dvb = ju_apply("warm", ju["ps"], ju_imp, ju["tag"], ctx_w)
-            p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]))
+            p2s.append(ju_apply("warm", ju["ps"], ju_imp, ju["tag"], ctx_w, ju["warm_names"])[1])
+        for b in mb:
+            dvs = b["cls"].warm_start(b["ps"], mb_imps[b["name"]],
+                                      mb_ctx(table14, v6, b, b["live"], False))
+            p2s += [_pack_dv(d) for d in dvs[:len(b["idx"])]]
         v6 = v6 + warm_sum.add(torch.zeros_like(v6), torch.cat(p2s))
 
         # Velocity iterations: each contact bank through its kernel, then the joint sweep.
@@ -675,8 +753,10 @@ def _substep_loop(state, buckets, ju, tb_names, valence, integrator_cfg, cfg, h,
                 imps[ci] = _unpack_impulses(imp_t, imps[ci])
             if ju is not None:
                 v6, ju_imp = ju_color_sweep(table14, v6, ju_imp)
+            if mb:
+                v6, mb_imps = mb_tail(table14, v6, mb_imps)
         state = _vel_from6(state, v6)
-    return state, imps, ju_imp
+    return state, imps, ju_imp, mb_imps
 
 
 def _unpack_impulses(imp_t, like):
@@ -713,9 +793,6 @@ def solve_all(
         raise NotImplementedError(
             "the port solves through the pair store only (the legacy per-frame path is not "
             "ported: ROADMAP queue 1, 'Not to port')")
-    mb = sorted(n for n in joint_banks if getattr(JOINT_TYPES[n], "N_BODIES", 2) > 2)
-    if mb:
-        raise NotImplementedError(f"multi-body joints {mb} are not ported yet: {NOT_PORTED_ITEM}")
     use_win = state.pos.x.shape[0] > 8192 or cfg.backend == "pallas_win"
     if not joint_banks and not contact_banks and _whole_solve_ok(integrator_cfg, cfg):
         return _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win)

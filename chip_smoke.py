@@ -12,9 +12,12 @@ contact-only compound pile (one K1 launch over the store's and the compound's ba
 wave tables of K1-K4 are held to their contract on real steps. Then the TPU design
 probes of ``experiments/`` through their entry points: the sweep prototypes v1-v4 (K5)
 and the gather and scatter probes k1-k6 (K6, K7: one launch of a grid over row ranges).
-Last, the iteration schedule and the velocity callback, which take a store-only scene off
+Then the iteration schedule and the velocity callback, which take a store-only scene off
 K1 and K2: the 4,096-body pile with both through K3 (its store's color waves several
-pages of 512 rows each) and the 16,384-body pile with the schedule through K4.
+pages of 512 rows each) and the 16,384-body pile with the schedule through K4. Last,
+slice 10: ``bench.py``'s colosseum through its sequence, island sleep and wake under load
+(2,880 bodies through K1, 23,040 through grid2 and K2), the 64 x 64 cloth over a sphere
+(its contacts through K3 beside 16,002 joints) and every joint type (the 30-rig battery).
 
     python3 chip_smoke.py
 
@@ -1786,6 +1789,264 @@ def phase_probe_gather_scatter(dev):
                  bound_ms=s_bound[0], bound_by=s_bound[1], library_ms=None))
 
 
+# --- slice 10: the colosseum (sleep and wake under load), the cloth, every joint type ---
+
+CLOTH = 64  # the card's lattice: 4,096 nodes, 16,002 links
+CLOTH_SMALL = 16  # determinism and card vs CPU
+
+
+def _track_steps(sim):
+    """Record each step's overflow bits (device tensors, no host read) and which steps
+    ``autosize`` ran. Returns (bits, marks): ``marks`` gets "before" / "after", the step
+    counts at autosize's entry and return."""
+    bits, marks = [], {}
+    step, size = sim.timestep, sim.autosize
+
+    def timestep(dt):
+        step(dt)
+        bits.append(sim.last_diag.overflow_src)
+
+    def autosize(*a, **k):
+        marks["before"] = len(bits)
+        out = size(*a, **k)
+        marks["after"] = len(bits)
+        return out
+
+    sim.timestep, sim.autosize = timestep, autosize
+    return bits, marks
+
+
+def _or_bits(bits):
+    return int(np.bitwise_or.reduce(torch.stack(bits).cpu().numpy())) if bits else 0
+
+
+def phase_colosseum(dev, name, smi, n_bodies, tag):
+    """``bench.py``'s colosseum at ``n_bodies`` (``models.run_colosseum``: 33 steps,
+    autosize, 33 steps, runs of 30 until under 5% awake, a timed settled window of 32, the
+    topple of colosseum 0, a timed churn window of 32). Up to 8,192 body slots brute force
+    and K1, above them grid2, the windowed layout and K2: that kernel once per step and no
+    other solve kernel, no plain version. Gates: finite state, no overflow after autosize,
+    every body above y = -0.2, settled under 5%, after the topple every awake body in
+    colosseum 0 and at least half of it awake, the sleeping bodies' positions bit-equal
+    over the settled window, 0 host syncs in both timed windows. Returns (the kernel's
+    name, its launches)."""
+    from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
+    from bepuphysics2_tpu_torch.models import build_colosseum_sim, run_colosseum
+
+    t0 = time.perf_counter()
+    sim, cfg, handles, col_of = build_colosseum_sim(n_bodies, device=dev)
+    built = time.perf_counter() - t0
+    kernel = "K1" if cfg.body_capacity <= 8192 else "K2"
+    _require(len(handles) == n_bodies and (cfg.substeps, cfg.num_colors) == (4, 8),
+             "colosseum configuration drifted from bench.py's")
+    bits, marks = _track_steps(sim)
+    syncs = []
+
+    def window(sim, steps, dt):
+        sps, per_step = _timed_syncs(sim, steps)
+        syncs.append(per_step)
+        return sps
+
+    calls, restore = _count_plain_calls()
+    _zero_launches()
+    try:
+        t0 = time.perf_counter()
+        out = run_colosseum(sim, handles, col_of, DT, window=window)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = _kernel_launches()
+    steps = len(bits)
+    early, late = _or_bits(bits[:marks["before"]]), _or_bits(bits[marks["after"]:])
+    st = sim.state
+    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
+              st.store.imp_pen, st.store.imp_tx, st.store.imp_ty, st.store.imp_tw]
+    _require(all(bool(torch.isfinite(t).all()) for t in leaves), f"{tag}: non-finite state")
+    dyn = st.bodies.kind == KIND_DYNAMIC
+    min_y = float(st.bodies.pos.y[dyn].min())
+    hs = np.asarray(handles)
+    col0 = {int(h) for h in hs[col_of == 0]}
+    (p0, a0), (p1, _) = out["settled_window"]
+    idx = torch.as_tensor(hs, device=p0.device)
+    asleep = ~a0[idx]
+    still = bool((p0[:, idx][:, asleep] == p1[:, idx][:, asleep]).all())
+    n_asleep = int(asleep.sum())
+    c = sim.config
+    print(f"[{tag}] {n_bodies}-body colosseum ({len(set(col_of.tolist()))} colosseums of "
+          f"{n_bodies // len(set(col_of.tolist()))}), built in {built:.1f} s, bench.py's "
+          f"sequence in {steps} steps on {name} ({smi}), {elapsed:.1f} s: awake fraction "
+          f"curve {[round(x, 4) for x in out['curve']]}, settled {out['settled']:.4f}, after "
+          f"the topple {out['post_topple']:.4f} ({len(out['awake_handles'])} awake, all in "
+          f"colosseum 0: {out['awake_handles'] <= col0}); {out['settled_sps']:.2f} steps/s "
+          f"settled, {out['churn_sps']:.2f} churn; host syncs per step in the windows "
+          f"{syncs}; launches {launches} ({launches[kernel] / steps:g} {kernel} per step), "
+          f"plain calls {len(calls)}; overflow bits before autosize {early}, after {late}; "
+          f"autosize {out['autosize']['rounds']} rounds, max_pairs {c.max_pairs}, wide_cap_rows "
+          f"{c.wide_cap_rows}; {n_asleep} sleeping bodies bit-still over the settled window: "
+          f"{still}; min dynamic y {min_y:.3f}")
+    want = dict(K1=0, K2=0, K3=0, K4=0)
+    want[kernel] = steps
+    _require(launches == want, f"{tag}: the colosseum did not solve through {kernel} alone, "
+             "once per step")
+    _require(not calls, f"{tag}: a plain version ran on the card: {sorted(set(calls))}")
+    _require(late == 0, f"{tag}: overflow after autosize (bits {late})")
+    _require(min_y > -0.2, f"{tag}: a brick fell through the ground (y = {min_y})")
+    _require(out["settled"] < 0.05, f"{tag}: settled at {out['settled']} awake")
+    _require(out["awake_handles"] <= col0 and len(out["awake_handles"]) >= len(col0) // 2,
+             f"{tag}: the topple woke bodies outside colosseum 0, or too few of it")
+    _require(n_asleep > 0 and still, f"{tag}: a sleeping body moved in the settled window")
+    _require(syncs == [0, 0], f"{tag}: host syncs in the timed windows: {syncs}")
+    return kernel, launches[kernel]
+
+
+def phase_determinism_colosseum(dev, steps=60):
+    """Two runs of a small colosseum (2 rings of 24 bricks, 3 layers) on the card."""
+    from bepuphysics2_tpu_torch.models import build_colosseum_sim
+
+    hashes = []
+    for _ in range(2):
+        sim = build_colosseum_sim(144, ring_count=24, layers=3, device=dev)[0]
+        sim.run(steps, DT)
+        torch.cuda.synchronize()
+        hashes.append(sim.state_hash())
+    print(f"[25 determinism] 144-body colosseum, {steps} steps twice: state_hash "
+          f"{hashes[0]:#018x} / {hashes[1]:#018x}")
+    _require(hashes[0] == hashes[1], "two identical colosseum runs on the card differ")
+
+
+def _link_strain(sim):
+    """The largest |length / rest - 1| over the cloth's links."""
+    bank = sim.joints["center_distance"].device(sim.device)
+    pos = torch.stack(list(sim.state.bodies.pos), -1)
+    a, b = bank["bodies"][:, 0].long(), bank["bodies"][:, 1].long()
+    strain = (pos[a] - pos[b]).norm(dim=-1) / bank["prestep"][:, 0] - 1.0
+    return float(strain[bank["valid"]].abs().max())
+
+
+def phase_cloth(dev, name, smi, warm=64, timed=32, settle=104):
+    """The 64 x 64 cloth (``models.build_cloth_sim``: 4,096 collidable nodes, 16,002
+    ``center_distance`` links) dropped over a static sphere: ``warm`` steps, ``timed``
+    timed steps, ``settle`` more. The nodes' contacts take the general path: the store
+    bank through K3, substeps x iterations launches per step, beside the unified joint
+    sweep; K1, K2 and K4 never, no plain version. Gates: finite, no overflow, no node
+    below the ground, every link within 10% of its rest length at the end, 0 host syncs
+    in the timed window. Returns K3's launches."""
+    from bepuphysics2_tpu_torch.models import build_cloth_sim
+    from bepuphysics2_tpu_torch.models.cloth import cloth_links
+
+    t0 = time.perf_counter()
+    sim, cfg, grid = build_cloth_sim(CLOTH, CLOTH, device=dev)
+    built = time.perf_counter() - t0
+    _require(sim.constraint_count == cloth_links(CLOTH, CLOTH) == 16002,
+             "cloth configuration drifted")
+    per_step = cfg.substeps * cfg.velocity_iterations
+    bits, _ = _track_steps(sim)
+    calls, restore = _count_plain_calls()
+    _zero_launches()
+    try:
+        t0 = time.perf_counter()
+        sim.run(warm, DT)
+        sps, syncs = _timed_syncs(sim, timed)
+        sim.run(settle, DT)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = _kernel_launches()
+    steps = warm + timed + settle
+    st = sim.state
+    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
+              st.store.imp_pen, st.store.imp_tx, st.store.imp_ty, st.store.imp_tw,
+              st.joint_impulses["center_distance"]]
+    _require(all(bool(torch.isfinite(t).all()) for t in leaves), "cloth: non-finite state")
+    nodes = torch.as_tensor(grid.reshape(-1), device=st.bodies.pos.y.device).long()
+    min_y = float(st.bodies.pos.y[nodes].min())
+    strain = _link_strain(sim)
+    speed = float(torch.stack(list(st.bodies.vel), -1)[nodes].norm(dim=-1).max())
+    ovf = _or_bits(bits)
+    diag = sim.last_diag
+    print(f"[27 cloth] {CLOTH} x {CLOTH} cloth ({len(nodes)} nodes, {sim.constraint_count} "
+          f"links, {cfg.num_colors} colors, {cfg.substeps} substeps), built in {built:.1f} s, "
+          f"{warm} + {timed} timed + {settle} steps on {name} ({smi}), {elapsed:.1f} s: "
+          f"{sps:.2f} steps/s over the timed steps; host syncs per step {syncs:g}; launches "
+          f"{launches} ({launches['K3'] / steps:g} K3 per step; by the structure "
+          f"{per_step} joint sweeps per step, each {cfg.num_colors} color passes and a Jacobi "
+          f"pass), plain calls {len(calls)}; overflow bits {ovf}; pairs {int(diag.pair_count)}, "
+          f"contacts {int(diag.contact_count)}, Jacobi rows {int(diag.demand[5])}; min node y "
+          f"{min_y:.3f}, largest speed {speed:.3f}; largest link strain at the end {strain:.4f}")
+    _require(launches == dict(K1=0, K2=0, K3=per_step * steps, K4=0),
+             f"the cloth did not solve its contacts through K3 alone, {per_step} per step")
+    _require(not calls, f"a plain version ran on the card: {sorted(set(calls))}")
+    _require(ovf == 0, f"the cloth overflowed (bits {ovf})")
+    _require(min_y > 0.0, f"a node fell below the ground (y = {min_y})")
+    _require(strain <= 0.1, f"a link is {strain:.3f} off its rest length")
+    _require(int(diag.contact_count) > 0, "the cloth made no contacts")
+    _require(syncs == 0, f"{syncs} host syncs per step in the timed window")
+    return launches["K3"]
+
+
+def phase_cloth_small(dev, steps=30, frames=30, tol=1e-4):
+    """The 16 x 16 cloth: two runs of ``steps`` steps on the card bit-identical, and over
+    ``frames`` frames of the CPU's run (the kernels' plain versions; the lattice lands on
+    the sphere by frame 20) each card step from the CPU's state within ``tol`` of the
+    CPU's (absolute and relative, K3's limit)."""
+    from bepuphysics2_tpu_torch.models import build_cloth_sim
+
+    hashes = []
+    for _ in range(2):
+        sim = build_cloth_sim(CLOTH_SMALL, CLOTH_SMALL, device=dev)[0]
+        sim.run(steps, DT)
+        torch.cuda.synchronize()
+        hashes.append(sim.state_hash())
+    cpu = build_cloth_sim(CLOTH_SMALL, CLOTH_SMALL, device="cpu")[0]
+    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
+    print(f"[27 determinism, cpu vs card] {CLOTH_SMALL} x {CLOTH_SMALL} cloth: {steps} steps "
+          f"twice, state_hash {hashes[0]:#018x} / {hashes[1]:#018x}; {frames} frames, each "
+          f"card step from the CPU's state within {worst:.3e} of the CPU's (limit {tol:g})")
+    _require(hashes[0] == hashes[1], "two identical cloth runs on the card differ")
+    _require(worst <= tol, "a card step of the cloth disagrees with the CPU's beyond K3's limit")
+
+
+def phase_joint_rigs(dev, frames=3, tol=1e-4):
+    """Every joint type on the card (``models.joint_rigs``, the rig battery of
+    ``tests/test_joint_behavior.py``): ``frames`` card steps from the CPU's carried state
+    within ``tol`` (absolute and relative), then 150 steps on the card and each rig's
+    check."""
+    from bepuphysics2_tpu_torch.models.joint_rigs import ALL_NAMES, build_joint_rigs
+
+    t0 = time.perf_counter()
+    cpu = build_joint_rigs("cpu", steps=0)
+    worst, _, _ = _card_steps_from_cpu(cpu.sim, dev, cpu.sim.state, frames)
+    rigs = build_joint_rigs(dev)
+    failed = []
+    for rig, check in rigs.checks:
+        try:
+            check()
+        except AssertionError as e:
+            failed.append(f"{rig}: {e}")
+    covered = sorted({n for n, _ in rigs.checks})
+    elapsed = time.perf_counter() - t0
+    print(f"[28 joint types] {len(covered)} joint types, {len(rigs.checks)} rigs "
+          f"({rigs.sim.body_count} bodies): {frames} card steps from the CPU's state within "
+          f"{worst:.3e} of the CPU's (limit {tol:g}); after 150 card steps {len(failed)} rigs "
+          f"off their targets; {elapsed:.1f} s")
+    _require(covered == sorted(ALL_NAMES) and len(covered) == 30, "a joint type has no rig")
+    _require(worst <= tol, "a card step of the rigs disagrees with the CPU's")
+    _require(not failed, f"rigs off their targets: {failed}")
+
+
+def slice10_phases(dev, name, smi):
+    """Phases 25-28. Returns each new path's (kernel, launches)."""
+    paths = {"2,880 colosseum": phase_colosseum(dev, name, smi, 2880, "25 colosseum")}
+    phase_determinism_colosseum(dev)
+    paths["23,040 colosseum"] = phase_colosseum(dev, name, smi, 23040, "26 colosseum")
+    paths["64x64 cloth"] = ("K3", phase_cloth(dev, name, smi))
+    phase_cloth_small(dev)
+    phase_joint_rigs(dev)
+    return paths
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; nothing was run",
@@ -1796,6 +2057,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
     # The main path runs first: phase 3 holds K1 on its last step's K1 call.
@@ -1837,6 +2099,12 @@ def main():
                    "16k pile, schedule": phase_schedule_pile_win(dev, name, smi)}
     phase_cpu_vs_card(dev, "24 cpu vs card", " on the windowed path with the schedule",
                       WIN_TOL, **_schedule_overrides(callback=False), **win)
+    # Slice 10: the colosseum through K1 and K2, the cloth through K3, every joint type.
+    paths = slice10_phases(dev, name, smi)
+    k1["paths"] = {"4k pile": k1["launches"]}
+    k2["paths"] = {"16k pile": k2["launches"]}
+    for path, (kernel, n) in paths.items():
+        dict(K1=k1, K2=k2, K3=k3)[kernel]["paths"][path] = n
     # No single PyTorch call computes K1-K5 or K7 (ordered Gauss-Seidel walks; 36
     # dependent passes; a read-add-set whose last writer wins): their library_ms is null.
     for k in (k1, k2, k3, k4):
@@ -1848,6 +2116,7 @@ def main():
             ("probe_sweep (K5)", K5_SOURCE, K5_REPLACES, k5),
             ("probe_gather (K6)", K6_SOURCE, K6_REPLACES, k6),
             ("probe_scatter (K7)", K7_SOURCE, K7_REPLACES, k7)]
+    print(f"[done] 28 phases in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [dict(
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],

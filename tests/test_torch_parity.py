@@ -3,8 +3,9 @@ the CPU (``tools/parity_port.py``): the dropped sphere's ballistic flight agains
 closed form and its settling and rest against the scalar TGS reference, the sliding and
 spinning sphere, the ball-socket pendulum and the two stacked boxes under a lateral
 force, each against ``parity/oracles.py`` within ``run_parity.py``'s own thresholds over
-its 1,000 steps (the box stack: 120 settling and 300 pushed steps at each of two forces).
-The hinge chain waits for the port's ``hinge`` joint (ROADMAP queue 1 item 16)."""
+its 1,000 steps (the box stack: 120 settling and 300 pushed steps at each of two forces),
+and the 3-link hinge chain against its conservation envelopes (energy never grows, the
+sockets and hinge axes stay put)."""
 import os
 import sys
 

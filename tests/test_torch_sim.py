@@ -308,8 +308,8 @@ def test_simulation_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("cylinder", "item 17"), ("weld", "item 16"), ("jax_shape", "item 17"),
-    ("sweep_broadphase", "Not to port"), ("ccd", "item 19"), ("volume_constraint", "item 16"),
+    ("cylinder", "item 17"), ("mesh", "item 18"), ("jax_shape", "item 17"),
+    ("sweep_broadphase", "Not to port"), ("ccd", "item 19"), ("save_checkpoint", "item 21"),
     ("max_cc_pairs", "item 18"), ("windowed_compound", "queue 3"), ("ray_cast", "item 20"),
 ])
 def test_unported_paths_are_refused_by_name(case, item):
@@ -318,16 +318,16 @@ def test_unported_paths_are_refused_by_name(case, item):
     with pytest.raises(NotImplementedError, match=item):
         if case == "cylinder":
             _tiny().add_shape(tbp.Cylinder(0.5, 1.0))
-        elif case == "weld":
-            _tiny().add_constraint("weld", [0, 0])
+        elif case == "mesh":
+            _tiny().add_shape(tbp.Mesh.build([(0.0, 0.0, 0.0)] * 3, [(0, 1, 2)]))
         elif case == "jax_shape":
             _tiny().add_shape(jbp.Cylinder(0.5, 1.0))
         elif case == "sweep_broadphase":
             _tiny(broadphase="sweep").timestep(DT)
         elif case == "ccd":
             _tiny(max_ccd_pairs=8).timestep(DT)
-        elif case == "volume_constraint":
-            _tiny().add_constraint("volume", [0, 0, 0, 0])
+        elif case == "save_checkpoint":
+            _tiny().save_checkpoint("unused.npz")
         elif case == "max_cc_pairs":
             _tiny(max_cc_pairs=4).timestep(DT)
         elif case == "windowed_compound":

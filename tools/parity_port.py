@@ -4,11 +4,11 @@ scalar TGS of ``run_parity.scalar_reference`` and the closed-form laws).
 
 Scenes: the sphere dropped 2 m onto a static box (ballistic flight against the closed
 form, settling and rest against the scalar reference), the sliding and spinning sphere,
-the ball-socket pendulum and the two stacked boxes under a lateral force. Each scene is
-built here from the port's public API exactly as ``run_parity.py`` builds it from the JAX
-package's, with the same constants; each envelope repeats the thresholds of the
-``run_parity.py`` function named beside it. The hinge chain (``run_parity.py:208``) waits
-for the port's ``hinge`` joint (ROADMAP queue 1 item 16).
+the ball-socket pendulum, the two stacked boxes under a lateral force and the 3-link
+hinge chain (conservation laws: energy never grows, the hinge axes and sockets stay
+put). Each scene is built here from the port's public API exactly as ``run_parity.py``
+builds it from the JAX package's, with the same constants; each envelope repeats the
+thresholds of the ``run_parity.py`` function named beside it.
 
     python3 tools/parity_port.py [--device cpu|cuda] [--steps 1000]
 
@@ -125,6 +125,49 @@ def box_stack(device, force, steps=400, mu=0.5, settle=120):
                 final_vx=float(vxs[-1]))
 
 
+def hinge_chain(device, steps, n_links=3, length=0.8, radius=0.15):
+    """``run_parity.hinge_chain_scene``: capsule links hinged about world z from a
+    kinematic anchor, starting horizontal. Per step the chain's energy (linear kinetic and
+    potential), the largest socket drift and the largest hinge-axis error."""
+    from bepuphysics2_tpu_torch import BodyDescription, Capsule, Simulation
+
+    sim = Simulation(_config(body_capacity=8, joint_capacity=8), device=device)
+    cap = Capsule(radius, length * 0.5)
+    cs = sim.add_shape(cap)
+    handles = [sim.add_body(BodyDescription.kinematic((0.0, 0.0, 0.0)))]
+    for i in range(n_links):
+        # The capsule's axis (local y) along world x: -90 degrees about z.
+        q = (0.0, 0.0, -np.sqrt(0.5), np.sqrt(0.5))
+        h = sim.add_body(BodyDescription.dynamic(((i + 0.5) * length, 0.0, 0.0), cs, 1.0, cap,
+                                                 orientation=q, collision_group=1))
+        handles.append(h)
+        sim.add_constraint(
+            "hinge", [handles[i], h],
+            local_offset_a=(0.0, 0.0, 0.0) if i == 0 else (0.0, length * 0.5, 0.0),
+            local_offset_b=(0.0, -length * 0.5, 0.0), local_hinge_axis_a=(0.0, 0.0, 1.0),
+            local_hinge_axis_b=(0.0, 0.0, 1.0))
+    es, drift, axis_err = np.zeros(steps), np.zeros(steps), np.zeros(steps)
+    for i in range(steps):
+        sim.timestep(DT)
+        prev_tip = np.zeros(3)
+        for h in handles[1:]:
+            pos, orn, vel, _ = sim.get_body(h)
+            u, w = np.asarray(orn[:3]), orn[3]
+
+            def rot(v):
+                return 2 * np.dot(u, v) * u + (w * w - np.dot(u, u)) * v + 2 * w * np.cross(u, v)
+
+            axis_w = rot(np.array([0.0, 0.0, 1.0]))
+            cap_axis = rot(np.array([0.0, 1.0, 0.0]))
+            drift[i] = max(drift[i], float(np.linalg.norm(pos - cap_axis * (length * 0.5)
+                                                          - prev_tip)))
+            axis_err[i] = max(axis_err[i], float(np.arccos(np.clip(axis_w[2], -1, 1))))
+            prev_tip = pos + cap_axis * (length * 0.5)
+            # Rotational energy left out: an underestimate keeps the no-gain check strict.
+            es[i] += 0.5 * float(np.dot(vel, vel)) + 10.0 * float(pos[1])
+    return es, drift, axis_err
+
+
 # --- envelopes: the thresholds of run_parity.py ---------------------------------------------
 
 def run_sphere_drop(device, steps):
@@ -207,8 +250,21 @@ def run_box_stack(device, steps=300):
     return env
 
 
+def run_hinge_chain(device, steps):
+    """``run_parity.run_hinge_chain``'s envelope."""
+    es, drift, axis_err = hinge_chain(device, steps)
+    env = dict(energy_max=float(np.max(es)), energy_initial=float(es[0]),
+               energy_final=float(es[-1]), socket_drift_max=float(np.max(drift)),
+               hinge_axis_err_max_rad=float(np.max(axis_err)))
+    env["pass"] = bool(env["energy_max"] <= env["energy_initial"] + 0.5
+                       and env["socket_drift_max"] < 0.08
+                       and env["hinge_axis_err_max_rad"] < 0.05)
+    return env
+
+
 SCENES = {"sphere_drop": run_sphere_drop, "sliding_sphere": run_sliding_sphere,
-          "pendulum_ball_socket": run_pendulum, "box_stack_friction": run_box_stack}
+          "pendulum_ball_socket": run_pendulum, "box_stack_friction": run_box_stack,
+          "hinge_chain": run_hinge_chain}
 
 
 def run(name, device="cpu", steps=rp.STEPS):

@@ -7,8 +7,10 @@ windowed kernel K2 above 8,192 bodies, for store-only scenes; the general path o
 kernel K3 for scenes with joints, or K4 above 8,192 bodies: hand-written CUDA for sm_90a
 on a CUDA device, their plain PyTorch versions on the CPU), island sleep, and
 demand-driven ``autosize``. A ``Simulation`` runs on the CUDA card unless it is given
-``device="cpu"``. The port carries sphere, capsule, box and compound scenes with all 30
-joint types of the reference (``models``: the ragdoll, the colosseum, the cloth). The TPU
+``device="cpu"``. The port carries sphere, capsule, box, triangle, cylinder, convex hull
+and custom convex shapes (the last three over the generic GJK/MPR narrow phase) and
+compounds of them, with all 30 joint types of the reference (``models``: the ragdoll, the
+colosseum, the cloth, the car and the tank). The TPU
 design probes of the repository's ``experiments/`` run in ``experiments`` (kernels K5-K7).
 """
 
@@ -23,6 +25,7 @@ from .bodies import (
     KIND_STATIC,
 )
 from .shapes import Sphere, Box, Capsule, Cylinder, Triangle, ConvexHull, Compound, Mesh
+from .shapes.custom import CustomShape, register_custom_shape
 from .simulation import Simulation, SimConfig
 
 __all__ = [
@@ -30,5 +33,6 @@ __all__ = [
     "BodyDescription", "StaticDescription",
     "KIND_DYNAMIC", "KIND_KINEMATIC", "KIND_STATIC",
     "Sphere", "Box", "Capsule", "Cylinder", "Triangle", "ConvexHull", "Compound", "Mesh",
+    "CustomShape", "register_custom_shape",
     "Simulation", "SimConfig",
 ]

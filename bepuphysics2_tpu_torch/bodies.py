@@ -86,10 +86,17 @@ class BodyDescription:
 
     @staticmethod
     def dynamic(position, shape, mass, shape_obj=None, **kw) -> "BodyDescription":
-        """Inertia from the shape object when given, else a unit-sphere-like diagonal."""
+        """Inertia from the shape object when given (a full symmetric inverse where it
+        gives one: hulls, triangles), else a unit-sphere-like diagonal."""
         if shape_obj is not None:
-            inv_mass, diag = shape_obj.compute_inertia(mass)
-            inv_inertia = (diag[0], 0.0, diag[1], 0.0, 0.0, diag[2])
+            res = shape_obj.compute_inertia(mass)
+            if len(res) == 3:
+                inv_mass, _, inv = res
+                inv_inertia = (float(inv[0, 0]), float(inv[1, 0]), float(inv[1, 1]),
+                               float(inv[2, 0]), float(inv[2, 1]), float(inv[2, 2]))
+            else:
+                inv_mass, diag = res
+                inv_inertia = (diag[0], 0.0, diag[1], 0.0, 0.0, diag[2])
         else:
             inv_mass = 1.0 / mass
             inv_inertia = (inv_mass, 0.0, inv_mass, 0.0, 0.0, inv_mass)

@@ -3,10 +3,11 @@ row-local warm-start carry from the pair store and keyed carry for compound chil
 
 Counterpart of ``run_convex_testers``, ``convex_pair_records``, ``narrow_phase_store``,
 ``PairCache``, ``narrow_phase_compound``, ``update_cache_keyed`` and ``retain_sleeping``
-in ``bepuphysics2_tpu/collision/narrowphase.py``, for sphere, capsule and box shapes and
-compounds of them. The port has no CCD, no mesh or compound-vs-compound path, no generic
-GJK/MPR fallback and no legacy per-frame cache path yet (ROADMAP queue 1 items 17-19); a
-scene that would need them is refused before it is stepped. The JAX package's runtime
+in ``bepuphysics2_tpu/collision/narrowphase.py``, for every convex shape (the analytic
+testers, and the generic GJK/MPR path of ``convex.py`` for the other pairs) and compounds
+of them. The port has no CCD, no mesh or compound-vs-compound path and no legacy
+per-frame cache path yet (ROADMAP queue 1 items 18-19); a scene that would need them is
+refused before it is stepped. The JAX package's runtime
 ``lax.cond`` skips become unconditional passes whose result is selected by the same
 predicate, so nothing waits for the device.
 """
@@ -18,12 +19,15 @@ import torch
 
 from ..bodies import BodyState, KIND_DYNAMIC
 from ..constraints.contact import ContactImpulses, ContactPrestep
-from ..shapes.registry import BOX, CAPSULE, SPHERE, TRIANGLE, ShapeData
+from ..shapes.custom import CUSTOM_SUPPORTS, is_custom
+from ..shapes.registry import BOX, CAPSULE, CONVEX_HULL, MESH, SPHERE, TRIANGLE, ShapeData
+from ..utils import replay
 from ..utils.packing import compact_true, gather_rows
 from ..utils.spring import SpringSettings
 from ..utils.vec import Quat, Vec2, Vec3
 from . import testers
 from .compound import expand_compound_pairs
+from .convex import SupportCtx, generic_convex_manifold
 from .manifold import Manifold
 
 _BIG = 2**31 - 1
@@ -103,16 +107,47 @@ def _capsule_box(pos_ab, orn_a, orn_b, pa, pb):
     return testers.capsule_box(pos_ab, orn_a, orn_b, pa, pb)
 
 
-# Registered convex type-pair testers (canonical order: type_a <= type_b). The triangle
-# families of the JAX registry are not ported (ROADMAP queue 1 item 17).
+def _sphere_triangle(pos_ab, orn_a, orn_b, pa, pb):
+    return testers.sphere_triangle(pos_ab, orn_b, pa, pb)
+
+
+def _capsule_triangle(pos_ab, orn_a, orn_b, pa, pb):
+    return testers.capsule_triangle(pos_ab, orn_a, orn_b, pa, pb)
+
+
+def _box_triangle(pos_ab, orn_a, orn_b, pa, pb):
+    return testers.box_triangle(pos_ab, orn_a, orn_b, pa, pb)
+
+
+# Registered convex type-pair testers (canonical order: type_a <= type_b). Every other
+# convex pair goes through the generic GJK/MPR path (``convex.py``).
 TESTER_REGISTRY = [
     (SPHERE, SPHERE, _sphere_sphere),
     (SPHERE, CAPSULE, _sphere_capsule),
     (SPHERE, BOX, _sphere_box),
+    (SPHERE, TRIANGLE, _sphere_triangle),
     (CAPSULE, CAPSULE, _capsule_capsule),
     (CAPSULE, BOX, _capsule_box),
+    (CAPSULE, TRIANGLE, _capsule_triangle),
     (BOX, BOX, _box_box),
+    (BOX, TRIANGLE, _box_triangle),
 ]
+
+
+def convex_type_mask(t, custom_ids):
+    """Which of the type ids ``t`` are convex: a built-in convex type or one of the custom
+    types ``custom_ids``."""
+    m = (t >= 0) & (t <= CONVEX_HULL)
+    for tid in custom_ids:
+        m = m | (t == tid)
+    return m
+
+
+def _convex_ids(present):
+    """The convex type ids a scene can hold: the built-in ones, and the registered custom
+    ones among ``present`` (every registered one where ``present`` is None)."""
+    customs = CUSTOM_SUPPORTS if present is None else [p for p in present if is_custom(p)]
+    return tuple(range(CONVEX_HULL + 1)) + tuple(sorted(customs))
 
 
 def run_convex_testers(
@@ -120,20 +155,60 @@ def run_convex_testers(
     ti, tj, params_i, params_j, pos_i, pos_j, orn_i, orn_j, shape_i, shape_j,
     valid, present_types=None, include_triangles=False,
 ) -> Manifold:
-    """Run the analytic testers over canonical (type_i ≤ type_j) pair records. Returns a
-    manifold relative to the i-side pose. ``shapes``, ``shape_i/j`` and
-    ``include_triangles`` are kept for the JAX signature (the generic fallback and the
-    triangle families that read them are not ported)."""
+    """Run the analytic tester registry and the generic GJK/MPR fallback over canonical
+    (type_i ≤ type_j) convex pair records. ``shape_i/j``: registry rows (−1 = raw
+    triangle params of a mesh child). Returns a manifold relative to the i-side pose.
+
+    Which testers run is decided on the host from ``present_types`` (the registry's
+    types): a type pair that cannot occur runs nothing, the fallback runs only where the
+    scene's convex types can form a pair outside the registry, and its hull gather only
+    where a hull is present, so a scene of spheres, boxes and capsules launches what it
+    did before the fallback existed. ``include_triangles`` adds the triangle of a mesh's
+    children (the port registers no mesh, ROADMAP queue 1 item 18)."""
     mp = ti.shape[0]
+    dev = ti.device
     pos_ij = pos_j - pos_i
-    manifold = Manifold.empty(mp, device=ti.device)
+    manifold = Manifold.empty(mp, device=dev)
     present = set(present_types) if present_types is not None else None
+    if present is not None and include_triangles and MESH in present:
+        present = present | {TRIANGLE}
+    analytic = {(t0, t1) for t0, t1, _ in TESTER_REGISTRY}
+    convex = _convex_ids(present)
+    in_scene = convex if present is None else [t for t in convex if t in present]
+    generic = any((x, y) not in analytic for xi, x in enumerate(in_scene) for y in in_scene[xi:])
+    covered = torch.zeros(mp, dtype=torch.bool, device=dev) if generic else None
     for t0, t1, fn in TESTER_REGISTRY:
         if present is not None and (t0 not in present or t1 not in present):
             continue  # this type pair cannot occur in the scene
+        sel_types = (ti == t0) & (tj == t1)
+        if generic:
+            covered = covered | sel_types
         m = fn(pos_ij, orn_i, orn_j, params_i, params_j)
-        manifold = m.where(valid & (ti == t0) & (tj == t1), manifold)
-    return manifold
+        manifold = m.where(valid & sel_types, manifold)
+    if not generic:
+        return manifold
+    # Generic support-mapping fallback for every other convex pair.
+    hulls = present is None or CONVEX_HULL in present
+    rows = lambda s: shapes.hull_rows[s.clamp_min(0).long()]
+    ctx = SupportCtx(
+        type_a=ti, params_a=params_i, type_b=tj, params_b=params_j,
+        orn_ab=orn_i.conjugate().mul(orn_j), pos_ab=orn_i.rotate_inverse(pos_ij),
+        hull_points=Vec3(shapes.hull_x, shapes.hull_y, shapes.hull_z) if hulls else None,
+        hull_rows_a=rows(shape_i) if hulls else None,
+        hull_rows_b=rows(shape_j) if hulls else None,
+        custom_ids=tuple(t for t in in_scene if t > CONVEX_HULL),
+    )
+    # One replayed graph on the card (``utils/replay.py``): 48 masked iterations.
+    data = {k: v for k, v in ctx._asdict().items() if k != "custom_ids" and v is not None}
+    gm = replay.run(
+        ("generic manifold", hulls, ctx.custom_ids,
+         tuple(CUSTOM_SUPPORTS[t] for t in ctx.custom_ids)),
+        lambda d: generic_convex_manifold(
+            SupportCtx(**{**ctx._asdict(), **{k: v for k, v in d.items() if k != "orn_i"}}),
+            d["orn_i"]),
+        dict(data, orn_i=orn_i))
+    convex_pair = convex_type_mask(ti, ctx.custom_ids) & convex_type_mask(tj, ctx.custom_ids)
+    return gm.where(valid & convex_pair & ~covered, manifold)
 
 
 def convex_pair_records(

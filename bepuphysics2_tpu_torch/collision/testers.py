@@ -1,10 +1,13 @@
 """Vectorized convex pair testers — speculative contact manifold generation.
 
 Counterpart of ``sphere_sphere``, ``sphere_capsule``, ``sphere_box``, ``capsule_capsule``,
-``capsule_box`` and ``box_box`` in ``bepuphysics2_tpu/collision/testers.py`` (reference
+``capsule_box``, ``box_box``, ``sphere_triangle``, ``capsule_triangle`` and
+``box_triangle`` in ``bepuphysics2_tpu/collision/testers.py`` (reference
 CollisionTasks/SpherePairTester.cs, SphereCapsuleTester.cs, SphereBoxTester.cs,
-CapsulePairTester.cs, CapsuleBoxTester.cs, BoxPairTester.cs). Each tester processes every pair record at once and
-always produces a manifold (negative depth when separated); the caller masks records.
+CapsulePairTester.cs, CapsuleBoxTester.cs, BoxPairTester.cs, SphereTriangleTester.cs,
+CapsuleTriangleTester.cs, BoxTriangleTester.cs). Each tester processes every pair record
+at once and always produces a manifold (negative depth when separated); the caller masks
+records.
 
 Conventions: the normal points from B to A; contact offsets are world-space relative to
 A's center; A is the first shape of the canonical type pair.
@@ -13,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.packing import select_cols
 from ..utils.vec import Quat, Vec3
 from .manifold import Manifold
 
@@ -686,3 +690,390 @@ def box_box(pos_ab: Vec3, orn_a: Quat, orn_b: Quat, params_a, params_b) -> Manif
         feature=out_feat.to(torch.int32),
         contact_mask=out_mask,
     )
+
+
+# ---- Triangle families (triangles are always the B side by type id; vertices in B's
+# local frame). One-sidedness and boundary smoothing belong to the mesh narrow phase.
+
+
+def _closest_on_triangle(p: Vec3, a: Vec3, b: Vec3, c: Vec3):
+    """Closest point on triangle (a, b, c) to p, fully masked (Ericson 5.1.5): (point,
+    region) with region 0:A, 1:B, 2:C, 3:AB, 4:AC, 5:BC, 6:face."""
+    ab = b - a
+    ac = c - a
+    ap = p - a
+    d1 = ab.dot(ap)
+    d2 = ac.dot(ap)
+    bp = p - b
+    d3 = ab.dot(bp)
+    d4 = ac.dot(bp)
+    cp = p - c
+    d5 = ab.dot(cp)
+    d6 = ac.dot(cp)
+    vc = d1 * d4 - d3 * d2
+    vb = d5 * d2 - d1 * d6
+    va = d3 * d6 - d5 * d4
+
+    safe = lambda x: torch.where(x.abs() > 1e-30, x, 1e-30)
+    in_a = (d1 <= 0.0) & (d2 <= 0.0)
+    in_b = (d3 >= 0.0) & (d4 <= d3)
+    in_c = (d6 >= 0.0) & (d5 <= d6)
+    on_ab = (vc <= 0.0) & (d1 >= 0.0) & (d3 <= 0.0)
+    on_ac = (vb <= 0.0) & (d2 >= 0.0) & (d6 <= 0.0)
+    on_bc = (va <= 0.0) & (d4 - d3 >= 0.0) & (d5 - d6 >= 0.0)
+
+    t_ab = d1 / safe(d1 - d3)
+    t_ac = d2 / safe(d2 - d6)
+    t_bc = (d4 - d3) / safe((d4 - d3) + (d5 - d6))
+    inv_face = 1.0 / safe(va + vb + vc)
+    v_f = vb * inv_face
+    w_f = vc * inv_face
+
+    # Priority select: the first region that holds wins, the face is the fallback.
+    pt = a + ab * v_f + ac * w_f
+    region = torch.full(p.x.shape, 6, dtype=torch.int32, device=p.x.device)
+    for cond, point, rid in ((on_bc, b + (c - b) * t_bc, 5), (on_ac, a + ac * t_ac, 4),
+                             (on_ab, a + ab * t_ab, 3), (in_c, c, 2), (in_b, b, 1),
+                             (in_a, a, 0)):
+        pt = pt.where(~cond, point)
+        region = torch.where(cond, rid, region)
+    return pt, region
+
+
+def _tri_verts_local(params_b):
+    return (Vec3(params_b[:, 0], params_b[:, 1], params_b[:, 2]),
+            Vec3(params_b[:, 3], params_b[:, 4], params_b[:, 5]),
+            Vec3(params_b[:, 6], params_b[:, 7], params_b[:, 8]))
+
+
+def sphere_triangle(pos_ab: Vec3, orn_b: Quat, params_a, params_b) -> Manifold:
+    """Sphere A vs triangle B (reference CollisionTasks/SphereTriangleTester.cs): the
+    triangle's closest point to the sphere's centre; the normal is geometric
+    (side-sensitive), so a manifold behind the face stays back-facing."""
+    r = params_a[:, 0]
+    va, vb, vc = _tri_verts_local(params_b)
+    lc = orn_b.rotate_inverse(-1.0 * pos_ab)  # the sphere's centre in B's frame
+    cp, region = _closest_on_triangle(lc, va, vb, vc)
+    diff = lc - cp
+    dist2 = diff.length_squared()
+    dist = torch.sqrt(dist2.clamp_min(1e-30))
+    fn = (vb - va).cross(vc - va).normalize()  # the winding (front) normal, B local
+    n_local = (diff * (1.0 / dist)).where(dist2 > 1e-20, fn)
+    depth = r - dist
+    normal = orn_b.rotate(n_local)  # B→A
+    contact = normal * -(r - 0.5 * depth)  # the sphere's surface toward the triangle
+    return _single_contact(contact, depth, normal)._replace(
+        feature=_col0(r.shape[0], region, 0, torch.int32, r.device))
+
+
+def _seg_seg_closest(pa: Vec3, da: Vec3, hla, pb: Vec3, db_u: Vec3, hlb):
+    """(t, s) of the closest points of segments {pa + t·da, |t| ≤ hla} and {pb + s·db_u,
+    |s| ≤ hlb} (unit directions): the clamped quadratic, then mutual re-projection."""
+    r = pb - pa
+    a_dot_b = da.dot(db_u)
+    da_r = da.dot(r)
+    db_r = db_u.dot(r)
+    denom = 1.0 - a_dot_b * a_dot_b
+    t = torch.where(denom > 1e-7, _clip((da_r - a_dot_b * db_r) / denom.clamp_min(1e-7), hla),
+                    0.0)
+    s = _clip(db_u.dot(pa + da * t - pb), hlb)
+    t = _clip(da.dot(pb + db_u * s - pa), hla)
+    return t, s
+
+
+def _clip(x, h):
+    """``clip(x, -h, h)`` for a tensor ``h``."""
+    return torch.minimum(torch.maximum(x, -h), h)
+
+
+def capsule_triangle(pos_ab: Vec3, orn_a: Quat, orn_b: Quat, params_a, params_b) -> Manifold:
+    """Capsule A vs triangle B (reference CollisionTasks/CapsuleTriangleTester.cs): the
+    capsule's axis clipped to the prism of the triangle's edge planes (the face contact,
+    signed depth), the 3 edge-segment pairs; a near-parallel face contact gives 2 contacts
+    at the ends of the clip interval."""
+    r, hl = params_a[:, 0], params_a[:, 1]
+    N = r.shape[0]
+    dev = r.device
+    la, lb, lc_ = _tri_verts_local(params_b)
+    v0 = pos_ab + orn_b.rotate(la)  # relative to A's centre, world orientation
+    v1 = pos_ab + orn_b.rotate(lb)
+    v2 = pos_ab + orn_b.rotate(lc_)
+    d = orn_a.rotate(Vec3.full((N,), 0.0, 1.0, 0.0, device=dev))  # the capsule's axis
+    fn = (v1 - v0).cross(v2 - v0).normalize()  # the winding (front) normal
+
+    # The face candidate: the axis segment clipped to the triangle's edge-plane prism.
+    big = 3.0e38
+    t_lo = torch.full((N,), -big, dtype=torch.float32, device=dev)
+    t_hi = torch.full((N,), big, dtype=torch.float32, device=dev)
+    for ea, eb in ((v0, v1), (v1, v2), (v2, v0)):
+        en = fn.cross(eb - ea)  # inward edge-plane normal
+        c0 = en.dot(-1.0 * ea)  # the plane's value at the segment's centre (A's centre)
+        slope = en.dot(d)
+        # Points with c0 + slope·t >= 0 lie inside this plane.
+        t_cross = -c0 / torch.where(slope.abs() > 1e-12, slope, 1e-12)
+        par = slope.abs() <= 1e-12
+        lo_k = torch.where(par, torch.where(c0 >= 0, -big, big),
+                           torch.where(slope > 0, t_cross, -big))
+        hi_k = torch.where(par, torch.where(c0 >= 0, big, -big),
+                           torch.where(slope > 0, big, t_cross))
+        t_lo = torch.maximum(t_lo, lo_k)
+        t_hi = torch.minimum(t_hi, hi_k)
+    t_lo_c = _clip(t_lo, hl)
+    t_hi_c = _clip(t_hi, hl)
+    face_valid = (t_hi >= t_lo) & (t_hi_c >= t_lo_c)
+    # The face normal signed by the side of the capsule's centre, so that a manifold
+    # behind the face stays back-facing.
+    plane_off = fn.dot(v0)
+    nf = fn * torch.where(plane_off <= 0.0, 1.0, -1.0)
+    # Signed separation above the signed face plane at the clip ends; the deeper end is
+    # the face candidate's depth.
+    sep_lo = nf.dot(d) * t_lo_c - nf.dot(v0)
+    sep_hi = nf.dot(d) * t_hi_c - nf.dot(v0)
+    depth_face = torch.where(face_valid, r - torch.minimum(sep_lo, sep_hi), -big)
+
+    def edge_candidate(ea, eb):
+        mid = (ea + eb) * 0.5
+        ed = eb - ea
+        el = ed.length()
+        eu = ed * (1.0 / el.clamp_min(1e-12))
+        t, s = _seg_seg_closest(Vec3.zeros((N,), device=dev), d, hl, mid, eu, el * 0.5)
+        pb_ = mid + eu * s
+        dv = d * t - pb_
+        dist = dv.length()
+        # An axis through the edge: pushed out along fn.
+        n_ = (dv * (1.0 / dist.clamp_min(1e-12))).where(dist > 1e-9, fn)
+        return r - dist, n_, pb_, t
+
+    depth, n, _, tpar = edge_candidate(v0, v1)
+    fid = torch.full((N,), 4, dtype=torch.int32, device=dev)
+    for (ea, eb), idc in (((v1, v2), 5), ((v2, v0), 6)):
+        dc, nc, _, tc = edge_candidate(ea, eb)
+        better = dc > depth
+        depth = torch.where(better, dc, depth)
+        n = nc.where(better, n)
+        tpar = torch.where(better, tc, tpar)
+        fid = torch.where(better, idc, fid)
+    # The face wins where it is valid and at least as deep as the best edge pair.
+    use_face = face_valid & (depth_face >= depth)
+    depth = torch.where(use_face, depth_face, depth)
+    n = nf.where(use_face, n)
+    fid = torch.where(use_face, 0, fid)
+    tpar = torch.where(use_face, torch.where(sep_lo <= sep_hi, t_lo_c, t_hi_c), tpar)
+
+    # Two contacts where the face contact is near parallel (axis ⊥ n).
+    two = (use_face & (d.dot(n).abs() < 0.3)
+           & (t_hi_c - t_lo_c > 1e-6 * hl.clamp_min(1.0)))
+    dep0 = torch.where(two, r - sep_lo, depth)
+    dep1 = r - sep_hi
+    p0 = d * torch.where(two, t_lo_c, tpar) + n * -(r - 0.5 * dep0)
+    p1 = d * t_hi_c + n * -(r - 0.5 * dep1)
+    f32 = torch.float32
+    return Manifold(
+        normal=n,
+        offset_a=Vec3(_cols2(N, p0.x, p1.x, 0.0, f32, dev), _cols2(N, p0.y, p1.y, 0.0, f32, dev),
+                      _cols2(N, p0.z, p1.z, 0.0, f32, dev)),
+        depth=_cols2(N, dep0, dep1, 0.0, f32, dev),
+        feature=_cols2(N, torch.where(two, 0, fid), 1, 0, torch.int32, dev),
+        contact_mask=_cols2(N, True, two, False, torch.bool, dev),
+    )
+
+
+def box_triangle(pos_ab: Vec3, orn_a: Quat, orn_b: Quat, params_a, params_b) -> Manifold:
+    """Box A vs triangle B (reference CollisionTasks/BoxTriangleTester.cs): SAT over the 3
+    box faces, the triangle's face and 9 edge crosses; a face manifold from masked
+    candidates in the box contact face's 2D frame (triangle vertices inside the
+    rectangle, triangle edges × rectangle slabs, rectangle corners inside the triangle
+    lifted onto its plane), reduced to ≤4 by the deepest/extremal rule; an edge winner
+    gives its one closest-point contact."""
+    N = params_a.shape[0]
+    dev = params_a.device
+    f32 = torch.float32
+    ha = Vec3(params_a[:, 0], params_a[:, 1], params_a[:, 2])
+    # The triangle's vertices in the box's (A) frame.
+    q_ab = orn_a.conjugate().mul(orn_b)
+    t_off = orn_a.rotate_inverse(pos_ab)
+    la, lb, lc_ = _tri_verts_local(params_b)
+    t0 = t_off + q_ab.rotate(la)
+    t1 = t_off + q_ab.rotate(lb)
+    t2 = t_off + q_ab.rotate(lc_)
+    centroid = (t0 + t1 + t2) * (1.0 / 3.0)
+
+    fn_raw = (t1 - t0).cross(t2 - t0)
+    fn = fn_raw * (1.0 / fn_raw.length().clamp_min(1e-12))  # winding normal, A frame
+
+    ones = torch.ones((N,), dtype=f32, device=dev)
+    zeros = torch.zeros((N,), dtype=f32, device=dev)
+    a_axes = [Vec3(ones, zeros, zeros), Vec3(zeros, ones, zeros), Vec3(zeros, zeros, ones)]
+    ha_arr = [ha.x, ha.y, ha.z]
+
+    def tri_max(axis: Vec3):
+        return torch.maximum(axis.dot(t0), torch.maximum(axis.dot(t1), axis.dot(t2)))
+
+    def box_ext(axis: Vec3):
+        return axis.x.abs() * ha.x + axis.y.abs() * ha.y + axis.z.abs() * ha.z
+
+    min_ext = torch.minimum(torch.minimum(ha.x, ha.y), ha.z)
+    best_depth = torch.full((N,), 3.0e38, dtype=f32, device=dev)
+    best_axis = Vec3.full((N,), 0.0, 1.0, 0.0, device=dev)
+    best_id = torch.zeros((N,), dtype=torch.int32, device=dev)
+
+    def consider(depth, axis, axis_id, bias=1.0):
+        nonlocal best_depth, best_axis, best_id
+        # B→A: away from the triangle's centroid (B's side, in A's frame).
+        axis = axis.where(~(axis.dot(centroid) > 0.0), -1.0 * axis)
+        penalty = (bias - 1.0) * (0.05 * min_ext + depth.abs())
+        better = depth + penalty < best_depth
+        best_depth = torch.where(better, depth, best_depth)
+        best_axis = axis.where(better, best_axis)
+        best_id = torch.where(better, axis_id, best_id)
+
+    # The triangle's face first (id 0, preferred on ties: flat mesh ground stays stable).
+    # Depth along unit n (B→A) = max_B(n·p) − min_A(n·p) = max_k n·t_k + Σ|n_i|h_i.
+    n_tri = fn.where(fn.dot(centroid) < 0.0, -1.0 * fn)
+    consider(tri_max(n_tri) + box_ext(n_tri), n_tri, 0)
+    for i in range(3):  # the box's face axes (ids 1-3)
+        axis = a_axes[i]
+        depth = tri_max(axis.where(axis.dot(centroid) <= 0, -1.0 * axis)) + ha_arr[i]
+        consider(depth, axis, 1 + i, bias=1.0 + 1e-3)
+    edges = [(t0, t1), (t1, t2), (t2, t0)]
+    for i in range(3):  # edge crosses (ids 4-12)
+        for j, (ea, eb) in enumerate(edges):
+            raw = a_axes[i].cross(eb - ea)
+            ln = raw.length()
+            ok = ln > 1e-7
+            axis = raw * torch.where(ok, 1.0 / ln.clamp_min(1e-7), 0.0)
+            cal = axis.where(axis.dot(centroid) <= 0, -1.0 * axis)
+            depth = torch.where(ok, tri_max(cal) + box_ext(cal), 3.0e38)
+            consider(depth, cal, 4 + i * 3 + j, bias=1.05)
+
+    n_local = best_axis  # B→A, A frame
+    face_contact = best_id < 4
+
+    # The face manifold in the (u, v) frame of the box face most aligned with −n.
+    rdim = torch.argmax(torch.stack([n_local.x.abs(), n_local.y.abs(), n_local.z.abs()], -1), -1)
+    u_ax = _pick(a_axes, (rdim + 1) % 3)
+    v_ax = _pick(a_axes, (rdim + 2) % 3)
+    h_u = _pick_h(ha, (rdim + 1) % 3)
+    h_v = _pick_h(ha, (rdim + 2) % 3)
+
+    tri_pts = [t0, t1, t2]
+    vu = [u_ax.dot(p) for p in tri_pts]
+    vv = [v_ax.dot(p) for p in tri_pts]
+
+    eps = 1e-6
+    cand_pts, cand_mask = [], []
+    for m in range(3):  # (a) triangle vertices inside the rectangle
+        cand_pts.append(tri_pts[m])
+        cand_mask.append((vu[m].abs() <= h_u + eps) & (vv[m].abs() <= h_v + eps))
+    for m in range(3):  # (b) triangle edges × rectangle slabs (3 × 4)
+        p0, p1 = tri_pts[m], tri_pts[(m + 1) % 3]
+        u0, u1 = vu[m], vu[(m + 1) % 3]
+        v0_, v1_ = vv[m], vv[(m + 1) % 3]
+        for p_idx, (c0, c1, lim, o0, o1, olim) in enumerate((
+                (u0, u1, h_u, v0_, v1_, h_v), (u0, u1, -h_u, v0_, v1_, h_v),
+                (v0_, v1_, h_v, u0, u1, h_u), (v0_, v1_, -h_v, u0, u1, h_u))):
+            denom = c1 - c0
+            frac = (lim - c0) / torch.where(denom.abs() > 1e-9, denom, 1e-9)
+            valid = (denom.abs() > 1e-9) & (frac >= 0.0) & (frac <= 1.0)
+            valid = valid & ((o0 + (o1 - o0) * frac).abs() <= olim + eps)
+            cand_pts.append(p0 + (p1 - p0) * frac)
+            cand_mask.append(valid)
+    # (c) rectangle corners inside the triangle (2D), lifted onto the triangle's plane.
+    n_dim = _pick(a_axes, rdim)
+    plane_d = fn.dot(t0)
+    denom_w = fn.dot(n_dim)
+    area2 = (vu[1] - vu[0]) * (vv[2] - vv[0]) - (vu[2] - vu[0]) * (vv[1] - vv[0])
+    winding = torch.sign(torch.where(area2 == 0, 1.0, area2))
+    for ci, (su, sv) in enumerate([(-1.0, -1.0), (1.0, -1.0), (1.0, 1.0), (-1.0, 1.0)]):
+        cu = su * h_u
+        cv = sv * h_v
+        inside = torch.ones((N,), dtype=torch.bool, device=dev)
+        for m in range(3):
+            eu = vu[(m + 1) % 3] - vu[m]
+            ev = vv[(m + 1) % 3] - vv[m]
+            inside = inside & ((eu * (cv - vv[m]) - ev * (cu - vu[m])) * winding >= -eps)
+        base = u_ax * cu + v_ax * cv
+        w = (plane_d - fn.dot(base)) / torch.where(denom_w.abs() > 1e-9, denom_w, 1e-9)
+        cand_pts.append(base + n_dim * w)
+        cand_mask.append(inside & (denom_w.abs() > 1e-9))
+
+    pts = Vec3(*(torch.stack([getattr(p, c) for p in cand_pts], -1) for c in "xyz"))
+    cmask = torch.stack(cand_mask, -1)
+    K = cmask.shape[1]
+    # The candidates' feature ids, made on the device (a tensor from a host list would be
+    # a host-to-device copy, a sync, every step).
+    cfeat = torch.cat([torch.arange(lo, hi, dtype=torch.int32, device=dev)
+                       for lo, hi in ((0, 3), (8, 20), (24, 28))]).expand(N, K)
+
+    # Each candidate lies on the triangle: depth = Σ|n_i|h_i + n·p.
+    np_dot = (n_local.x[:, None] * pts.x + n_local.y[:, None] * pts.y
+              + n_local.z[:, None] * pts.z)
+    depth_pts = box_ext(n_local)[:, None] + np_dot
+    neg_big = -3.0e38
+    kk = torch.arange(K, device=dev)[None, :]
+
+    def pick_max(scores, taken):
+        return torch.argmax(torch.where(taken, neg_big, scores), -1)
+
+    taken = ~cmask
+    i0 = pick_max(torch.where(cmask, depth_pts, neg_big), taken)
+    p0 = Vec3(_take(pts.x, i0), _take(pts.y, i0), _take(pts.z, i0))
+    taken = taken | (kk == i0[:, None])
+    d0 = Vec3(pts.x - p0.x[:, None], pts.y - p0.y[:, None], pts.z - p0.z[:, None])
+    i1 = pick_max(d0.length_squared(), taken)
+    p1 = Vec3(_take(pts.x, i1), _take(pts.y, i1), _take(pts.z, i1))
+    taken = taken | (kk == i1[:, None])
+    edge_v = p1 - p0
+    cr = Vec3(edge_v.y[:, None] * d0.z - edge_v.z[:, None] * d0.y,
+              edge_v.z[:, None] * d0.x - edge_v.x[:, None] * d0.z,
+              edge_v.x[:, None] * d0.y - edge_v.y[:, None] * d0.x)
+    side = cr.x * n_local.x[:, None] + cr.y * n_local.y[:, None] + cr.z * n_local.z[:, None]
+    i2 = pick_max(side, taken)
+    taken = taken | (kk == i2[:, None])
+    i3 = pick_max(-side, taken)
+
+    sel = torch.stack([i0, i1, i2, i3], -1)
+    valid_cols = list(select_cols(cmask, sel).unbind(-1))
+    for a_i in range(1, 4):
+        for b_i in range(a_i):
+            valid_cols[a_i] = valid_cols[a_i] & ~(sel[:, a_i] == sel[:, b_i])
+    valid_sel = torch.stack(valid_cols, -1)
+    c_pts = Vec3(select_cols(pts.x, sel), select_cols(pts.y, sel), select_cols(pts.z, sel))
+    c_depth = select_cols(torch.where(cmask, depth_pts, 0.0), sel)
+    c_feat = select_cols(cfeat, sel)
+
+    # The edge-edge winner: one closest-point contact.
+    ei = torch.div(best_id - 4, 3, rounding_mode="floor")
+    ej = torch.remainder(best_id - 4, 3)
+    a_dir = _pick(a_axes, ei.clamp_min(0))
+    to_b = -1.0 * n_local
+    corner_a = Vec3(torch.where(ei == 0, 0.0, torch.sign(to_b.x) * ha.x),
+                    torch.where(ei == 1, 0.0, torch.sign(to_b.y) * ha.y),
+                    torch.where(ei == 2, 0.0, torch.sign(to_b.z) * ha.z))
+    e_sel = ej.clamp(0, 2)
+    ea = _pick([t0, t1, t2], e_sel)
+    eb = _pick([t1, t2, t0], e_sel)
+    emid = (ea + eb) * 0.5
+    ed = eb - ea
+    el = ed.length()
+    eu_ = ed * (1.0 / el.clamp_min(1e-12))
+    # The box edge is 2·h[ei] long; clamped by the shared segment-segment helper.
+    h_edge = torch.where(ei == 0, ha.x, torch.where(ei == 1, ha.y, ha.z))
+    t_par, _ = _seg_seg_closest(corner_a, a_dir, h_edge, emid, eu_, el * 0.5)
+    edge_pt = corner_a + a_dir * t_par
+
+    fm = face_contact[:, None]
+    out_pts = Vec3(*(torch.where(fm, getattr(c_pts, c), _col0(N, getattr(edge_pt, c), 0.0, f32, dev))
+                     for c in "xyz"))
+    out_depth = torch.where(fm, c_depth, _col0(N, best_depth, 0.0, f32, dev))
+    out_feat = torch.where(fm, c_feat, 64 + best_id[:, None])
+    out_mask = torch.where(fm, valid_sel, _col0(N, True, False, torch.bool, dev))
+
+    ma = orn_a.to_matrix()
+    world_pts = Vec3(
+        ma.rx.x[:, None] * out_pts.x + ma.ry.x[:, None] * out_pts.y + ma.rz.x[:, None] * out_pts.z,
+        ma.rx.y[:, None] * out_pts.x + ma.ry.y[:, None] * out_pts.y + ma.rz.y[:, None] * out_pts.z,
+        ma.rx.z[:, None] * out_pts.x + ma.ry.z[:, None] * out_pts.y + ma.rz.z[:, None] * out_pts.z,
+    )
+    return Manifold(normal=orn_a.rotate(n_local), offset_a=world_pts, depth=out_depth,
+                    feature=out_feat.to(torch.int32), contact_mask=out_mask)

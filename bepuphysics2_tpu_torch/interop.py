@@ -4,9 +4,9 @@
 ``jax.tree_util.tree_map(np.asarray, sim.state)``) into the port's ``SimState``: bodies,
 the compound child caches, joint impulses and colors, and the pair store (the legacy
 convex caches are not read by the store path). ``shapes_from_numpy`` does the same for
-``ShapeData`` (its compound child and cluster tables included), ``joint_banks_from_numpy``
-for the joint banks a step takes (``JointTypeStore.device()`` dicts), and
-``state_to_numpy`` goes the other way. Neither package is imported here: NamedTuples are
+``ShapeData`` (its hull pool, compound child and cluster tables included),
+``joint_banks_from_numpy`` for the joint banks a step takes (``JointTypeStore.device()``
+dicts), and ``state_to_numpy`` goes the other way. Neither package is imported here: NamedTuples are
 matched by class and field name, so one identical state can feed both packages.
 """
 from __future__ import annotations
@@ -18,7 +18,8 @@ from .bodies import BodyState
 from .collision.narrowphase import PairCache
 from .collision.pairstore import PairStore
 from .constraints.contact import ContactImpulses, ContactPrestep
-from .shapes.registry import ShapeData
+from .shapes.custom import FIRST_CUSTOM_ID, is_custom
+from .shapes.registry import ShapeData, hull_rows
 from .utils.spring import SpringSettings
 from .utils.vec import Quat, Sym3, Vec2, Vec3
 
@@ -30,6 +31,8 @@ def _to_torch(src, device):
     """A NamedTuple or dict tree of numpy arrays → the port's tree of tensors, by name."""
     if hasattr(src, "_fields"):
         cls = _TYPES[type(src).__name__]
+        if cls is ShapeData:
+            return shapes_from_numpy(src, device)
         return cls(*(_to_torch(getattr(src, f), device) for f in cls._fields))
     if isinstance(src, dict):
         return {k: _to_torch(v, device) for k, v in src.items()}
@@ -52,8 +55,16 @@ def state_from_numpy(tree, device):
 
 
 def shapes_from_numpy(tree, device) -> ShapeData:
-    """The port's ``ShapeData`` from the JAX one's numpy leaves (the hull pool dropped)."""
-    return _to_torch(tree, device)
+    """The port's ``ShapeData`` from the JAX one's numpy leaves: the hull pool with each
+    shape's table of pool rows (``hull_rows``) in place of the JAX support windows. Every
+    custom type id in it must be registered in the port (``register_custom_shape``)."""
+    types = np.asarray(tree.type)
+    missing = sorted({int(t) for t in types if t >= FIRST_CUSTOM_ID and not is_custom(int(t))})
+    if missing:
+        raise ValueError(f"custom shape types {missing} are not registered in the port")
+    rows = hull_rows(np.asarray(tree.hull_start), np.asarray(tree.hull_count))
+    return ShapeData(*(_to_torch(rows if f == "hull_rows" else getattr(tree, f), device)
+                       for f in ShapeData._fields))
 
 
 def joint_banks_from_numpy(banks: dict, device) -> dict:

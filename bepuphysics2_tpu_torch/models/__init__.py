@@ -5,7 +5,9 @@ from .scenes import (
     awake_fraction, build_colosseum_sim, build_compound_pile_sim, build_ragdoll_pile_sim,
     build_ragdoll_tube_sim, run_colosseum,
 )
+from .tank import Tank
+from .vehicle import SimpleCar
 
 __all__ = ["add_cloth", "add_ragdoll", "awake_fraction", "build_cloth_sim",
            "build_colosseum_sim", "build_compound_pile_sim", "build_ragdoll_pile_sim",
-           "build_ragdoll_tube_sim", "run_colosseum"]
+           "build_ragdoll_tube_sim", "run_colosseum", "SimpleCar", "Tank"]

@@ -2,8 +2,11 @@ from .registry import (
     BOX,
     CAPSULE,
     COMPOUND,
+    CONVEX_HULL,
+    CYLINDER,
     SHAPE_NONE,
     SPHERE,
+    TRIANGLE,
     Box,
     Capsule,
     Compound,
@@ -16,9 +19,11 @@ from .registry import (
     Triangle,
 )
 from .bounds import compute_body_bounds
+from .custom import CustomShape, is_custom, register_custom_shape
 
 __all__ = [
-    "SHAPE_NONE", "SPHERE", "CAPSULE", "BOX", "COMPOUND", "ShapeData", "ShapeRegistry", "Sphere", "Box",
-    "Capsule", "Triangle", "Cylinder", "ConvexHull", "Compound", "Mesh",
+    "SHAPE_NONE", "SPHERE", "CAPSULE", "BOX", "TRIANGLE", "CYLINDER", "CONVEX_HULL", "COMPOUND",
+    "ShapeData", "ShapeRegistry", "Sphere", "Box", "Capsule", "Triangle", "Cylinder",
+    "ConvexHull", "Compound", "Mesh", "CustomShape", "register_custom_shape", "is_custom",
     "compute_body_bounds",
 ]

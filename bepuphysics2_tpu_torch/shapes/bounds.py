@@ -1,9 +1,11 @@
 """Speculative (velocity-expanded) world AABBs for every body: spheres, capsules, boxes,
-and compounds (their bounding sphere).
+cylinders, triangles (an offset box), and hulls, custom shapes and compounds (their
+bounding sphere).
 
 Counterpart of ``bepuphysics2_tpu/shapes/bounds.py`` (reference PoseIntegrator.cs:424
 PredictBoundingBoxes + BoundingBoxHelpers.ExpandBoundingBoxes): one masked pass over all
-bodies; the shape type selects the extent formula.
+bodies; the shape type selects the extent formula. ``present_types`` (the registry's
+types, known on the host) leaves out the formulas of types the scene does not hold.
 """
 from __future__ import annotations
 
@@ -12,12 +14,13 @@ import math
 import torch
 
 from ..utils.vec import Vec3
-from .registry import BOX, CAPSULE, SPHERE, ShapeData
+from .registry import BOX, CAPSULE, CYLINDER, SPHERE, TRIANGLE, ShapeData
 
 
-def compute_shape_bounds(shape_type, params, max_radius, orn):
+def compute_shape_bounds(shape_type, params, max_radius, orn, present_types=None):
     """Local AABB half-extents for each body: (extent: Vec3, center_offset: Vec3).
-    Compounds, and the types the registry refuses, read their bounding sphere."""
+    Hulls, custom shapes and compounds read their bounding sphere."""
+    has = lambda t: present_types is None or t in present_types
     m = orn.to_matrix()
     zero = torch.zeros_like(params[:, 0])
     r = params[:, 0]
@@ -36,11 +39,28 @@ def compute_shape_bounds(shape_type, params, max_radius, orn):
     ext = box_ext.where(shape_type == BOX, ext)
     ext = sphere_ext.where(shape_type == SPHERE, ext)
     ext = capsule_ext.where(shape_type == CAPSULE, ext)
-    return ext, Vec3(zero, zero, zero)
+    center = Vec3(zero, zero, zero)
+    if has(CYLINDER):
+        # Half length along |ry| plus the disc's radius along sqrt(1 - ry_i^2) per axis.
+        disc = Vec3(*(torch.sqrt(torch.clamp_min(1.0 - c * c, 0.0)) for c in m.ry))
+        cyl_ext = Vec3(m.ry.x.abs() * hl + disc.x * r, m.ry.y.abs() * hl + disc.y * r,
+                       m.ry.z.abs() * hl + disc.z * r)
+        ext = cyl_ext.where(shape_type == CYLINDER, ext)
+    if has(TRIANGLE):
+        # Min and max over the three rotated vertices: an offset box, not a centred one.
+        va = orn.rotate(Vec3(params[:, 0], params[:, 1], params[:, 2]))
+        vb = orn.rotate(Vec3(params[:, 3], params[:, 4], params[:, 5]))
+        vc = orn.rotate(Vec3(params[:, 6], params[:, 7], params[:, 8]))
+        tri_min = va.min(vb).min(vc)
+        tri_max = va.max(vb).max(vc)
+        tri = shape_type == TRIANGLE
+        ext = ((tri_max - tri_min) * 0.5).where(tri, ext)
+        center = ((tri_min + tri_max) * 0.5).where(tri, center)
+    return ext, center
 
 
 def compute_body_bounds(pos, orn, vel, omega, shape_id, shapes: ShapeData, dt,
-                        spec_min=None):
+                        spec_min=None, present_types=None):
     """Speculative world AABBs (aabb_min, aabb_max) of shape (N,).
 
     ``spec_min``: per-body minimum speculative margin; each AABB grows by half of it."""
@@ -49,7 +69,7 @@ def compute_body_bounds(pos, orn, vel, omega, shape_id, shapes: ShapeData, dt,
     params = shapes.params[shape_id_c]
     max_radius = shapes.max_radius[shape_id_c]
 
-    ext, center = compute_shape_bounds(stype, params, max_radius, orn)
+    ext, center = compute_shape_bounds(stype, params, max_radius, orn, present_types)
     lo = pos + center - ext
     hi = pos + center + ext
 

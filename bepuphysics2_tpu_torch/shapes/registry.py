@@ -1,13 +1,19 @@
 """Shape registry: fixed-capacity packed shape parameter arrays (host-side storage +
-device snapshot). The port carries spheres, capsules, boxes and compounds of them; every
-other shape type of the JAX registry is refused with the ROADMAP item that brings it.
+device snapshot). The port carries spheres, capsules, boxes, triangles, cylinders, convex
+hulls, registered custom convex shapes (``shapes/custom.py``) and compounds of them; the
+mesh and the big compound are refused with the ROADMAP item that brings them.
 
 Packed parameter layout (``params`` row, float32 × 12), as in the JAX package:
 - SPHERE   (id 0): [radius]
 - CAPSULE  (id 1): [radius, half_length]  (axis = local Y)
 - BOX      (id 2): [half_width, half_height, half_length]
+- TRIANGLE (id 3): [ax, ay, az, bx, by, bz, cx, cy, cz]
+- CYLINDER (id 4): [radius, half_length]  (axis = local Y)
+- CONVEX_HULL (id 5): none; its vertices live in the hull pool (``ShapeData.hull_*``),
+  one run of ``hull_count`` rows from ``hull_start`` per shape.
 - COMPOUND (id 6): none; its children live in the child pool (``ShapeData.child_*``),
   Morton-ordered and grouped into bounding clusters (``ShapeData.cl_*``).
+- custom (ids from 16): the parameters its support function reads.
 """
 from __future__ import annotations
 
@@ -16,6 +22,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .custom import CustomShape, is_custom
 
 SHAPE_NONE = -1
 SPHERE = 0
@@ -31,9 +39,6 @@ MESH = 8
 N_PARAMS = 12
 
 _LATER = {
-    TRIANGLE: "ROADMAP queue 1 item 17 (other shapes and testers)",
-    CYLINDER: "ROADMAP queue 1 item 17 (other shapes and testers)",
-    CONVEX_HULL: "ROADMAP queue 1 item 17 (other shapes and testers)",
     BIG_COMPOUND: "ROADMAP queue 1 item 18 (compounds and meshes)",
     MESH: "ROADMAP queue 1 item 18 (compounds and meshes)",
 }
@@ -115,6 +120,141 @@ class Box:
 
 
 @dataclasses.dataclass(frozen=True)
+class Cylinder:
+    radius: float
+    half_length: float
+
+    def pack(self):
+        return CYLINDER, [self.radius, self.half_length]
+
+    def compute_inertia(self, mass: float):
+        """reference: Collidables/Cylinder.cs:166."""
+        inv_mass = 1.0 / mass
+        diag = inv_mass / ((4 * 0.0833333333) * self.half_length**2 + 0.25 * self.radius**2)
+        return inv_mass, (diag, 2.0 * inv_mass / (self.radius**2), diag)
+
+    def maximum_radius(self):
+        return float(np.sqrt(self.radius**2 + self.half_length**2))
+
+
+@dataclasses.dataclass(frozen=True)
+class Triangle:
+    a: tuple
+    b: tuple
+    c: tuple
+
+    def pack(self):
+        return TRIANGLE, [*self.a, *self.b, *self.c]
+
+    def compute_inertia(self, mass: float):
+        """Uniform thin-lamina triangle inertia about the shape-local origin (reference
+        Collidables/Triangle.cs:112, MeshInertiaHelper.cs):
+        C = (A/12)·(Σᵢ vᵢvᵢᵀ + s sᵀ), s = Σᵢ vᵢ; I = σ(tr C·𝟙 − C)."""
+        verts = np.asarray([self.a, self.b, self.c], np.float64)
+        area = 0.5 * np.linalg.norm(np.cross(verts[1] - verts[0], verts[2] - verts[0]))
+        s = verts.sum(axis=0)
+        c2 = (verts[:, :, None] * verts[:, None, :]).sum(axis=0) + np.outer(s, s)
+        c2 *= area / 12.0
+        inertia = (mass / max(area, 1e-30)) * (np.trace(c2) * np.eye(3) - c2)
+        inv = np.linalg.inv(inertia)
+        inv_mass = 1.0 / mass
+        return inv_mass, (inv[0, 0], inv[1, 1], inv[2, 2]), inv
+
+    def maximum_radius(self):
+        return float(max(np.linalg.norm(self.a), np.linalg.norm(self.b), np.linalg.norm(self.c)))
+
+
+def _oriented(pts, hull):
+    """The vertices (a, b, c) of each facet of a scipy hull, wound outward."""
+    for simplex, eq in zip(hull.simplices, hull.equations):
+        a, b, c = pts[simplex]
+        if np.dot(np.cross(b - a, c - a), eq[:3]) < 0:
+            b, c = c, b
+        yield a, b, c
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvexHull:
+    """Convex hull of a point cloud: the hull's vertices, recentred on its volume
+    centroid (reference Collidables/ConvexHullHelper.cs:87). The device keeps only the
+    vertices, in the registry's hull pool: support mapping needs nothing else."""
+
+    points: tuple  # hull vertices (recentred), as a tuple of (x, y, z) tuples
+    center_offset: tuple = (0.0, 0.0, 0.0)  # the centroid in the input's frame
+
+    @staticmethod
+    def from_points(points) -> "ConvexHull":
+        """The port's own quickhull (``native/hull.cpp``, built with the host compiler
+        at first use); scipy's qhull where no compiler is present."""
+        from .. import native
+
+        pts = np.asarray(points, np.float64)
+        res = native.quickhull(pts)
+        if res is not None:
+            vert_ids, _tris, centroid, _volume = res
+            verts = pts[vert_ids] - centroid
+            return ConvexHull(tuple(map(tuple, verts.tolist())), tuple(centroid.tolist()))
+
+        from scipy.spatial import ConvexHull as QHull
+
+        hull = QHull(pts)
+        verts = pts[hull.vertices]
+        # Volume centroid from signed tetrahedra on the outward-wound facets.
+        total_v = 0.0
+        centroid = np.zeros(3)
+        for a, b, c in _oriented(pts, hull):
+            v = np.dot(a, np.cross(b, c)) / 6.0
+            total_v += v
+            centroid += v * (a + b + c) / 4.0
+        centroid = centroid / total_v if abs(total_v) > 1e-12 else verts.mean(0)
+        verts = verts - centroid
+        return ConvexHull(tuple(map(tuple, verts.tolist())), tuple(centroid.tolist()))
+
+    def pack(self):
+        return CONVEX_HULL, []
+
+    def compute_inertia(self, mass: float):
+        """Solid inertia from a tetrahedron decomposition about the origin (the hull's
+        centroid): the native path, or scipy's where no compiler is present."""
+        from .. import native
+
+        pts = np.asarray(self.points, np.float64)
+        res = native.quickhull(pts)
+        if res is not None:
+            out = native.hull_inertia(pts, res[1], mass)
+            if out is not None:
+                inv6, inv_mass = out
+                inv = np.array([[inv6[0], inv6[1], inv6[3]],
+                                [inv6[1], inv6[2], inv6[4]],
+                                [inv6[3], inv6[4], inv6[5]]])
+                return inv_mass, (inv[0, 0], inv[1, 1], inv[2, 2]), inv
+
+        from scipy.spatial import ConvexHull as QHull
+
+        hull = QHull(pts)
+        covariance = np.zeros((3, 3))
+        total_v = 0.0
+        # Covariance of the canonical tetrahedron (unit tet at the origin).
+        canonical = np.array([[1 / 60.0, 1 / 120.0, 1 / 120.0],
+                              [1 / 120.0, 1 / 60.0, 1 / 120.0],
+                              [1 / 120.0, 1 / 120.0, 1 / 60.0]])
+        for a, b, c in _oriented(pts, hull):
+            m = np.stack([a, b, c])
+            det = np.dot(a, np.cross(b, c))
+            covariance += det * (m.T @ canonical @ m)
+            total_v += det / 6.0
+        if abs(total_v) < 1e-12:
+            raise ValueError("degenerate hull: zero volume")
+        covariance *= mass / abs(total_v)
+        inertia = np.eye(3) * np.trace(covariance) - covariance
+        inv = np.linalg.inv(inertia)
+        return 1.0 / mass, (inv[0, 0], inv[1, 1], inv[2, 2]), inv
+
+    def maximum_radius(self):
+        return float(np.linalg.norm(np.asarray(self.points), axis=1).max())
+
+
+@dataclasses.dataclass(frozen=True)
 class Compound:
     """A rigid collection of posed convex children (reference Collidables/Compound.cs).
     ``children`` is a tuple of (shape_id, local_position(3), local_orientation(4))."""
@@ -155,18 +295,24 @@ class _NotPorted:
         raise NotImplementedError(self._msg)
 
 
-Triangle = _NotPorted("Triangle", TRIANGLE)
-Cylinder = _NotPorted("Cylinder", CYLINDER)
-ConvexHull = _NotPorted("ConvexHull", CONVEX_HULL)
 Mesh = _NotPorted("Mesh", MESH)
 
 
 class ShapeData(NamedTuple):
-    """Device snapshot of the registry (the JAX ShapeData's fields, less the hull pool)."""
+    """Device snapshot of the registry (the JAX ShapeData's fields, less its 64-point
+    hull support windows: the port gathers each hull's vertices from the pool)."""
 
     type: torch.Tensor  # (MS,) int32, SHAPE_NONE for empty rows
     params: torch.Tensor  # (MS, N_PARAMS) float32
     max_radius: torch.Tensor  # (MS,) float32 bounding-sphere radius
+    hull_x: torch.Tensor  # (HULL_POOL,) flat hull vertex pool
+    hull_y: torch.Tensor
+    hull_z: torch.Tensor
+    hull_start: torch.Tensor  # (MS,) int32 the shape's first pool row
+    hull_count: torch.Tensor  # (MS,) int32 its vertex count
+    # (MS, H) int32 each shape's pool rows, -1 past its count; H = the largest count
+    # (at least 1), so a support gathers one hull's vertices at once (``hull_rows``).
+    hull_rows: torch.Tensor
     # Compound child pool: per child a shape row + local pose (-1 rows are mesh triangles,
     # whose vertices live in child_tri; the port registers no mesh).
     child_shape: torch.Tensor  # (CHILD_POOL,) int32
@@ -184,6 +330,14 @@ class ShapeData(NamedTuple):
     cl_first: torch.Tensor  # int32 first child-pool row
     cl_count: torch.Tensor  # int32 children in the cluster (0 = dead)
     shape_cluster_row: torch.Tensor  # (MS,) int32 row into cl_* (-1 = not a compound)
+
+
+def hull_rows(start, count) -> np.ndarray:
+    """(MS, H) int32 pool rows of each shape's hull vertices, -1 past its count, from the
+    per-shape ``start`` and ``count``; H is the largest count, at least 1."""
+    start, count = np.asarray(start, np.int64), np.asarray(count, np.int64)
+    k = np.arange(max(1, int(count.max(initial=0))))
+    return np.where(k < count[:, None], start[:, None] + k, -1).astype(np.int32)
 
 
 def _morton_order(centroids: np.ndarray) -> np.ndarray:
@@ -239,9 +393,13 @@ def _quat_abs_rot(q) -> np.ndarray:
     return np.abs(r)
 
 
+_SHAPES = (Sphere, Capsule, Box, Triangle, Cylinder, ConvexHull, Compound, CustomShape)
+
+
 class ShapeRegistry:
     """Host-side shape storage with recycled rows."""
 
+    HULL_POOL = 4096  # total hull vertices across all hull shapes (no limit per hull)
     CHILD_POOL = 8192  # total compound children across all shapes
     CLUSTER_SIZE = 16  # children per acceleration cluster (ShapeData.cl_*)
 
@@ -250,6 +408,10 @@ class ShapeRegistry:
         self.types = np.full(capacity, SHAPE_NONE, np.int32)
         self.params = np.zeros((capacity, N_PARAMS), np.float32)
         self.max_radius = np.zeros(capacity, np.float32)
+        self.hull_pool = np.zeros((self.HULL_POOL, 3), np.float32)
+        self.hull_start = np.zeros(capacity, np.int32)
+        self.hull_count = np.zeros(capacity, np.int32)
+        self._hull_used = 0
         self.child_shape = np.full(self.CHILD_POOL, -1, np.int32)
         self.child_pos = np.zeros((self.CHILD_POOL, 3), np.float32)
         self.child_orn = np.zeros((self.CHILD_POOL, 4), np.float32)
@@ -266,21 +428,30 @@ class ShapeRegistry:
         self._device = {}
 
     def add(self, shape) -> int:
-        if not isinstance(shape, (Sphere, Capsule, Box, Compound)):
-            type_id = shape.pack()[0] if hasattr(shape, "pack") else None
+        if not isinstance(shape, _SHAPES):
             raise NotImplementedError(
-                f"{type(shape).__name__} is not ported yet: "
-                f"{_LATER.get(type_id, 'ROADMAP queue 1 item 17 (other shapes and testers)')}"
-            )
+                f"{type(shape).__module__}.{type(shape).__name__} is not a shape of the port: "
+                "build it from bepuphysics2_tpu_torch's shape classes")
+        if isinstance(shape, CustomShape) and not is_custom(shape.type_id):
+            raise ValueError(f"custom shape type {shape.type_id} is not registered "
+                             "(shapes.custom.register_custom_shape)")
         if not self._free:
             raise RuntimeError("shape registry full; raise capacity")
-        idx = self._free.pop()
         type_id, packed = shape.pack()
+        pts = np.asarray(shape.points, np.float32) if type_id == CONVEX_HULL else None
+        if pts is not None and self._hull_used + len(pts) > self.HULL_POOL:
+            raise RuntimeError("hull vertex pool full")
+        idx = self._free.pop()
         self.types[idx] = type_id
         self.params[idx, : len(packed)] = np.asarray(packed, np.float32)
         self.params[idx, len(packed):] = 0
         self.max_radius[idx] = shape.maximum_radius()
-        if type_id == COMPOUND:
+        if pts is not None:
+            self.hull_start[idx] = self._hull_used
+            self.hull_count[idx] = len(pts)
+            self.hull_pool[self._hull_used:self._hull_used + len(pts)] = pts
+            self._hull_used += len(pts)
+        elif type_id == COMPOUND:
             self._add_children(idx, shape)
         self.shapes[idx] = shape
         self._device = {}
@@ -368,7 +539,10 @@ class ShapeRegistry:
                 shape_cluster_row[r] = slot
             t = lambda a: torch.from_numpy(np.array(a)).to(device)
             self._device[key] = ShapeData(
-                t(self.types), t(self.params), t(self.max_radius), t(self.child_shape),
+                t(self.types), t(self.params), t(self.max_radius), t(self.hull_pool[:, 0]),
+                t(self.hull_pool[:, 1]), t(self.hull_pool[:, 2]), t(self.hull_start),
+                t(self.hull_count), t(hull_rows(self.hull_start, self.hull_count)),
+                t(self.child_shape),
                 t(self.child_pos), t(self.child_orn), t(self.child_tri), t(self.child_start),
                 t(self.child_count), t(self.child_aabb_min), t(self.child_aabb_max),
                 t(cl_min), t(cl_max), t(cl_first), t(cl_count), t(shape_cluster_row),

@@ -31,8 +31,8 @@ from .bodies import (
 from .collision import broadphase as bp
 from .collision import pairstore
 from .collision.narrowphase import (
-    PairCache, narrow_phase_compound, narrow_phase_store, retain_sleeping_when,
-    update_cache_keyed,
+    PairCache, convex_type_mask, narrow_phase_compound, narrow_phase_store,
+    retain_sleeping_when, update_cache_keyed,
 )
 from .collision.pairstore import PairStore
 from .constraints.joints import (
@@ -41,7 +41,8 @@ from .constraints.joints import (
 from .constraints.joints.base import unpack_fields
 from .integrator import IntegratorConfig
 from .shapes import ShapeRegistry, compute_body_bounds
-from .shapes.registry import COMPOUND, CONVEX_HULL, MESH
+from .shapes.custom import CUSTOM_SUPPORTS, is_custom
+from .shapes.registry import BIG_COMPOUND, COMPOUND, CONVEX_HULL, MESH
 from .sleep import update_sleep, wake_touched
 from .solver.solve import SolveConfig, solve_all
 from .utils.vec import Vec3
@@ -178,8 +179,13 @@ def _check_supported(config: SimConfig, present_types) -> None:
         raise NotImplementedError(
             "compound-vs-compound expansion (max_cc_pairs > 0) is not ported yet "
             "(ROADMAP queue 1 item 18, expand_compound_compound)")
-    if present_types is not None and any(t > CONVEX_HULL and t != COMPOUND for t in present_types):
-        raise NotImplementedError("meshes are not ported yet (ROADMAP queue 1 item 18)")
+    for t in present_types or ():
+        if t in (BIG_COMPOUND, MESH):
+            raise NotImplementedError(
+                f"{'meshes' if t == MESH else 'big compounds'} are not ported yet "
+                "(ROADMAP queue 1 item 18)")
+        if t > CONVEX_HULL and t != COMPOUND and not is_custom(t):
+            raise ValueError(f"shape type {t} is neither built in nor a registered custom shape")
 
 
 def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, present_types=None):
@@ -193,7 +199,7 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
     # --- Predict bounding boxes (speculative AABBs); no collidable, no overlap.
     aabb_min, aabb_max = compute_body_bounds(
         bodies.pos, bodies.orn, bodies.vel, bodies.omega, bodies.shape, shapes, dt,
-        spec_min=bodies.spec_margin_min,
+        spec_min=bodies.spec_margin_min, present_types=present_types,
     )
     has_shape = bodies.shape >= 0
     big = 3.0e38
@@ -219,7 +225,9 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
         return torch.where(s >= 0, shapes.type[s.clamp_min(0).long()], -1)
 
     ta_, tb_ = _shape_type(pairs.a), _shape_type(pairs.b)
-    insertable = (ta_ >= 0) & (ta_ <= CONVEX_HULL) & (tb_ >= 0) & (tb_ <= CONVEX_HULL)
+    customs = [t for t in (CUSTOM_SUPPORTS if present_types is None else present_types)
+               if is_custom(t)]
+    insertable = convex_type_mask(ta_, customs) & convex_type_mask(tb_, customs)
     # Color claims held by the joint banks and the compound child records: the store
     # must not admit a pair into a (body, color) slot one of them holds.
     nb_cap = config.body_capacity

@@ -64,6 +64,18 @@ class FixedOrderSum:
             self.steps.append((d, (ar - d >= start)[:, None]))
             d *= 2
 
+    def tensors(self) -> list:
+        """The layout's tensors, which ``of`` takes back."""
+        return [self.perm, self.dest] + [ok for _, ok in self.steps]
+
+    @classmethod
+    def of(cls, tensors: list, n_rows: int) -> "FixedOrderSum":
+        """The layout of ``tensors`` (from ``tensors``) over ``n_rows`` target rows."""
+        self = cls.__new__(cls)
+        self.perm, self.dest, self.n_rows = tensors[0], tensors[1], n_rows
+        self.steps = [(1 << i, ok) for i, ok in enumerate(tensors[2:])]
+        return self
+
     def add(self, dst: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
         """``dst`` (n_rows, K) plus, per target, the sum of its ``vals`` (N, K) rows."""
         x = vals[self.perm]

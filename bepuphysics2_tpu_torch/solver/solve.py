@@ -31,6 +31,7 @@ from ..constraints.contact import BodyVel, GatheredInertia
 from ..constraints.joints import JOINT_TYPES, JointContext, MultiBodyContext
 from ..integrator import IntegratorConfig, integrate_poses, integrate_velocities
 from ..ops import sweep as psweep
+from ..utils import replay
 from ..utils.spring import compute_springiness
 from ..utils.vec import Quat, Sym3, Vec3
 from . import buckets as bk_mod
@@ -583,20 +584,11 @@ def _substep_loop(state, buckets, ju, tb_names, mb, valence, integrator_cfg, cfg
         pj = torch.cat([ju["present"][ncap:], ju["present"][ncap:]])
         ju["s2_j"] = torch.cat([valence[ja[ncap:]], valence[jb[ncap:]]])
         ju["sum_j"] = bk_mod.FixedOrderSum(torch.where(pj, ju["idx2_j"], sink), n_bodies)
-        # The types each pass runs (C colors, then the Jacobi slice). With more types than
-        # passes most (type, pass) pairs hold no live row: one read of the table below per
-        # step lets the sweep skip them. With fewer, every type runs every pass and nothing
-        # is read from the device.
-        T = len(tb_names)
-        ju["names"] = [tb_names] * (C + 1)
-        if T > C + 1:
-            row_pass = torch.clamp_max(torch.arange(ja.shape[0], device=dev) // cap_u, C)
-            seen = torch.zeros((C + 1) * T, dtype=torch.float32, device=dev).index_add_(
-                0, row_pass * T + ju["tag"].long(), ju["live"].float())
-            seen = (seen > 0).view(C + 1, T).tolist()
-            ju["names"] = [[n for t, n in enumerate(tb_names) if row[t]] for row in seen]
-        ju["warm_names"] = [n for n in tb_names if any(n in names for names in ju["names"])]
         warm_tgt.append(torch.where(pres2, ju["idx2"], sink))
+        ju_data = {k: ju[k] for k in ("ps", "tag", "live", "idx2_col", "tgt_col", "idx2_j",
+                                      "s2_j")}
+        ju_data["sum_j"] = ju["sum_j"].tensors()
+        ju_key = ("joint sweep", C, cap_u, ncap, n_bodies, tuple(tb_names), h, inv_h)
     for b in mb:
         # Warm starts after the unified bank's; the Jacobi pass sums its rows in fixed order.
         warm_tgt += [torch.where(b["live"], i, sink) for i in b["idx"]]
@@ -670,24 +662,27 @@ def _substep_loop(state, buckets, ju, tb_names, mb, valence, integrator_cfg, cfg
             d12 = d12 + torch.where(m_t[:, None], d, 0.0)
         return new_imp, torch.cat([d12[:, :6], d12[:, 6:]])
 
-    def ju_color_sweep(table14, v6, imp):
-        """One Gauss-Seidel sweep over the unified joint bank. Within a color no two live
-        rows share a dynamic body, and rows of other bodies carry exact zeros, so each
-        color's deltas add with ``index_add`` in any order; the Jacobi slice sums in fixed
-        order."""
-        ext = torch.cat([v6, v6[:1]])
+    def ju_color_sweep(d):
+        """One Gauss-Seidel sweep over the unified joint bank, from the iteration's
+        ``table14``, ``v6`` and impulses ``imp`` in ``d`` and the step's bank (``ju_data``).
+        Within a color no two live rows share a dynamic body, and rows of other bodies
+        carry exact zeros, so each color's deltas add with ``index_add`` in any order; the
+        Jacobi slice sums in fixed order. On the card it runs as one replayed graph
+        (``utils/replay.py``): every type on every pass is hundreds of small kernels."""
+        table14, imp = d["table14"], d["imp"]
+        ext = torch.cat([d["v6"], d["v6"][:1]])
         for c in range(C):
             cs = slice(c * cap_u, (c + 1) * cap_u)
-            ctx = ju_ctx(table14, ext[:n_bodies], ju["idx2_col"][c], ju["live"][cs])
-            new_imp, p2 = ju_apply("solve", ju["ps"][cs], imp[cs], ju["tag"][cs], ctx,
-                                   ju["names"][c])
-            ext = ext.index_add(0, ju["tgt_col"][c], p2)
+            ctx = ju_ctx(table14, ext[:n_bodies], d["idx2_col"][c], d["live"][cs])
+            new_imp, p2 = ju_apply("solve", d["ps"][cs], imp[cs], d["tag"][cs], ctx, tb_names)
+            ext = ext.index_add(0, d["tgt_col"][c], p2)
             imp = torch.cat([imp[:c * cap_u], new_imp, imp[(c + 1) * cap_u:]])
         v6 = ext[:n_bodies]
-        ctx_j = ju_ctx(table14, v6, ju["idx2_j"], ju["live"][ncap:], ju["s2_j"])
-        new_imp, p2 = ju_apply("solve", ju["ps"][ncap:], imp[ncap:], ju["tag"][ncap:], ctx_j,
-                               ju["names"][C])
-        return ju["sum_j"].add(v6, p2 / ju["s2_j"][:, None]), torch.cat([imp[:ncap], new_imp])
+        ctx_j = ju_ctx(table14, v6, d["idx2_j"], d["live"][ncap:], d["s2_j"])
+        new_imp, p2 = ju_apply("solve", d["ps"][ncap:], imp[ncap:], d["tag"][ncap:], ctx_j,
+                               tb_names)
+        sum_j = bk_mod.FixedOrderSum.of(d["sum_j"], n_bodies)
+        return sum_j.add(v6, p2 / d["s2_j"][:, None]), torch.cat([imp[:ncap], new_imp])
 
     def sweep_bank(b, v6, ps_t, it_t, imp_t, n_iters=1):
         """``n_iters`` velocity iterations of one contact bank through its kernel (K4: one)."""
@@ -731,7 +726,7 @@ def _substep_loop(state, buckets, ju, tb_names, mb, valence, integrator_cfg, cfg
             p2s.append(torch.cat([_pack_dv(dva), _pack_dv(dvb)]) / b["s2"][:, None])
         if ju is not None:
             ctx_w = ju_ctx(table14, v6, ju["idx2"], ju["live"])
-            p2s.append(ju_apply("warm", ju["ps"], ju_imp, ju["tag"], ctx_w, ju["warm_names"])[1])
+            p2s.append(ju_apply("warm", ju["ps"], ju_imp, ju["tag"], ctx_w, tb_names)[1])
         for b in mb:
             dvs = b["cls"].warm_start(b["ps"], mb_imps[b["name"]],
                                       mb_ctx(table14, v6, b, b["live"], False))
@@ -752,7 +747,8 @@ def _substep_loop(state, buckets, ju, tb_names, mb, valence, integrator_cfg, cfg
                                        n_iters if lone else 1)
                 imps[ci] = _unpack_impulses(imp_t, imps[ci])
             if ju is not None:
-                v6, ju_imp = ju_color_sweep(table14, v6, ju_imp)
+                v6, ju_imp = replay.run(ju_key, ju_color_sweep,
+                                        dict(ju_data, table14=table14, v6=v6, imp=ju_imp))
             if mb:
                 v6, mb_imps = mb_tail(table14, v6, mb_imps)
         state = _vel_from6(state, v6)

@@ -17,7 +17,12 @@ K1 and K2: the 4,096-body pile with both through K3 (its store's color waves sev
 pages of 512 rows each) and the 16,384-body pile with the schedule through K4. Last,
 slice 10: ``bench.py``'s colosseum through its sequence, island sleep and wake under load
 (2,880 bodies through K1, 23,040 through grid2 and K2), the 64 x 64 cloth over a sphere
-(its contacts through K3 beside 16,002 joints) and every joint type (the 30-rig battery).
+(its contacts through K3 beside 16,002 joints) and every joint type (the 30-rig battery,
+no host sync). Then slice 11: the 4,096-body pile of the reference's ShapePileBenchmark
+mix (sphere, capsule, box, cylinder, convex hull; the generic GJK/MPR narrow phase beside
+K1) and the car and the tank of ``tests/test_models.py``, each in its test's scene (K3).
+On the card the joint sweep and the generic narrow phase replay as CUDA graphs
+(``bepuphysics2_tpu_torch/utils/replay.py``); no kernel K1-K7 runs inside one.
 
     python3 chip_smoke.py
 
@@ -27,8 +32,8 @@ every kernel of the paths with its launch count on its main path, its error agai
 plain version, its time through its wrapper (``ms``), the plain version's time, its bound
 (the least time the card could take for the same work), where one PyTorch call computes
 the same function that call's time, for K1, K3, K4, K6 and K7 the kernel's C entry point
-alone (``kernel_ms``, null for the others), and for K3 and K4, which two paths launch,
-each path's count (``launches_by_path``). Imports nothing of JAX: the machine with the
+alone (``kernel_ms``, null for the others), and for K1-K4 each path that launches the
+kernel with its count (``launches_by_path``). Imports nothing of JAX: the machine with the
 card has none.
 """
 import dataclasses
@@ -78,10 +83,11 @@ def _nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def build_pile(n_bodies, device, **overrides):
+def build_pile(n_bodies, device, shapes=None, **overrides):
     """The mixed sphere/box pile on a static box ground, as ``__graft_entry__.
     _build_pile_sim`` builds it (seed 7), with ``bench.py``'s capacities and solver
-    settings (16 colors above 8,192 bodies)."""
+    settings (16 colors above 8,192 bodies). ``shapes``: the shape objects the bodies take
+    in turn (a sphere of radius 0.5 and a box of half extent 0.5 by default)."""
     from bepuphysics2_tpu_torch import (
         BodyDescription, Box, SimConfig, Simulation, Sphere, StaticDescription,
     )
@@ -93,8 +99,8 @@ def build_pile(n_bodies, device, **overrides):
     ), **overrides})
     sim = Simulation(config, device=device)
     ground = sim.add_shape(Box(100.0, 0.5, 100.0))
-    sphere, box = Sphere(0.5), Box(0.5, 0.5, 0.5)
-    sphere_id, box_id = sim.add_shape(sphere), sim.add_shape(box)
+    objs = shapes or (Sphere(0.5), Box(0.5, 0.5, 0.5))
+    ids = [sim.add_shape(o) for o in objs]
     sim.add_static(StaticDescription(position=(0, -0.5, 0), shape=ground))
     rng = np.random.default_rng(7)
     side = max(1, int(np.ceil(n_bodies ** (1 / 3))))
@@ -106,8 +112,8 @@ def build_pile(n_bodies, device, **overrides):
                     break
                 p = ((ix - side / 2) * 1.2 + rng.uniform(-0.05, 0.05), 1.0 + iy * 1.2,
                      (iz - side / 2) * 1.2 + rng.uniform(-0.05, 0.05))
-                sid, obj = (sphere_id, sphere) if n % 2 == 0 else (box_id, box)
-                sim.add_body(BodyDescription.dynamic(p, sid, 1.0, obj))
+                k = n % len(objs)
+                sim.add_body(BodyDescription.dynamic(p, ids[k], 1.0, objs[k]))
                 n += 1
     return sim
 
@@ -2008,32 +2014,299 @@ def phase_cloth_small(dev, steps=30, frames=30, tol=1e-4):
     _require(worst <= tol, "a card step of the cloth disagrees with the CPU's beyond K3's limit")
 
 
-def phase_joint_rigs(dev, frames=3, tol=1e-4):
+def phase_joint_rigs(dev, frames=3, tol=1e-4, steps=150):
     """Every joint type on the card (``models.joint_rigs``, the rig battery of
     ``tests/test_joint_behavior.py``): ``frames`` card steps from the CPU's carried state
-    within ``tol`` (absolute and relative), then 150 steps on the card and each rig's
-    check."""
+    within ``tol`` (absolute and relative), then the battery's ``steps`` steps on the card
+    and each rig's check; no host sync over 4 steps after one that pushes the checks'
+    reads."""
     from bepuphysics2_tpu_torch.models.joint_rigs import ALL_NAMES, build_joint_rigs
 
     t0 = time.perf_counter()
     cpu = build_joint_rigs("cpu", steps=0)
     worst, _, _ = _card_steps_from_cpu(cpu.sim, dev, cpu.sim.state, frames)
-    rigs = build_joint_rigs(dev)
+    rigs = build_joint_rigs(dev, steps=steps)
     failed = []
     for rig, check in rigs.checks:
         try:
             check()
         except AssertionError as e:
             failed.append(f"{rig}: {e}")
+    rigs.sim.run(1, DT)  # pushes the state the checks read back to the host
+    _, syncs = _timed_syncs(rigs.sim, 4)
     covered = sorted({n for n, _ in rigs.checks})
     elapsed = time.perf_counter() - t0
     print(f"[28 joint types] {len(covered)} joint types, {len(rigs.checks)} rigs "
           f"({rigs.sim.body_count} bodies): {frames} card steps from the CPU's state within "
-          f"{worst:.3e} of the CPU's (limit {tol:g}); after 150 card steps {len(failed)} rigs "
-          f"off their targets; {elapsed:.1f} s")
+          f"{worst:.3e} of the CPU's (limit {tol:g}); after {steps} card steps {len(failed)} rigs "
+          f"off their targets; host syncs per step {syncs:g} (5 more steps, the last 4 "
+          f"counted); {elapsed:.1f} s")
+    _require(syncs == 0, f"{syncs} host syncs per step on the rigs")
     _require(covered == sorted(ALL_NAMES) and len(covered) == 30, "a joint type has no rig")
     _require(worst <= tol, "a card step of the rigs disagrees with the CPU's")
     _require(not failed, f"rigs off their targets: {failed}")
+
+
+# --- slice 11: the generic GJK/MPR narrow phase (K1), the car and the tank (K3) -----------
+
+
+def five_shapes():
+    """The shape mix of the reference's ShapePileBenchmark: a sphere, a capsule, a box, a
+    cylinder and a convex hull of 24 points drawn on a sphere of radius 0.5 (seed 7)."""
+    from bepuphysics2_tpu_torch import Box, Capsule, ConvexHull, Cylinder, Sphere
+
+    pts = np.random.default_rng(7).normal(size=(24, 3))
+    pts *= 0.5 / np.linalg.norm(pts, axis=1, keepdims=True)
+    return (Sphere(0.5), Capsule(0.3, 0.4), Box(0.5, 0.5, 0.5), Cylinder(0.5, 0.4),
+            ConvexHull.from_points(pts))
+
+
+def _kernels_per_step(sim, steps=1):
+    """CUDA kernels per step over ``steps`` steps (``torch.profiler`` kernel events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim.run(steps, DT)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / steps
+
+
+# Phase 29's capacities, sized up front (``tools/five_shape_pile.py``): at bench.py's 8
+# pairs per body the five-shape pile's broad phase peaks at 35,391 pairs, its store
+# defers admissions from the first step and promotes up to 16,360 Jacobi rows while the
+# pile collapses (overflow bit 4), and a hull fell through the ground at step 101,
+# before bench.py's autosize; its shapes' larger bounds meet more neighbours. Sized here,
+# the pile runs phase 4's sequence (33 steps, then the timed ones) with no autosize.
+FIVE_SHAPE_CAPS = dict(max_pairs=65536, store_churn=8192, store_dead=8192,
+                       store_repair=32768)
+
+
+def phase_five_shape_pile(dev, name, smi, warm=33, timed=96):
+    """Phase 29: the 4,096-body five-shape pile (``five_shapes`` in turn, ``build_pile``'s
+    layout and settings: 4 substeps, 1 velocity iteration, 8 colors, brute force, the pair
+    store and sleep on; ``FIVE_SHAPE_CAPS``) through ``warm`` steps and ``timed`` timed,
+    as phase 4 runs the 4k pile. K1 once per step and no plain
+    version, no host sync, the pile's gates (no overflow); K1 against its plain version on
+    the last step's K1 call within 1e-4 and bit-identical on a repeat. The hulls come from
+    the port's native quickhull. Returns (K1 launches, steps/s, kernels per step)."""
+    from bepuphysics2_tpu_torch import native
+    from bepuphysics2_tpu_torch.ops import sweep
+
+    t0 = time.perf_counter()
+    sim = build_pile(4096, dev, shapes=five_shapes(), **FIVE_SHAPE_CAPS)
+    _require(native.load() is not None, "the hull was not built by the native quickhull")
+    c = sim.config
+    _require((c.body_capacity, c.substeps, c.velocity_iterations, c.num_colors)
+             == (4160, 4, 1, 8) and c.enable_sleep and c.use_pair_store,
+             "five-shape pile configuration drifted from bench.py's")
+    before = _kernel_launches()
+    calls, restore = _count_plain_calls()
+    try:
+        sim.run(warm, DT)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        sim.run(timed, DT)
+        torch.cuda.synchronize()
+        sps = timed / (time.perf_counter() - t1)
+        _, syncs = _timed_syncs(sim, 4)
+        k1_calls, _ = _k1_steps(sim, 1)
+    finally:
+        restore()
+    launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+    steps = warm + timed + 4 + 1
+    min_y, pairs, contacts = _pile_gates(sim, "the five-shape pile")
+    kps = _kernels_per_step(sim)
+    args, kw = _clone_call(*k1_calls[-1])
+    kern = lambda: sweep.solve_substeps_contacts(*args, **kw)
+    plain = lambda: sweep._solve_substeps_contacts_plain(
+        *args, **{k: v for k, v in kw.items() if k != "waves"})
+    err, _ = _hold("K1", kern, plain, args[0], K1_TOL)
+    print(f"[29 five-shape pile] 4096 bodies (sphere, capsule, box, cylinder, 24-point hull "
+          f"of {len(five_shapes()[4].points)} vertices), {FIVE_SHAPE_CAPS}, {warm} + "
+          f"{timed} steps on {name} ({smi}): {sps:.2f} steps/s over the {timed} timed "
+          f"steps, warm-up {built:.1f} s; {kps:.0f} CUDA kernels per step; pairs {pairs}, "
+          f"contacts {contacts}, min dynamic y {min_y:.3f}; launches {launches} over {steps} "
+          f"steps, plain calls {len(calls)}, host syncs per step {syncs:g}; K1 vs plain on "
+          f"the last step's call: max |diff| {err:.3e} (limit {K1_TOL:g}), bit-identical "
+          f"repeat")
+    _require(launches == dict(K1=steps, K2=0, K3=0, K4=0), "K1 did not launch once per step")
+    _require(not calls, f"plain versions ran on the card: {sorted(set(calls))}")
+    _require(syncs == 0, f"{syncs} host syncs per step on the five-shape pile")
+    return launches["K1"], sps, kps
+
+
+# Phase 30's limit on the largest |dpos| of the 256-body five-shape pile, card against
+# CPU, over 20 frames. Sound runs read 2.578e-02 (the same body in each completed run of
+# the phase; the CPU's own run moves as far under a 1e-7 nudge of the initial positions:
+# landing contacts on cylinder rims and hull faces tie, ROADMAP queue 3); the control
+# below, a card run that drops 8 bodies' ground contacts, reads ten times that (PERF.md).
+FIVE_SHAPE_MAX = 5e-2
+CONTROL_BODIES = (0, 1, 2, 3, 49, 50, 51, 52)  # bottom-layer bodies (a 7 x 7 x 7 grid)
+
+
+def phase_five_shape_small(dev, steps=30, frames=20):
+    """Phase 30: two card runs of a 512-body five-shape pile, ``steps`` steps each, give one
+    ``state_hash``; a 256-body one on the card against the CPU over ``frames`` frames: the
+    median |dpos| within 1e-4 and the largest within ``FIVE_SHAPE_MAX``. A control run on
+    the card, with the ground and ``CONTROL_BODIES`` in one collision group (their ground
+    contacts dropped, as a kernel that loses a few bodies' rows would), must exceed that
+    limit, so that the limit tells a fault on a few bodies from the pile's own spread."""
+    hashes = []
+    for _ in range(2):
+        sim = build_pile(512, dev, shapes=five_shapes())
+        sim.run(steps, DT)
+        torch.cuda.synchronize()
+        hashes.append(sim.state_hash())
+    runs = {}
+    for d in ("cpu", "card", "control"):
+        sim = build_pile(256, "cpu" if d == "cpu" else dev, shapes=five_shapes())
+        if d == "control":
+            sim._sync_from_device()
+            h = sim._host
+            h.collision_group[0] = 7  # the ground, handle 0
+            h.collision_group[[b + 1 for b in CONTROL_BODIES]] = 7
+            sim._dirty = True
+        sim.run(frames, DT)
+        runs[d] = positions(sim)
+    diff = np.abs(runs["cpu"] - runs["card"])
+    ctl = np.abs(runs["cpu"] - runs["control"]).max()
+    print(f"[30 five-shape determinism, cpu vs card] 512 bodies, {steps} steps twice: "
+          f"state_hash {hashes[0]:#018x} / {hashes[1]:#018x}; 256 bodies, {frames} frames: "
+          f"max |dpos| {diff.max():.3e} (limit {FIVE_SHAPE_MAX:g}), median "
+          f"{np.median(diff):.3e} (limit 0.0001); the control (8 bodies' ground contacts "
+          f"dropped) {ctl:.3e} (above the limit)")
+    _require(hashes[0] == hashes[1], "two identical five-shape runs on the card differ")
+    _require(diff.max() <= FIVE_SHAPE_MAX and np.median(diff) <= 1e-4,
+             "the card and the CPU disagree beyond the pile's own spread")
+    _require(ctl > FIVE_SHAPE_MAX, "the control run stays within the limit")
+
+
+def vehicle_world(kind, device):
+    """``tests/test_models.py``'s car scene (``ground_sim(body_capacity=32)``: 4 substeps, 2
+    velocity iterations, 8 colors, a ground box of half extent 50 with its top at 0, the
+    car at (0, 0.8, 0)) or its tank scene (``body_capacity`` 64, ``max_pairs`` 1,024, 4
+    substeps, 8 colors, no sleep, a ground box of half extent 120 with its top at 0.25,
+    the tank at (0, 1, 0) with 3 wheels a tread; no CCD: the port has none yet, and no
+    projectile is fired). Returns (simulation, model)."""
+    from bepuphysics2_tpu_torch import Box, SimConfig, Simulation, StaticDescription
+    from bepuphysics2_tpu_torch.models import SimpleCar, Tank
+
+    if kind == "car":
+        cfg = dict(body_capacity=32, max_pairs=512, substeps=4, velocity_iterations=2,
+                   num_colors=8, joint_capacity=128, max_compound_pairs=16,
+                   children_per_pair=4, child_window=16)
+        ground, top = 50.0, -0.5
+    else:
+        cfg = dict(body_capacity=64, max_pairs=1024, substeps=4, num_colors=8,
+                   joint_capacity=64, enable_sleep=False)
+        ground, top = 120.0, -0.25
+    sim = Simulation(SimConfig(**cfg), device=device)
+    g = sim.add_shape(Box(ground, 0.5, ground))
+    sim.add_static(StaticDescription(position=(0, top, 0), shape=g))
+    if kind == "car":
+        return sim, SimpleCar(sim, position=(0, 0.8, 0))
+    return sim, Tank(sim, position=(0.0, 1.0, 0.0), wheels_per_tread=3)
+
+
+def _yaw(q):
+    x, y, z, w = q
+    return np.arctan2(2 * (w * y + x * z), 1 - 2 * (y * y + z * z))
+
+
+def _drive_car(sim, car):
+    """``test_car_drives_forward``: 60 steps of 1/60 s to settle, then 180 at drive 8.
+    Returns (steps, gates text, gates met)."""
+    sim.run(60, DT)
+    p0 = sim.get_body(car.body)[0]
+    car.set_drive(8.0)
+    sim.run(180, DT)
+    p1 = sim.get_body(car.body)[0]
+    dist = float(np.linalg.norm((p1 - p0)[[0, 2]]))
+    return 240, f"drove {dist:.3f} m, body y {p1[1]:.3f}", dist > 1.0 and p1[1] > 0.2
+
+
+def _drive_tank(sim, tank):
+    """``test_tank_drives_turns_and_fires`` without the fire: 30 steps to settle, 90
+    straight at track speeds (8, 8), 90 skid-steering at (6, -6), 120 aiming the turret
+    a quarter turn. Returns (steps, gates text, gates met)."""
+    sim.run(30, DT)
+    tank.set_track_speeds(8.0, 8.0)
+    p0 = sim.get_body(tank.body)[0]
+    sim.run(90, DT)
+    p1, q0 = sim.get_body(tank.body)[0], sim.get_body(tank.body)[1]
+    tank.set_track_speeds(6.0, -6.0)
+    sim.run(90, DT)
+    q1 = sim.get_body(tank.body)[1]
+    tank.set_track_speeds(0.0, 0.0)
+    tank.set_aim(np.pi / 2, 0.0)
+    sim.run(120, DT)
+    barrel = tank.barrel_direction()
+    fwd = p1 - p0
+    dyaw = abs((_yaw(q1) - _yaw(q0) + np.pi) % (2 * np.pi) - np.pi)
+    met = (abs(fwd[2]) > 0.8 and abs(fwd[2]) > 3 * abs(fwd[0]) and dyaw > 0.15
+           and abs(barrel[0]) > 0.6)
+    return 330, (f"drove dz {fwd[2]:.3f} dx {fwd[0]:.3f}, yaw {dyaw:.3f}, barrel x "
+                 f"{barrel[0]:.3f}"), met
+
+
+def phase_vehicles(dev, name, smi, frames=3, tol=1e-4):
+    """Phase 31: the car and the tank of ``tests/test_models.py``, each in its own scene on
+    the card (``vehicle_world``) through that test's steps and gates: the car settles,
+    then drives more than 1.0 m with its body above y = 0.2; the tank drives straight
+    (|dz| above 0.8 and above 3|dx|), skid-steers (yaw above 0.15) and swivels its turret
+    a quarter turn (the barrel's |x| above 0.6). Per scene: K3 as often per step as
+    substeps x iterations (the store bank beside the joints), K1, K2 and K4 never, no
+    plain version; no host sync over 4 steps after one that pushes the gates' host edits
+    and reads; ``frames`` card steps from the CPU's state (after 10 CPU steps: the wheels
+    reach the ground) within ``tol``. Returns the K3 launches by scene."""
+    out = {}
+    for kind, drive in (("car", _drive_car), ("tank", _drive_tank)):
+        cpu = vehicle_world(kind, "cpu")[0]
+        cpu.run(10, DT)
+        worst, _, _ = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
+        sim, model = vehicle_world(kind, dev)
+        cfg = sim.config.solve_config()
+        per_step = sum(cfg.iterations_for(s) for s in range(cfg.substeps))
+        before = _kernel_launches()
+        calls, restore = _count_plain_calls()
+        t0 = time.perf_counter()
+        try:
+            steps, gates, met = drive(sim, model)
+            torch.cuda.synchronize()
+            sps = steps / (time.perf_counter() - t0)
+            sim.run(1, DT)  # pushes the host edits and reads of the gates
+            _, sync = _timed_syncs(sim, 4)
+        finally:
+            restore()
+        steps += 5
+        launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+        kps = _kernels_per_step(sim)
+        types = sorted(sim._joint_banks())
+        print(f"[31 {kind}] {sim.body_count} bodies, {len(types)} joint types, {steps} steps "
+              f"on {name} ({smi}): {gates}; {sps:.2f} steps/s over the gates' steps, "
+              f"{kps:.0f} CUDA kernels per step; launches {launches} (K3 {per_step} per "
+              f"step), plain calls {len(calls)}, host syncs per step {sync:g}; {frames} card "
+              f"steps from the CPU's state within {worst:.3e} (limit {tol:g})")
+        _require(met, f"the {kind} missed its gates: {gates}")
+        _require(launches == dict(K1=0, K2=0, K3=per_step * steps, K4=0),
+                 f"the {kind} did not solve through K3 {per_step} times per step")
+        _require(not calls, f"plain versions ran on the card: {sorted(set(calls))}")
+        _require(sync == 0, f"{sync} host syncs per step on the {kind}")
+        _require(worst <= tol, f"a card step of the {kind} disagrees with the CPU's")
+        out[kind] = launches["K3"]
+    return out
+
+
+def slice11_phases(dev, name, smi):
+    """Phases 29-31. Returns each new path's (kernel, launches) and phase 29's numbers."""
+    k1, _, _ = phase_five_shape_pile(dev, name, smi)
+    phase_five_shape_small(dev)
+    paths = {"4k five-shape pile": ("K1", k1)}
+    paths.update((k, ("K3", n)) for k, n in phase_vehicles(dev, name, smi).items())
+    return paths
 
 
 def slice10_phases(dev, name, smi):
@@ -2101,6 +2374,9 @@ def main():
                       WIN_TOL, **_schedule_overrides(callback=False), **win)
     # Slice 10: the colosseum through K1 and K2, the cloth through K3, every joint type.
     paths = slice10_phases(dev, name, smi)
+    # Slice 11: the five-shape pile over the generic narrow phase (K1), the car and the
+    # tank (K3).
+    paths.update(slice11_phases(dev, name, smi))
     k1["paths"] = {"4k pile": k1["launches"]}
     k2["paths"] = {"16k pile": k2["launches"]}
     for path, (kernel, n) in paths.items():
@@ -2116,7 +2392,7 @@ def main():
             ("probe_sweep (K5)", K5_SOURCE, K5_REPLACES, k5),
             ("probe_gather (K6)", K6_SOURCE, K6_REPLACES, k6),
             ("probe_scatter (K7)", K7_SOURCE, K7_REPLACES, k7)]
-    print(f"[done] 28 phases in {time.perf_counter() - t_start:.0f} s")
+    print(f"[done] 31 phases in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [dict(
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],

@@ -2,11 +2,23 @@
 one sphere falls onto a static box and sleeps. It is a file of its own because the JAX
 step compiles anew for its 8-substep configuration."""
 import numpy as np
+import pytest
+import torch
 
 import bepuphysics2_tpu as jbp
 import bepuphysics2_tpu_torch as tbp
 
 DT = 1 / 60
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _ball_drop(mod):

@@ -7,10 +7,21 @@ import re
 import shutil
 
 import pytest
+import torch
 
 from bepuphysics2_tpu_torch.ops import build
 
 KERNELS = tuple(build.KERNELS.values())
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture

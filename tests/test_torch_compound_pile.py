@@ -28,6 +28,16 @@ N_CPILE = 18
 CPILE_FRAMES = (0, 3, 10)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_compound_pile():
     """The port's ``build_compound_pile_sim(18, substeps=2, num_colors=4)`` in the JAX
     package: the ragdoll tube's spinning tube (``__graft_entry__``) with spheres and

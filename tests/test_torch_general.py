@@ -3,8 +3,9 @@ K3's plain version) against the JAX package on the 2-ragdoll tube of
 ``tests/test_models.py``'s ``test_ragdoll_tube_scenario`` (``max_pairs`` 1,024, so the
 store's page is 128 and the JAX package can take its Pallas layout).
 
-- ``solve_all`` from carried JAX states (each of the first ten frames, and frame 60, when
-  the ragdolls lie on the tube's panels), fed the same stage outputs in both packages,
+- ``solve_all`` from carried JAX states (each of the first five frames here, the next
+  five and frame 60, when the ragdolls lie on the tube's panels, in
+  ``test_torch_general_late.py``), fed the same stage outputs in both packages,
   against the JAX ``solve_all`` with ``backend="pallas"`` (its K3 in interpret mode): the
   same coloring, buckets, slices and row math, so integers agree exactly and floats to
   1e-5, absolute and relative (f32 op-order noise scales with the value: limbs tumbling
@@ -52,6 +53,19 @@ DT = 1 / 60
 FRAMES = 10
 CARRIED = 60  # the ragdolls lie on the tube's panels: every bank has live rows
 SOLVED = tuple(range(FRAMES)) + (CARRIED,)  # frames stepped before the solve compared
+# This file holds the early frames; test_torch_general_late.py the others, so that the
+# two JAX runs go to two test workers.
+EARLY, LATE = SOLVED[:5], SOLVED[5:]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _np(tree):
@@ -68,23 +82,27 @@ def _banks(sim):
             for name, store in sim.joints.items() if store.count > 0}
 
 
-@pytest.fixture(scope="module")
-def jax_tube():
+def carry_jax_tube(frames):
     """The JAX tube stepped on its default path: config, present types, shapes, joint
-    banks, the state after each frame count in SOLVED, and the positions at frame 2."""
+    banks, the state after each frame count in ``frames``, and the positions at frame 2."""
     sim, _ = _build_ragdoll_tube_sim(2, substeps=2, num_colors=4)
     out = dict(config=sim.config,
                present=tuple(sorted({int(t) for t in sim.shapes.types if t >= 0})),
                states={0: _np(sim.state)})
-    for frame in range(1, CARRIED + 1):
+    for frame in range(1, max(max(frames), 2) + 1):
         sim.timestep(DT)
-        if frame in SOLVED:
+        if frame in frames:
             out["states"][frame] = _np(sim.state)
         if frame == 2:
             out["p2"] = _positions(sim)
     out["shapes"] = _np(sim.shapes.device())
     out["banks"] = _np(_banks(sim))
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_tube():
+    return carry_jax_tube(EARLY)
 
 
 def _jax_stages(state, shapes, banks, config, present):
@@ -150,8 +168,12 @@ _STAGES = jax.jit(_jax_stages, static_argnums=(3, 4))
 _SOLVE = jax.jit(_jax_solve, static_argnums=(3,))
 
 
-@pytest.mark.parametrize("frame", SOLVED)
+@pytest.mark.parametrize("frame", EARLY)
 def test_general_solve_matches_jax_pallas(jax_tube, frame):
+    check_general_solve(jax_tube, frame)
+
+
+def check_general_solve(jax_tube, frame):
     """Every output of one general solve, from identical stage outputs: bodies, both contact
     banks' impulses, joint impulses, overflow, persisted colors (exact) and demand."""
     cfg, present = jax_tube["config"], jax_tube["present"]

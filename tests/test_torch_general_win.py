@@ -52,6 +52,16 @@ N_RAG, LAYER = 4, (2, 1)
 PILE_FRAMES = (0, 1, 2, 3, 4, 5, 45)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 

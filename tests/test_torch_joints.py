@@ -46,6 +46,16 @@ PACKAGES = ((jjoints, JVec3, JQuat, JSym3, JInertia, JBodyVel, jnp.asarray),
             (tjoints, Vec3, Quat, Sym3, GatheredInertia, BodyVel, torch.from_numpy))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _unit(rng, n, k):
     v = rng.normal(size=(n, k))
     return v / np.linalg.norm(v, axis=1, keepdims=True)

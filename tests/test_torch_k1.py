@@ -27,6 +27,16 @@ SUBSTEPS, ITERS = 2, 2
 GRAVITY = (0.0, -10.0, 0.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bank():
     return sweep.synthetic_bank(NB, SB, N_COLORED, N_JACOBI, seed=3, substeps=SUBSTEPS)
 

@@ -25,6 +25,16 @@ from bepuphysics2_tpu_torch.solver import solve as tsolve
 GRAVITY = (0.0, -10.0, 0.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bits(ts):
     return [t.contiguous().view(torch.int32) for t in ts]
 

@@ -17,6 +17,16 @@ from bepuphysics2_tpu_torch.solver import solve as tsolve
 GRAVITY = (0.0, -10.0, 0.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _capture(monkeypatch):
     """Record every ``win_pack`` result with its slot kinds and color count, and every K2
     call's arguments."""

@@ -8,6 +8,7 @@ The JAX kernel routes rows through exact bf16x3 one-hot matmuls; the two differ 
 op order only (the Jacobi sums, XLA's fusion of the row math): 1e-5."""
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -16,6 +17,16 @@ from bepuphysics2_tpu.ops import sweep as jsweep
 from bepuphysics2_tpu_torch.ops import sweep
 
 NB, SB, N_COLORED, N_JACOBI = 64, 128, 2, 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _bank():

@@ -31,6 +31,16 @@ DT = 1 / 60
 
 # --- K3: views, walks and banks ----------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _k3_view(args, kw):
     """(positions, written entries, valid entries, live slices) of a K3 call, each entry
     (n_slices, 2 * sb) or slice (n_slices,)."""

@@ -18,6 +18,16 @@ from bepuphysics2_tpu.ops import sweep as jsweep
 from bepuphysics2_tpu_torch.ops import sweep
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def bank():
     return sweep.synthetic_win_bank(2600, 4096, 4, seed=9, substeps=4, wide_frac=0.05)

@@ -31,6 +31,16 @@ from bepuphysics2_tpu_torch.interop import _to_torch
 N = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _ns(vec, spring, packing, integrator, bodies, shapes, arr):
     return SimpleNamespace(
         Vec3=vec.Vec3, Vec2=vec.Vec2, Quat=vec.Quat, Mat3=vec.Mat3, Sym3=vec.Sym3,

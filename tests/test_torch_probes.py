@@ -40,6 +40,16 @@ VMEM = pl.BlockSpec(memory_space=pltpu.VMEM)
 F32 = jnp.float32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _onehots(idx, nch, lanes):
     """v2's and v3's one-hot operands, built from idx as their jitted wrappers build them."""
     hi = idx // lanes

@@ -56,6 +56,16 @@ FRAMES = 10
 CENTRE = (0.0, -1000.5, 0.0)  # 1,000 m below the ground box's centre
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def radial_gravity(vec3, sqrt):
     """A velocity callback for one package (its Vec3 and sqrt): gravity of magnitude 10
     toward ``CENTRE`` and a linear damping of 0.05/s, from the state alone."""

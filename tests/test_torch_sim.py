@@ -42,6 +42,16 @@ from bepuphysics2_tpu_torch.utils.vec import Vec3
 DT = 1 / 60
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _pile(mod):
     kw = dict(device="cpu") if mod is tbp else {}
     sim = mod.Simulation(mod.SimConfig(body_capacity=64, max_pairs=256, substeps=2,
@@ -308,7 +318,7 @@ def test_simulation_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("cylinder", "item 17"), ("mesh", "item 18"), ("jax_shape", "item 17"),
+    ("contacts", "item 20"), ("mesh", "item 18"), ("jax_shape", "not a shape of the port"),
     ("sweep_broadphase", "Not to port"), ("ccd", "item 19"), ("save_checkpoint", "item 21"),
     ("max_cc_pairs", "item 18"), ("windowed_compound", "queue 3"), ("ray_cast", "item 20"),
 ])
@@ -316,8 +326,8 @@ def test_unported_paths_are_refused_by_name(case, item):
     """A scene or call the port cannot carry raises, naming the ROADMAP item; it is never
     solved on a path the port does not have."""
     with pytest.raises(NotImplementedError, match=item):
-        if case == "cylinder":
-            _tiny().add_shape(tbp.Cylinder(0.5, 1.0))
+        if case == "contacts":
+            _tiny().contacts()
         elif case == "mesh":
             _tiny().add_shape(tbp.Mesh.build([(0.0, 0.0, 0.0)] * 3, [(0, 1, 2)]))
         elif case == "jax_shape":
@@ -338,6 +348,34 @@ def test_unported_paths_are_refused_by_name(case, item):
             sim.timestep(DT)  # the JAX package's windowed general path fails on it
         else:
             _tiny().ray_cast((0, 5, 0), (0, -1, 0))
+
+
+def _egg_support(params, d):
+    """Support of the ellipsoid with semi-axes params[..., 0:3], no margin."""
+    a, b, c = params[..., 0], params[..., 1], params[..., 2]
+    inv = 1.0 / torch.sqrt((a * d.x) ** 2 + (b * d.y) ** 2 + (c * d.z) ** 2).clamp_min(1e-12)
+    return Vec3(a * a * d.x * inv, b * b * d.y * inv, c * c * d.z * inv), torch.zeros_like(a)
+
+
+@pytest.mark.parametrize("shape", ["cylinder", "triangle", "convex_hull", "custom"])
+def test_ported_shapes_register_and_step(shape):
+    """Each shape the port now carries registers, and a body of it falls onto a box and
+    comes to rest on it on the CPU (the generic GJK/MPR narrow phase for the cylinder, the
+    hull and the custom shape, the box-triangle tester for the triangle)."""
+    sim = tbp.Simulation(tbp.SimConfig(body_capacity=8, max_pairs=64, substeps=4), device="cpu")
+    ground = sim.add_shape(tbp.Box(5.0, 0.5, 5.0))
+    sim.add_static(tbp.StaticDescription(position=(0, -0.5, 0), shape=ground))
+    obj = {"cylinder": lambda: tbp.Cylinder(0.4, 0.3),
+           "triangle": lambda: tbp.Triangle((-0.5, 0.0, -0.4), (0.5, 0.0, -0.4), (0.0, 0.0, 0.6)),
+           "convex_hull": lambda: tbp.ConvexHull.from_points(
+               np.random.default_rng(3).normal(size=(20, 3)) * 0.3),
+           "custom": lambda: tbp.CustomShape(tbp.register_custom_shape(_egg_support),
+                                             (0.4, 0.25, 0.3), 0.4, (0.03, 0.05, 0.04))}[shape]()
+    body = sim.add_body(tbp.BodyDescription.dynamic((0, 0.8, 0), sim.add_shape(obj), 1.0, obj))
+    sim.run(60, DT)
+    pos, _, vel, _ = sim.get_body(body)
+    assert int(sim.last_diag.contact_count) > 0 and not bool(sim.last_diag.overflow)
+    assert -0.05 < pos[1] < 0.8 and np.linalg.norm(vel) < 0.5, (pos, vel)
 
 
 # --- slice 2: grid2, the windowed solve, migrate, reconfigure, autosize ------------------

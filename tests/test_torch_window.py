@@ -24,6 +24,16 @@ from bepuphysics2_tpu_torch.utils.vec import Vec3
 GRAVITY = (0.0, -10.0, 0.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The scenes are small: one torch thread steps them faster than a pool does, and
+    leaves the other test workers their cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _both(x):
     return jnp.asarray(x), torch.from_numpy(np.ascontiguousarray(x))
 

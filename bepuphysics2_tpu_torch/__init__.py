@@ -8,9 +8,11 @@ kernel K3 for scenes with joints, or K4 above 8,192 bodies: hand-written CUDA fo
 on a CUDA device, their plain PyTorch versions on the CPU), island sleep, and
 demand-driven ``autosize``. A ``Simulation`` runs on the CUDA card unless it is given
 ``device="cpu"``. The port carries sphere, capsule, box, triangle, cylinder, convex hull
-and custom convex shapes (the last three over the generic GJK/MPR narrow phase) and
-compounds of them, with all 30 joint types of the reference (``models``: the ragdoll, the
-colosseum, the cloth, the car and the tank). The TPU
+and custom convex shapes (the last three over the generic GJK/MPR narrow phase),
+compounds of them and triangle meshes (compound-vs-compound pairs with ``max_cc_pairs``),
+all 30 joint types of the reference, the scene queries (ray casts, sweeps, box queries,
+contact events) and ``models``: the ragdoll, the colosseum, the cloth, the car, the tank
+and the character. The TPU
 design probes of the repository's ``experiments/`` run in ``experiments`` (kernels K5-K7).
 """
 
@@ -25,6 +27,7 @@ from .bodies import (
     KIND_STATIC,
 )
 from .shapes import Sphere, Box, Capsule, Cylinder, Triangle, ConvexHull, Compound, Mesh
+from .shapes.builder import CompoundBuilder
 from .shapes.custom import CustomShape, register_custom_shape
 from .simulation import Simulation, SimConfig
 
@@ -33,6 +36,6 @@ __all__ = [
     "BodyDescription", "StaticDescription",
     "KIND_DYNAMIC", "KIND_KINEMATIC", "KIND_STATIC",
     "Sphere", "Box", "Capsule", "Cylinder", "Triangle", "ConvexHull", "Compound", "Mesh",
-    "CustomShape", "register_custom_shape",
+    "CompoundBuilder", "CustomShape", "register_custom_shape",
     "Simulation", "SimConfig",
 ]

@@ -126,6 +126,16 @@ class StaticDescription:
     speculative_margin_max: float = 3.0e38
 
 
+def to_device(a, device) -> torch.Tensor:
+    """A host array on ``device``. To a CUDA device through pinned memory and a copy that
+    does not wait for the device (from pageable memory the copy is a host sync)."""
+    x = torch.from_numpy(np.array(a))  # a copy: the host may write the array again
+    device = torch.device(device)
+    if device.type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
 class BodyBuffer:
     """Host-side numpy staging for body state with handle (= slot) recycling
     (reference Bodies.Add/RemoveAt, Bodies.cs:183,267, minus compaction)."""
@@ -199,39 +209,43 @@ class BodyBuffer:
     def count(self) -> int:
         return self.capacity - len(self._free)
 
+    _FIELDS = ("px", "py", "pz", "qx", "qy", "qz", "qw", "vx", "vy", "vz", "wx", "wy", "wz",
+               "inv_mass", "ixx", "iyx", "iyy", "izx", "izy", "izz", "kind", "awake", "shape",
+               "friction", "spring_frequency", "spring_damping", "max_recovery_velocity",
+               "sleep_threshold", "sleep_timer", "sleep_island", "collision_group",
+               "continuity", "spec_margin_min", "spec_margin_max")
+
     def device(self, device) -> BodyState:
-        t = lambda a: torch.from_numpy(np.array(a)).to(device)
+        """The columns on ``device``: one copy per dtype."""
+        groups = {}
+        for f in self._FIELDS:
+            a = getattr(self, f)
+            groups.setdefault(a.dtype.str, []).append(f)
+        t = {}
+        for names in groups.values():
+            block = to_device(np.stack([getattr(self, f) for f in names]), device)
+            t.update(zip(names, block))
         return BodyState(
-            pos=Vec3(t(self.px), t(self.py), t(self.pz)),
-            orn=Quat(t(self.qx), t(self.qy), t(self.qz), t(self.qw)),
-            vel=Vec3(t(self.vx), t(self.vy), t(self.vz)),
-            omega=Vec3(t(self.wx), t(self.wy), t(self.wz)),
-            inv_mass=t(self.inv_mass),
-            inv_inertia=Sym3(t(self.ixx), t(self.iyx), t(self.iyy),
-                             t(self.izx), t(self.izy), t(self.izz)),
-            kind=t(self.kind),
-            awake=t(self.awake),
-            shape=t(self.shape),
-            friction=t(self.friction),
-            spring_frequency=t(self.spring_frequency),
-            spring_damping=t(self.spring_damping),
-            max_recovery_velocity=t(self.max_recovery_velocity),
-            sleep_threshold=t(self.sleep_threshold),
-            sleep_timer=t(self.sleep_timer),
-            sleep_island=t(self.sleep_island),
-            collision_group=t(self.collision_group),
-            continuity=t(self.continuity),
-            spec_margin_min=t(self.spec_margin_min),
-            spec_margin_max=t(self.spec_margin_max),
+            pos=Vec3(t["px"], t["py"], t["pz"]),
+            orn=Quat(t["qx"], t["qy"], t["qz"], t["qw"]),
+            vel=Vec3(t["vx"], t["vy"], t["vz"]),
+            omega=Vec3(t["wx"], t["wy"], t["wz"]),
+            inv_mass=t["inv_mass"],
+            inv_inertia=Sym3(t["ixx"], t["iyx"], t["iyy"], t["izx"], t["izy"], t["izz"]),
+            **{f: t[f] for f in ("kind", "awake", "shape", "friction", "spring_frequency",
+                                 "spring_damping", "max_recovery_velocity",
+                                 "sleep_threshold", "sleep_timer", "sleep_island",
+                                 "collision_group", "continuity", "spec_margin_min",
+                                 "spec_margin_max")},
         )
 
     def load(self, state: BodyState) -> None:
-        """Pull device state back into (writable) host arrays after stepping."""
-        n = lambda c: c.detach().cpu().numpy().copy()
-        self.px, self.py, self.pz = (n(c) for c in state.pos)
-        self.qx, self.qy, self.qz, self.qw = (n(c) for c in state.orn)
-        self.vx, self.vy, self.vz = (n(c) for c in state.vel)
-        self.wx, self.wy, self.wz = (n(c) for c in state.omega)
-        self.awake = n(state.awake)
-        self.sleep_timer = n(state.sleep_timer)
-        self.sleep_island = n(state.sleep_island)
+        """Pull device state back into (writable) host arrays after stepping: one copy
+        for the float columns and one for the others."""
+        floats = torch.stack([*state.pos, *state.orn, *state.vel, *state.omega,
+                              state.sleep_timer]).cpu().numpy()
+        ints = torch.stack([state.awake.to(torch.int32), state.sleep_island]).cpu().numpy()
+        (self.px, self.py, self.pz, self.qx, self.qy, self.qz, self.qw, self.vx, self.vy,
+         self.vz, self.wx, self.wy, self.wz, self.sleep_timer) = (r.copy() for r in floats)
+        self.awake = ints[0].astype(bool)
+        self.sleep_island = ints[1].copy()

@@ -7,9 +7,12 @@ pairs touching a compound are compacted into ``max_compound_pairs`` slots; each 
 expands into ``children_per_pair`` child records, picked by a cluster-then-child AABB
 prefilter in the compound's frame (nearest overlapping children first, then re-sorted by
 child row so slots stay stable across frames). Every child record becomes its own
-contact record, keyed for warm starting by its slot. Compound-vs-compound pairs raise the
-overflow flag (their expansion is ROADMAP queue 1 item 18). Every sort is stable, as the
-JAX package's are, so the layouts agree exactly.
+contact record, keyed for warm starting by its slot. Meshes count as compounds: their
+children are triangles. Compound-vs-compound (and compound-vs-mesh) pairs expand through
+``expand_compound_compound`` into children_per_side² records (reference
+CompoundPairCollisionTask.cs, CompoundMeshReduction.cs), or raise the overflow flag where
+that expansion is off. Every sort is stable, as the JAX package's are, so the layouts
+agree exactly.
 """
 from __future__ import annotations
 
@@ -244,4 +247,116 @@ def expand_compound_pairs(
         conv_is_a=vb == body_a.long(),
         overflow=overflow,
         t=t_rec,
+    )
+
+
+def _resolve_child(state: BodyState, shapes: ShapeData, child_row, owner):
+    """A child's convex type, packed params, world pose and shape row (-1: triangle)."""
+    cs = shapes.child_shape[child_row]
+    is_tri = cs < 0
+    cs_c = cs.clamp_min(0).long()
+    ctype = torch.where(is_tri, TRIANGLE, shapes.type[cs_c])
+    tri12 = torch.nn.functional.pad(shapes.child_tri[child_row], (0, 3))
+    cparams = torch.where(is_tri[:, None], tri12, shapes.params[cs_c])
+    cp = shapes.child_pos[child_row]
+    co = shapes.child_orn[child_row]
+    lp = Vec3(cp[:, 0], cp[:, 1], cp[:, 2])
+    lq = Quat(co[:, 0], co[:, 1], co[:, 2], co[:, 3])
+    wpos = state.pos[owner] + state.orn[owner].rotate(lp)
+    worn = state.orn[owner].mul(lq)
+    return ctype, cparams, wpos, worn, torch.where(is_tri, -1, cs_c.to(torch.int32))
+
+
+def expand_compound_compound(
+    state: BodyState,
+    shapes: ShapeData,
+    pair_a: torch.Tensor,
+    pair_b: torch.Tensor,
+    pair_valid: torch.Tensor,
+    max_cc_pairs: int,
+    children_per_side: int,
+    child_window: int,
+) -> ChildPairs:
+    """Compound/mesh vs compound/mesh pairs: per pair, the ``children_per_side`` children
+    of each side nearest to overlapping the other (the bounding prefilter in each side's
+    local frame) combine into children_per_side² convex child-pair records. Slots key
+    the warm-start cache."""
+    dev = pair_a.device
+    pa, pb = pair_a.long(), pair_b.long()
+    sa = state.shape[pa].clamp_min(0).long()
+    sb = state.shape[pb].clamp_min(0).long()
+    ta = torch.where(state.shape[pa] >= 0, shapes.type[sa], -1)
+    tb = torch.where(state.shape[pb] >= 0, shapes.type[sb], -1)
+    comp_a = (ta == COMPOUND) | (ta == MESH)
+    comp_b = (tb == COMPOUND) | (tb == MESH)
+    both = pair_valid & comp_a & comp_b
+
+    count = both.sum()
+    sel, _ = compact_true(both, max_cc_pairs)
+    sel = sel.long()
+    live_pair = torch.arange(max_cc_pairs, device=dev) < count
+    overflow = count > max_cc_pairs
+
+    a_sel = pair_a[sel].long()
+    b_sel = pair_b[sel].long()
+    shape_a = state.shape[a_sel].clamp_min(0).long()
+    shape_b = state.shape[b_sel].clamp_min(0).long()
+    n_pick = max(1, child_window // ShapeRegistry.CLUSTER_SIZE)
+
+    def pick_children(c_shape, c_body, o_body, o_shape):
+        other_local = state.orn[c_body].rotate_inverse(state.pos[o_body] - state.pos[c_body])
+        radius = shapes.max_radius[o_shape]
+        rows, cand_ok, cl_ovf = _select_children_clustered(shapes, c_shape, other_local,
+                                                           radius, n_pick)
+        ov, d2 = _child_aabb_overlap(shapes, rows, other_local, radius)
+        ov = ov & cand_ok
+        pr, po = _pick_nearest(rows, ov, d2, children_per_side)
+        return pr, po, (ov.sum(-1) > children_per_side).any() | cl_ovf
+
+    rows_a, ok_a, ovf_a = pick_children(shape_a, a_sel, b_sel, shape_b)
+    rows_b, ok_b, ovf_b = pick_children(shape_b, b_sel, a_sel, shape_a)
+    overflow = overflow | ovf_a | ovf_b
+
+    E = children_per_side
+    MPC = max_cc_pairs
+    rec_pair = torch.arange(MPC, device=dev).repeat_interleave(E * E)
+    rec_ka = torch.arange(E, device=dev).repeat_interleave(E).repeat(MPC)
+    rec_kb = torch.arange(E, device=dev).repeat(MPC * E)
+    row_a = rows_a[rec_pair, rec_ka].long()
+    row_b = rows_b[rec_pair, rec_kb].long()
+    rec_valid = ok_a[rec_pair, rec_ka] & ok_b[rec_pair, rec_kb] & live_pair[rec_pair]
+
+    oa = a_sel[rec_pair]
+    ob = b_sel[rec_pair]
+    type_ca, params_ca, pos_ca, orn_ca, srow_ca = _resolve_child(state, shapes, row_a, oa)
+    type_cb, params_cb, pos_cb, orn_cb, srow_cb = _resolve_child(state, shapes, row_b, ob)
+    body_a = torch.minimum(oa, ob)
+
+    swap = type_ca > type_cb
+    i_owner = torch.where(swap, ob, oa)
+    return ChildPairs(
+        body_a=body_a.to(torch.int32),
+        body_b=torch.maximum(oa, ob).to(torch.int32),
+        slot=(rec_pair * E * E + rec_ka * E + rec_kb).to(torch.int32),
+        valid=rec_valid,
+        type_i=torch.where(swap, type_cb, type_ca),
+        type_j=torch.where(swap, type_ca, type_cb),
+        params_i=torch.where(swap[:, None], params_cb, params_ca),
+        params_j=torch.where(swap[:, None], params_ca, params_cb),
+        pos_i=pos_cb.where(swap, pos_ca),
+        pos_j=pos_ca.where(swap, pos_cb),
+        orn_i=orn_cb.where(swap, orn_ca),
+        orn_j=orn_ca.where(swap, orn_cb),
+        shape_i=torch.where(swap, srow_cb, srow_ca),
+        shape_j=torch.where(swap, srow_ca, srow_cb),
+        swapped=i_owner != body_a,
+        # The convex side of a record with a mesh triangle is the owner of the other
+        # child. The JAX package takes the owner of the j side (compound.py:446), which is
+        # the mesh itself where the other child's type id is below the triangle's (a
+        # sphere, capsule or box): its one-sided test then culls every such record, and
+        # such compounds fall through meshes. The port repairs it (ROADMAP queue 3).
+        conv_is_a=torch.where(srow_cb == -1, oa, torch.where(srow_ca == -1, ob, torch.where(
+            swap, oa, ob))) == body_a,
+        overflow=overflow,
+        t=torch.zeros(body_a.shape, device=dev),
     )

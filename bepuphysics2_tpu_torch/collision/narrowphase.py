@@ -4,10 +4,10 @@ row-local warm-start carry from the pair store and keyed carry for compound chil
 Counterpart of ``run_convex_testers``, ``convex_pair_records``, ``narrow_phase_store``,
 ``PairCache``, ``narrow_phase_compound``, ``update_cache_keyed`` and ``retain_sleeping``
 in ``bepuphysics2_tpu/collision/narrowphase.py``, for every convex shape (the analytic
-testers, and the generic GJK/MPR path of ``convex.py`` for the other pairs) and compounds
-of them. The port has no CCD, no mesh or compound-vs-compound path and no legacy
-per-frame cache path yet (ROADMAP queue 1 items 18-19); a scene that would need them is
-refused before it is stepped. The JAX package's runtime
+testers, and the generic GJK/MPR path of ``convex.py`` for the other pairs), compounds of
+them and meshes, compound-vs-compound pairs included. The port has no CCD and no legacy
+per-frame cache path (ROADMAP queue 1 item 19, and "Not to port"); a scene that would
+need them is refused before it is stepped. The JAX package's runtime
 ``lax.cond`` skips become unconditional passes whose result is selected by the same
 predicate, so nothing waits for the device.
 """
@@ -26,7 +26,7 @@ from ..utils.packing import compact_true, gather_rows
 from ..utils.spring import SpringSettings
 from ..utils.vec import Quat, Vec2, Vec3
 from . import testers
-from .compound import expand_compound_pairs
+from .compound import expand_compound_compound, expand_compound_pairs
 from .convex import SupportCtx, generic_convex_manifold
 from .manifold import Manifold
 
@@ -153,7 +153,7 @@ def _convex_ids(present):
 def run_convex_testers(
     shapes: ShapeData,
     ti, tj, params_i, params_j, pos_i, pos_j, orn_i, orn_j, shape_i, shape_j,
-    valid, present_types=None, include_triangles=False,
+    valid, present_types=None, include_triangles=False, meshes_meet=True,
 ) -> Manifold:
     """Run the analytic tester registry and the generic GJK/MPR fallback over canonical
     (type_i ≤ type_j) convex pair records. ``shape_i/j``: registry rows (−1 = raw
@@ -164,15 +164,19 @@ def run_convex_testers(
     scene's convex types can form a pair outside the registry, and its hull gather only
     where a hull is present, so a scene of spheres, boxes and capsules launches what it
     did before the fallback existed. ``include_triangles`` adds the triangle of a mesh's
-    children (the port registers no mesh, ROADMAP queue 1 item 18)."""
+    children where a mesh is present; ``meshes_meet`` False says that two of those can
+    never form a record (at most one mesh body and no triangle shape registered), so the
+    triangle-triangle pair alone does not call for the fallback."""
     mp = ti.shape[0]
     dev = ti.device
     pos_ij = pos_j - pos_i
     manifold = Manifold.empty(mp, device=dev)
     present = set(present_types) if present_types is not None else None
-    if present is not None and include_triangles and MESH in present:
-        present = present | {TRIANGLE}
     analytic = {(t0, t1) for t0, t1, _ in TESTER_REGISTRY}
+    if present is not None and include_triangles and MESH in present:
+        if TRIANGLE not in present and not meshes_meet:
+            analytic.add((TRIANGLE, TRIANGLE))  # no record can pair two triangles
+        present = present | {TRIANGLE}
     convex = _convex_ids(present)
     in_scene = convex if present is None else [t for t in convex if t in present]
     generic = any((x, y) not in analytic for xi, x in enumerate(in_scene) for y in in_scene[xi:])
@@ -361,27 +365,37 @@ def narrow_phase_compound(
     cc_children_per_side: int = 4,
     sleep_bank: PairCache = None,
     pair_t=None,
+    meshes_meet: bool = True,
 ):
-    """Compound pair path: expand compound-vs-convex pairs into child convex records and
-    build a second contact bank (``collision/compound.py``). Cache keys combine the pair
-    key with the child slot. Returns (prestep, impulses, carried colors, keys, overflow).
-    ``max_cc_pairs > 0`` (compound-vs-compound expansion) is not ported."""
-    if max_cc_pairs > 0:
-        raise NotImplementedError(
-            "compound-vs-compound expansion (max_cc_pairs > 0) is not ported yet "
-            "(ROADMAP queue 1 item 18, expand_compound_compound)")
+    """Compound pair path: expand compound-vs-convex pairs (meshes count as compounds)
+    into child convex records and build a second contact bank (``collision/compound.py``).
+    ``max_cc_pairs > 0`` also expands compound-vs-compound pairs into child x child
+    records, after the others, in a slot space of their own. Cache keys combine the pair
+    key with the child slot. ``meshes_meet`` False: the host knows that no two mesh
+    triangles can meet (one mesh body at most), so with no triangle shape registered no
+    record pairs two triangles and the generic fallback is not needed for one. Returns
+    (prestep, impulses, carried colors, keys, overflow)."""
     n_bodies = state.pos.x.shape[0]
     cp = expand_compound_pairs(
         state, shapes, pairs.a, pairs.b, pairs.valid, max_compound_pairs, children_per_pair,
-        child_window, flag_both_comp=True, pair_t=pair_t, dt=dt,
+        child_window, flag_both_comp=max_cc_pairs == 0, pair_t=pair_t, dt=dt,
     )
     sub = cp.slot % children_per_pair
     sub_cap = children_per_pair
+    if max_cc_pairs > 0:
+        cc = expand_compound_compound(
+            state, shapes, pairs.a, pairs.b, pairs.valid, max_cc_pairs,
+            cc_children_per_side, child_window,
+        )
+        per_pair = cc_children_per_side * cc_children_per_side
+        sub = torch.cat([sub, children_per_pair + cc.slot % per_pair])
+        sub_cap = children_per_pair + per_pair
+        cp = _tree_map2(lambda x, y: torch.cat([x, y]) if x.dim() > 0 else x | y, cp, cc)
 
     manifold = run_convex_testers(
         shapes, cp.type_i, cp.type_j, cp.params_i, cp.params_j, cp.pos_i, cp.pos_j,
         cp.orn_i, cp.orn_j, cp.shape_i, cp.shape_j, cp.valid, present_types,
-        include_triangles=True,
+        include_triangles=True, meshes_meet=meshes_meet,
     )
 
     # Rebase offsets from the i-side pose to scene body_a's center (advanced to the

@@ -3,8 +3,10 @@
 ``state_from_numpy`` turns a JAX ``SimState`` whose leaves are numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, sim.state)``) into the port's ``SimState``: bodies,
 the compound child caches, joint impulses and colors, and the pair store (the legacy
-convex caches are not read by the store path). ``shapes_from_numpy`` does the same for
-``ShapeData`` (its hull pool, compound child and cluster tables included),
+convex caches are not read by the store path; a compound child cache sized for
+compound-vs-compound records carries as it is). ``shapes_from_numpy`` does the same for
+``ShapeData`` (its hull pool, compound and mesh child rows, triangles and cluster tables
+included),
 ``joint_banks_from_numpy`` for the joint banks a step takes (``JointTypeStore.device()``
 dicts), and ``state_to_numpy`` goes the other way. Neither package is imported here: NamedTuples are
 matched by class and field name, so one identical state can feed both packages.

@@ -9,8 +9,8 @@ import time
 import numpy as np
 import torch
 
-from ..bodies import BodyDescription, StaticDescription
-from ..shapes import Box, Compound, Sphere
+from ..bodies import KIND_DYNAMIC, BodyDescription, StaticDescription
+from ..shapes import Box, Compound, CompoundBuilder, Mesh, Sphere
 from ..simulation import SimConfig, Simulation
 from .ragdoll import add_ragdoll
 
@@ -136,6 +136,75 @@ def build_compound_pile_sim(n_bodies: int, substeps: int = 4, num_colors: int = 
     for i, p in enumerate(compound_pile_positions(n_bodies)):
         sid, obj = (sphere_id, sphere) if i % 2 == 0 else (box_id, box)
         sim.add_body(BodyDescription.dynamic(tuple(float(c) for c in p), sid, 1.0, obj))
+    return sim, config
+
+
+def terrain_height(x, z):
+    """The terrain's surface: y = 0.5 sin(x/4) cos(z/4)."""
+    return 0.5 * np.sin(np.asarray(x) / 4.0) * np.cos(np.asarray(z) / 4.0)
+
+
+def terrain_mesh(cells: int, cell: float = 2.0) -> Mesh:
+    """A static height field of cells x cells squares of side ``cell``, centred on the
+    origin, two upward-wound triangles each (2 x cells² triangles)."""
+    lo = -0.5 * cells * cell
+    g = lo + cell * np.arange(cells + 1)
+    y = terrain_height(g[:, None], g[None, :])
+    tris = []
+    for i in range(cells):
+        for j in range(cells):
+            a, b = (g[i], y[i, j], g[j]), (g[i], y[i, j + 1], g[j + 1])
+            c, d = (g[i + 1], y[i + 1, j], g[j]), (g[i + 1], y[i + 1, j + 1], g[j + 1])
+            tris += [(a, b, c), (c, b, d)]
+    return Mesh.build(tris)
+
+
+def build_terrain_pile_sim(n_bodies: int, cells: int, cell: float = 2.0, substeps: int = 4,
+                           num_colors: int = 8, device="cuda", **overrides):
+    """``n_bodies`` dynamic bodies dropped on a static ``terrain_mesh(cells, cell)``:
+    spheres (radius 0.5), boxes (half extent 0.5) and, one body in eight, a dumbbell (a
+    compound of two boxes of half extent 0.3, its inertia from ``CompoundBuilder``; its
+    records with the mesh rest on the port's repair of ``conv_is_a``, ROADMAP queue 3),
+    in a
+    square grid 1.5 m above the surface (seed 3). Brute-force broad phase; the mesh makes
+    every body a compound pair, and a dumbbell on the mesh a compound-vs-compound pair
+    (``max_cc_pairs``). A triangle is 2 m on a side, so no body overlaps more than 8
+    triangles: ``children_per_pair`` 8, ``cc_children_per_side`` 8. ``child_window`` 1,024
+    (64 clusters a pair): the registry's Morton clusters of a height field interleave the
+    height's bits with the others', so on 60 x 60 cells a cluster of 16 triangles spans a
+    median 26 m and a body's bounding sphere meets up to 37 of them (16.6 on average;
+    at the default 128, 8 clusters, the expansion overflows and bodies fall through, in
+    the JAX package too: ROADMAP queue 3). The other capacities start at 8 pairs and 2
+    compound pairs per body and are meant for ``autosize``. Returns (sim, config)."""
+    config = SimConfig(**{**dict(
+        body_capacity=n_bodies + 64, max_pairs=max(8 * n_bodies, 4096), substeps=substeps,
+        num_colors=num_colors, broadphase="brute", max_compound_pairs=max(256, 2 * n_bodies),
+        children_per_pair=8, child_window=1024, max_cc_pairs=max(64, n_bodies // 4),
+        cc_children_per_side=8,
+    ), **overrides})
+    sim = Simulation(config, device=device)
+    sim.add_static(StaticDescription(position=(0.0, 0.0, 0.0),
+                                     shape=sim.add_shape(terrain_mesh(cells, cell))))
+    sphere, box = Sphere(0.5), Box(0.5, 0.5, 0.5)
+    sphere_id, box_id = sim.add_shape(sphere), sim.add_shape(box)
+    builder = CompoundBuilder(sim)
+    half = Box(0.3, 0.3, 0.3)
+    builder.add(half, (-0.4, 0.0, 0.0), 0.5).add(half, (0.4, 0.0, 0.0), 0.5)
+    children, dumb_inv_mass, dumb_inertia, _ = builder.build()
+    dumbbell_id = sim.add_shape(Compound.build(children))
+    side = int(np.ceil(np.sqrt(n_bodies)))
+    span = 0.9 * cells * cell
+    rng = np.random.default_rng(3)
+    for i in range(n_bodies):
+        x = (i % side + 0.5) / side * span - 0.5 * span + rng.uniform(-0.1, 0.1)
+        z = (i // side + 0.5) / side * span - 0.5 * span + rng.uniform(-0.1, 0.1)
+        p = (float(x), float(terrain_height(x, z) + 1.5 + rng.uniform(0.0, 0.3)), float(z))
+        if i % 8 == 7:
+            sim.add_body(BodyDescription(position=p, shape=dumbbell_id, inv_mass=dumb_inv_mass,
+                                         inv_inertia=dumb_inertia, kind=KIND_DYNAMIC))
+        else:
+            sid, obj = (sphere_id, sphere) if i % 2 == 0 else (box_id, box)
+            sim.add_body(BodyDescription.dynamic(p, sid, 1.0, obj))
     return sim, config
 
 

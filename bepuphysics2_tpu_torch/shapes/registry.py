@@ -1,7 +1,8 @@
 """Shape registry: fixed-capacity packed shape parameter arrays (host-side storage +
 device snapshot). The port carries spheres, capsules, boxes, triangles, cylinders, convex
-hulls, registered custom convex shapes (``shapes/custom.py``) and compounds of them; the
-mesh and the big compound are refused with the ROADMAP item that brings them.
+hulls, registered custom convex shapes (``shapes/custom.py``), compounds of them and
+triangle meshes. ``BIG_COMPOUND`` is a type id the JAX package reserves and no shape
+class registers; the port reserves it too and treats it as a compound.
 
 Packed parameter layout (``params`` row, float32 × 12), as in the JAX package:
 - SPHERE   (id 0): [radius]
@@ -13,6 +14,8 @@ Packed parameter layout (``params`` row, float32 × 12), as in the JAX package:
   one run of ``hull_count`` rows from ``hull_start`` per shape.
 - COMPOUND (id 6): none; its children live in the child pool (``ShapeData.child_*``),
   Morton-ordered and grouped into bounding clusters (``ShapeData.cl_*``).
+- MESH (id 8): none; its triangles live in the child pool as children of shape row -1
+  (vertices in ``child_tri``), Morton-ordered and clustered as a compound's children.
 - custom (ids from 16): the parameters its support function reads.
 """
 from __future__ import annotations
@@ -37,12 +40,6 @@ BIG_COMPOUND = 7
 MESH = 8
 
 N_PARAMS = 12
-
-_LATER = {
-    BIG_COMPOUND: "ROADMAP queue 1 item 18 (compounds and meshes)",
-    MESH: "ROADMAP queue 1 item 18 (compounds and meshes)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class Sphere:
@@ -278,24 +275,88 @@ class Compound:
         return max((np.linalg.norm(c[1]) for c in self.children), default=0.0)
 
 
-class _NotPorted:
-    """Stands in for a shape class of the JAX package that the port does not have yet:
-    constructing it, or reaching any of its attributes (``Mesh.build``), raises with the
-    ROADMAP item that brings it."""
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """Triangle soup collidable (reference Collidables/Mesh.cs:36). The registry stores
+    its triangles Morton-ordered in the shared child pool and groups them into bounding
+    clusters (``ShapeData.cl_*``), in place of the reference's embedded tree. Triangles
+    are one-sided: contacts come only from the side their winding normal faces."""
 
-    def __init__(self, name: str, type_id: int):
-        self._msg = f"{name} is not ported yet: {_LATER[type_id]}"
+    triangles: tuple  # tuple of ((ax,ay,az),(bx,by,bz),(cx,cy,cz))
+    scale: tuple = (1.0, 1.0, 1.0)
 
-    def __call__(self, *args, **kwargs):
-        raise NotImplementedError(self._msg)
+    @staticmethod
+    def build(triangles, scale=(1.0, 1.0, 1.0)) -> "Mesh":
+        s = np.asarray(scale, np.float64)
+        tris = tuple(
+            tuple(tuple((np.asarray(v, np.float64) * s).tolist()) for v in t) for t in triangles
+        )
+        return Mesh(tris, tuple(np.asarray(scale).tolist()))
 
-    def __getattr__(self, attr):
-        if attr.startswith("__"):
-            raise AttributeError(attr)
-        raise NotImplementedError(self._msg)
+    def pack(self):
+        return MESH, []
+
+    def compute_inertia(self, mass: float):
+        """Closed-mesh inertia about the volume centroid (reference
+        MeshInertiaHelper.ComputeClosedInertia, MeshInertiaHelper.cs:160), for a closed,
+        consistently wound mesh: (inv_mass, inverse diagonal, inverse 3x3)."""
+        inv_mass, inv, _center = self.compute_inertia_with_center(mass)
+        return inv_mass, (inv[0, 0], inv[1, 1], inv[2, 2]), inv
+
+    def compute_inertia_with_center(self, mass: float):
+        """(inv_mass, inverse inertia 3x3 about the center of mass, center)."""
+        volume, inertia_origin, center = mesh_closed_second_moment(self.triangles, mass)
+        # Parallel axis: I_com = I_origin - m((c.c) E - c c^T).
+        inertia = inertia_origin - mass * (
+            np.dot(center, center) * np.eye(3) - np.outer(center, center)
+        )
+        return 1.0 / mass, np.linalg.inv(inertia), center
+
+    def maximum_radius(self):
+        return float(max((np.linalg.norm(v) for t in self.triangles for v in t), default=0.0))
 
 
-Mesh = _NotPorted("Mesh", MESH)
+def _second_moment(tris, weights):
+    """sum_t weights_t (a a^T + b b^T + c c^T + s s^T), s = a + b + c."""
+    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    s = a + b + c
+    vvt = sum(np.einsum("ti,tj->tij", v, v) for v in (a, b, c, s))
+    return np.einsum("t,tij->ij", weights, vvt)
+
+
+def mesh_closed_second_moment(triangles, mass: float):
+    """Signed-tetrahedron integration over a closed triangle list (reference
+    MeshInertiaHelper.ComputeClosedInertia, MeshInertiaHelper.cs:122,160): each triangle
+    forms a tetrahedron with the origin, whose second moment is (V/20)(sum v v^T + s s^T).
+    Returns (volume, inertia about the origin for total ``mass``, center of mass)."""
+    tris = np.asarray(triangles, np.float64)
+    if tris.size == 0:
+        raise ValueError("mesh has no triangles")
+    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    vols = np.einsum("ij,ij->i", a, np.cross(b, c)) / 6.0
+    volume = float(vols.sum())
+    if abs(volume) < 1e-30:
+        raise ValueError("mesh encloses no volume (open or degenerate)")
+    c2 = _second_moment(tris, vols / 20.0)
+    inertia = (mass / volume) * (np.trace(c2) * np.eye(3) - c2)
+    center = np.einsum("t,ti->i", vols, (a + b + c) / 4.0) / volume
+    return volume, inertia, center
+
+
+def mesh_open_inertia(triangles, mass: float):
+    """Surface-lamina inertia of an open mesh about the origin (reference
+    MeshInertiaHelper.ComputeOpenInertia, MeshInertiaHelper.cs:280): the area-weighted
+    sum of thin-triangle second moments. Returns (inverse inertia 3x3, center of area)."""
+    tris = np.asarray(triangles, np.float64)
+    a, b, c = tris[:, 0], tris[:, 1], tris[:, 2]
+    areas = 0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=1)
+    total = float(areas.sum())
+    if total < 1e-30:
+        raise ValueError("mesh has no area")
+    c2 = _second_moment(tris, areas / 12.0)
+    inertia = (mass / total) * (np.trace(c2) * np.eye(3) - c2)
+    center = np.einsum("t,ti->i", areas, (a + b + c) / 3.0) / total
+    return np.linalg.inv(inertia), center
 
 
 class ShapeData(NamedTuple):
@@ -313,8 +374,8 @@ class ShapeData(NamedTuple):
     # (MS, H) int32 each shape's pool rows, -1 past its count; H = the largest count
     # (at least 1), so a support gathers one hull's vertices at once (``hull_rows``).
     hull_rows: torch.Tensor
-    # Compound child pool: per child a shape row + local pose (-1 rows are mesh triangles,
-    # whose vertices live in child_tri; the port registers no mesh).
+    # Compound and mesh child pool: per child a shape row + local pose (-1 rows are mesh
+    # triangles, whose vertices live in child_tri).
     child_shape: torch.Tensor  # (CHILD_POOL,) int32
     child_pos: torch.Tensor  # (CHILD_POOL, 3)
     child_orn: torch.Tensor  # (CHILD_POOL, 4)
@@ -393,14 +454,14 @@ def _quat_abs_rot(q) -> np.ndarray:
     return np.abs(r)
 
 
-_SHAPES = (Sphere, Capsule, Box, Triangle, Cylinder, ConvexHull, Compound, CustomShape)
+_SHAPES = (Sphere, Capsule, Box, Triangle, Cylinder, ConvexHull, Compound, Mesh, CustomShape)
 
 
 class ShapeRegistry:
     """Host-side shape storage with recycled rows."""
 
     HULL_POOL = 4096  # total hull vertices across all hull shapes (no limit per hull)
-    CHILD_POOL = 8192  # total compound children across all shapes
+    CHILD_POOL = 8192  # total compound children and mesh triangles across all shapes
     CLUSTER_SIZE = 16  # children per acceleration cluster (ShapeData.cl_*)
 
     def __init__(self, capacity: int = 256):
@@ -453,6 +514,8 @@ class ShapeRegistry:
             self._hull_used += len(pts)
         elif type_id == COMPOUND:
             self._add_children(idx, shape)
+        elif type_id == MESH:
+            self._add_triangles(idx, shape)
         self.shapes[idx] = shape
         self._device = {}
         return idx
@@ -484,6 +547,24 @@ class ShapeRegistry:
             self.child_aabb_max[row] = maxs[k]
             radius = max(radius, float(np.linalg.norm(cpos)) + float(self.max_radius[cs]))
         self.max_radius[idx] = radius
+        self._build_clusters(idx, mins, maxs)
+        self._child_used += n
+
+    def _add_triangles(self, idx: int, shape: Mesh) -> None:
+        n = len(shape.triangles)
+        if self._child_used + n > self.CHILD_POOL:
+            raise RuntimeError("child pool full (mesh triangles)")
+        self.child_start[idx] = self._child_used
+        self.child_count[idx] = n
+        tris = np.asarray(shape.triangles, np.float64).reshape(n, 3, 3)
+        order = _morton_order(tris.mean(axis=1))
+        mins = tris[order].min(axis=1)
+        maxs = tris[order].max(axis=1)
+        rows = self._child_used + np.arange(n)
+        self.child_shape[rows] = -1
+        self.child_tri[rows] = tris[order].astype(np.float32).reshape(n, 9)
+        self.child_aabb_min[rows] = mins
+        self.child_aabb_max[rows] = maxs
         self._build_clusters(idx, mins, maxs)
         self._child_used += n
 

@@ -12,9 +12,11 @@ Simulation.cs:316 Timestep). One step is, in order:
 Topology mutation (bodies, statics, shapes, constraints, host setters) happens host-side
 between steps and marks the device state dirty; the next timestep pushes the merged state.
 ``reconfigure`` and ``autosize`` resize capacities between steps, migrating the pair store
-and resizing the compound caches. The port carries the pair-store path for sphere,
-capsule, box and compound scenes with ball-socket and swing-limit joints; a configuration
-or scene that needs anything else is refused with the ROADMAP item that brings it.
+and resizing the compound caches. The queries (ray casts, sweeps, the box query, contact
+records and events) read the device state between steps. The port carries the
+pair-store path for every shape, compounds and meshes with all joint types; a
+configuration or call that needs anything else (CCD, checkpoints, the sharded step) is
+refused with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from .bodies import (
-    BodyBuffer, BodyDescription, BodyState, KIND_DYNAMIC, KIND_KINEMATIC, StaticDescription,
+    BodyBuffer, BodyDescription, BodyState, KIND_DYNAMIC, KIND_EMPTY, KIND_KINEMATIC,
+    StaticDescription,
+    to_device,
 )
 from .collision import broadphase as bp
 from .collision import pairstore
@@ -42,7 +46,7 @@ from .constraints.joints.base import unpack_fields
 from .integrator import IntegratorConfig
 from .shapes import ShapeRegistry, compute_body_bounds
 from .shapes.custom import CUSTOM_SUPPORTS, is_custom
-from .shapes.registry import BIG_COMPOUND, COMPOUND, CONVEX_HULL, MESH
+from .shapes.registry import BIG_COMPOUND, COMPOUND, CONVEX_HULL, MESH, TRIANGLE
 from .sleep import update_sleep, wake_touched
 from .solver.solve import SolveConfig, solve_all
 from .utils.vec import Vec3
@@ -113,6 +117,11 @@ class SimConfig:
         return (self.max_compound_pairs * self.children_per_pair
                 + self.max_cc_pairs * self.cc_children_per_side ** 2)
 
+    def compound_sub_cap(self) -> int:
+        """Child slots per pair in the compound cache keys (pair key x this + slot)."""
+        return self.children_per_pair + (
+            self.cc_children_per_side ** 2 if self.max_cc_pairs > 0 else 0)
+
     def solve_config(self) -> SolveConfig:
         return SolveConfig(
             substeps=self.substeps,
@@ -175,21 +184,15 @@ def _check_supported(config: SimConfig, present_types) -> None:
             "'Not to port'): use 'brute' or 'grid2'")
     if config.max_ccd_pairs > 0:
         raise NotImplementedError("CCD is not ported yet (ROADMAP queue 1 item 19)")
-    if config.max_cc_pairs > 0:
-        raise NotImplementedError(
-            "compound-vs-compound expansion (max_cc_pairs > 0) is not ported yet "
-            "(ROADMAP queue 1 item 18, expand_compound_compound)")
     for t in present_types or ():
-        if t in (BIG_COMPOUND, MESH):
-            raise NotImplementedError(
-                f"{'meshes' if t == MESH else 'big compounds'} are not ported yet "
-                "(ROADMAP queue 1 item 18)")
-        if t > CONVEX_HULL and t != COMPOUND and not is_custom(t):
+        if t > CONVEX_HULL and t not in (COMPOUND, BIG_COMPOUND, MESH) and not is_custom(t):
             raise ValueError(f"shape type {t} is neither built in nor a registered custom shape")
 
 
-def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, present_types=None):
-    """One full timestep: (state, shapes, joints, dt) → (state', diagnostics)."""
+def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, present_types=None,
+               meshes_meet=True):
+    """One full timestep: (state, shapes, joints, dt) → (state', diagnostics).
+    ``meshes_meet`` False: at most one body is a mesh (``narrow_phase_compound``)."""
     _check_supported(config, present_types)
     dt = float(np.float32(dt))  # the JAX step takes dt as float32
     bodies = state.bodies
@@ -254,6 +257,7 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
             config.children_per_pair, config.child_window, present_types=present_types,
             max_cc_pairs=config.max_cc_pairs, cc_children_per_side=config.cc_children_per_side,
             sleep_bank=state.sleep_ccache if config.enable_sleep else None,
+            meshes_meet=meshes_meet,
         )
 
     # --- Wake sleeping bodies touched by awake dynamics (whole stored islands).
@@ -312,7 +316,7 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
             asleep = ((bodies.kind == KIND_DYNAMIC) & ~bodies.awake).any()
             sleep_ccache, scovfl = retain_sleeping_when(
                 asleep | state.sleep_ccache.valid.any(), state.sleep_ccache, ccache,
-                bodies.kind, bodies.awake, nb_cap, sub_cap=config.children_per_pair)
+                bodies.kind, bodies.awake, nb_cap, sub_cap=config.compound_sub_cap())
             overflow = overflow | scovfl
             ovfl_src = ovfl_src | _src(scovfl, 32)
     bd = pairs.demand
@@ -359,6 +363,7 @@ class Simulation:
         self._state: Optional[SimState] = None
         self._colors_stale = False
         self._dirty = True
+        self._mirrored: Optional[SimState] = None  # the device state the host's columns hold
         self.last_diag: Optional[StepDiagnostics] = None
         self._next_collision_group = 1
 
@@ -533,14 +538,22 @@ class Simulation:
         return sum(s.count for s in self.joints.values())
 
     # --- state access ------------------------------------------------------------------
-    def _sync_from_device(self) -> None:
-        if self._state is not None and not self._dirty:
+    def _pull(self) -> None:
+        """Bring the host's columns up to the device state: a no-op where the host is the
+        source of truth (``_dirty``) or already holds that state (after a push, or after
+        a pull since the last step)."""
+        if self._state is not None and not self._dirty and self._state is not self._mirrored:
             self._host.load(self._state.bodies)
             for name, imps in self._state.joint_impulses.items():
                 self.joints[name].load_impulses(imps)
                 if name in self._state.joint_colors:
                     self.joints[name].load_colors(self._state.joint_colors[name])
-            self._dirty = True  # host is now the source of truth
+            self._mirrored = self._state
+
+    def _sync_from_device(self) -> None:
+        """Before a host edit: pull, and make the host the source of truth."""
+        self._pull()
+        self._dirty = True
 
     def _push(self) -> None:
         cfg = self.config
@@ -561,11 +574,12 @@ class Simulation:
             self._colors_stale = False
         sleep_ccache = (st.sleep_ccache if st is not None and not stale
                         else PairCache.empty(cc_cap, device=self.device))
-        t = lambda a: torch.from_numpy(np.array(a)).to(self.device)
+        t = lambda a: to_device(a, self.device)
         live = {name: js for name, js in self.joints.items() if js.count > 0}
         self._state = SimState(self._host.device(self.device), ccache,
                                {n: t(js.impulse) for n, js in live.items()},
                                {n: t(js.color) for n, js in live.items()}, sleep_ccache, store)
+        self._mirrored = self._state
         self._dirty = False
 
     @property
@@ -576,7 +590,7 @@ class Simulation:
 
     def get_body(self, handle: int):
         """Host view of one body: (position, orientation, velocity, angular velocity)."""
-        self._sync_from_device()
+        self._pull()
         h = self._host
         return (
             np.array([h.px[handle], h.py[handle], h.pz[handle]]),
@@ -656,9 +670,218 @@ class Simulation:
             h.update(leaf.detach().cpu().numpy().tobytes())
         return int.from_bytes(h.digest()[:8], "little")
 
+    # --- queries (reference Simulation_Queries.cs) --------------------------------------
+    def _child_targets(self):
+        """(owner, child row) of every child of every compound and mesh body, in body slot
+        order, on the device: (K,) int32 each, or (None, None) without such a body; and
+        the shape types of the bodies and of those children (TRIANGLE for a mesh's).
+        Read from the host's shape and kind columns, which only host calls change, so no
+        sync with the device."""
+        h = self._host
+        key = (h.shape.tobytes(), h.kind.tobytes(), id(self.shapes), self.shapes._child_used)
+        cached = getattr(self, "_child_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        shape = h.shape.astype(np.int64)
+        types = np.where(shape >= 0, self.shapes.types[np.maximum(shape, 0)], -1)
+        body_types = tuple(int(t) for t in np.unique(types[(h.kind != 0) & (shape >= 0)]))
+        bodies = np.nonzero((h.kind != 0) & (shape >= 0)
+                            & np.isin(types, (COMPOUND, BIG_COMPOUND, MESH)))[0]
+        counts = self.shapes.child_count[shape[bodies]].astype(np.int64)
+        if counts.sum() == 0:
+            out = (None, None, body_types, ())
+        else:
+            owners = np.repeat(bodies, counts)
+            first = np.repeat(self.shapes.child_start[shape[bodies]].astype(np.int64), counts)
+            within = np.arange(counts.sum()) - np.repeat(np.cumsum(counts) - counts, counts)
+            rows = first + within
+            kids = self.shapes.child_shape[rows].astype(np.int64)
+            child_types = np.where(kids >= 0, self.shapes.types[np.maximum(kids, 0)], TRIANGLE)
+            out = (to_device(owners.astype(np.int32), self.device),
+                   to_device(rows.astype(np.int32), self.device), body_types,
+                   tuple(int(t) for t in np.unique(child_types)))
+        self._child_cache = (key, out)
+        return out
+
+    def ray_cast(self, origin, direction, max_t: float = 1.0e30, exclude: int = None,
+                 prune_k: int = 0):
+        """Scene ray cast (reference Simulation.RayCast, Simulation_Queries.cs:167).
+        ``origin`` / ``direction``: 3-tuples, or (R, 3) arrays for a batch. ``exclude``: a
+        body handle to skip. ``prune_k`` (batches only): test only the K bodies whose
+        bounding spheres each ray enters first; ``saturated`` flags rays where a body
+        left out could hit first. Returns ``RayHit`` of tensors on the device (no sync)."""
+        from .collision.raycast import ray_cast_all
+
+        if self._dirty:
+            self._push()
+        o = np.asarray(origin, np.float32)
+        d = np.asarray(direction, np.float32)
+        up = to_device(np.concatenate([o.reshape(-1, 3), d.reshape(-1, 3)], -1), self.device)
+        cols = [up[:, i] for i in range(6)]
+        if o.ndim == 1:
+            cols = [c[0] for c in cols]
+        co, cr, body_types, child_types = self._child_targets()
+        return ray_cast_all(
+            self._state.bodies, self.shapes.device(self.device), Vec3(*cols[:3]),
+            Vec3(*cols[3:]), float(np.float32(max_t)), exclude=exclude,
+            child_owner=co, child_rows=cr, prune_k=prune_k, body_types=body_types,
+            child_types=child_types,
+        )
+
+    def box_query(self, box_min, box_max):
+        """Handles of every body whose AABB overlaps the query box (reference
+        Tree_VolumeQuery): one pass over the exact per-shape AABBs. Returns a list."""
+        if self._dirty:
+            self._push()
+        b = self._state.bodies
+        lo = [float(v) for v in np.asarray(box_min, np.float32)]
+        hi = [float(v) for v in np.asarray(box_max, np.float32)]
+        amin, amax = compute_body_bounds(b.pos, b.orn, b.vel, b.omega, b.shape,
+                                         self.shapes.device(self.device), 0.0,
+                                         present_types=self._present_types())
+        ok = (b.exists & (b.shape >= 0)
+              & (amax.x >= lo[0]) & (amin.x <= hi[0])
+              & (amax.y >= lo[1]) & (amin.y <= hi[1])
+              & (amax.z >= lo[2]) & (amin.z <= hi[2]))
+        return np.nonzero(ok.cpu().numpy())[0].tolist()
+
+    def contacts(self):
+        """The pair store's live contact records after the last step (reference
+        ContactEventsDemo): a list of dicts of bodies and accumulated impulses."""
+        if self._state is None:
+            return []
+        st = self._state.store
+        valid = (st.live & st.active_prev).cpu().numpy()
+        a, b, pen = (x.cpu().numpy() for x in (st.body_a, st.body_b, st.imp_pen))
+        return [dict(body_a=int(a[i]), body_b=int(b[i]), impulses=pen[i].tolist())
+                for i in np.nonzero(valid)[0]]
+
+    def live_contact_pairs(self) -> set:
+        """(body_a, body_b) pairs with live contact records after the last step: the pair
+        store's, and the compound child cache's, keyed pair_key x sub_cap + slot."""
+        cur = set()
+        if self._state is None:
+            return cur
+        nb = self.config.body_capacity
+        st = self._state.store
+        valid = (st.live & st.active_prev).cpu().numpy()
+        aa, bb = st.body_a.cpu().numpy(), st.body_b.cpu().numpy()
+        cur.update((int(aa[i]), int(bb[i])) for i in np.nonzero(valid)[0])
+        cc = self._state.ccache
+        keys = cc.key.cpu().numpy()[cc.valid.cpu().numpy()].astype(np.int64)
+        pk = keys // self.config.compound_sub_cap()
+        cur.update((int(k % nb), int(k // nb)) for k in pk)
+        return cur
+
+    def contact_events(self):
+        """Contact begin / persist / end events since the previous call (reference
+        ContactEventsDemo): {'began', 'persisted', 'ended'} sets of (body_a, body_b).
+        A pair whose bodies fell asleep keeps its contact (reference
+        PairCache_Activity.cs): a sleeping stack emits no 'ended'."""
+        cur = self.live_contact_pairs()
+        prev = getattr(self, "_prev_contact_pairs", set())
+        self._pull()
+        h = self._host
+        for p in prev - cur:
+            a, b = p
+            live = h.kind[a] != 0 and h.kind[b] != 0
+            asleep_a = (h.kind[a] != KIND_DYNAMIC) or not h.awake[a]
+            asleep_b = (h.kind[b] != KIND_DYNAMIC) or not h.awake[b]
+            if live and asleep_a and asleep_b:
+                cur.add(p)
+        self._prev_contact_pairs = cur
+        return {"began": cur - prev, "persisted": cur & prev, "ended": prev - cur}
+
+    def _sweep_args(self, shape_obj):
+        """(type id, packed params (12,), the registry row of this very object or -1)."""
+        type_id, packed = shape_obj.pack()
+        params = np.zeros(12, np.float32)
+        params[: len(packed)] = packed
+        row = next((r for r, s in enumerate(self.shapes.shapes) if s is shape_obj), -1)
+        return type_id, params, row
+
+    def _sweep(self, shape_obj, poses, max_t, prune_k, batched):
+        from .collision.sweeps import sweep_shape_all
+        from .utils.vec import Quat
+
+        if self._dirty:
+            self._push()
+        type_id, params, row = self._sweep_args(shape_obj)
+        up = to_device(np.concatenate(poses, -1).astype(np.float32), self.device)
+        cols = [up[:, i] for i in range(up.shape[1])]
+        if not batched:
+            cols = [c[0] for c in cols]
+        co, cr, _, _ = self._child_targets()
+        customs = tuple(t for t in self._present_types() if is_custom(t))
+        return sweep_shape_all(
+            self._state.bodies, self.shapes.device(self.device), type_id,
+            to_device(params, self.device), row, Vec3(*cols[0:3]), Quat(*cols[3:7]), Vec3(*cols[7:10]),
+            Vec3(*cols[10:13]), float(np.float32(shape_obj.maximum_radius())),
+            float(np.float32(max_t)), child_owner=co, child_rows=cr, prune_k=prune_k,
+            custom_ids=customs + ((type_id,) if is_custom(type_id) else ()),
+        )
+
+    def sweep_shape(self, shape_obj, position, velocity, max_t: float = 10.0,
+                    orientation=(0, 0, 0, 1), angular_velocity=(0, 0, 0), prune_k: int = 0):
+        """Shape sweep to the time of impact by conservative advancement, angular velocity
+        included (reference Simulation.Sweep, Simulation_Queries.cs:267). Returns
+        ``SweepHit(hit, t, body)`` of tensors on the device."""
+        poses = [np.asarray(v, np.float32).reshape(1, -1)
+                 for v in (position, orientation, velocity, angular_velocity)]
+        return self._sweep(shape_obj, [poses[0], poses[1], poses[2], poses[3]], max_t,
+                           prune_k, batched=False)
+
+    def sweep_shape_batch(self, shape_obj, positions, velocities, max_t: float = 10.0,
+                          orientations=None, angular_velocities=None, prune_k: int = 0):
+        """R shape sweeps against the whole scene in one pass over (R, targets) records.
+        ``positions`` / ``velocities``: (R, 3); ``orientations`` (R, 4) and
+        ``angular_velocities`` (R, 3) optional. ``prune_k``: advance only each sweep's K
+        earliest candidates; ``saturated`` flags sweeps that may be inexact. Returns
+        ``SweepHit`` with (R,) tensors on the device."""
+        P = np.asarray(positions, np.float32).reshape(-1, 3)
+        R = P.shape[0]
+        O = (np.asarray(orientations, np.float32) if orientations is not None
+             else np.tile(np.array([0, 0, 0, 1], np.float32), (R, 1)))
+        V = np.asarray(velocities, np.float32).reshape(R, 3)
+        W = (np.asarray(angular_velocities, np.float32) if angular_velocities is not None
+             else np.zeros((R, 3), np.float32))
+        return self._sweep(shape_obj, [P, O, V, W], max_t, prune_k, batched=True)
+
+    def sweep(self, shape_obj, position, direction, max_t: float = 100.0, samples: int = 64):
+        """Coarse bounding-sphere sweep on the host (use ``sweep_shape`` for an exact time
+        of impact). Returns (hit, t, body)."""
+        self._pull()
+        pos = np.asarray(position, np.float64)
+        d = np.asarray(direction, np.float64)
+        d = d / max(np.linalg.norm(d), 1e-12)
+        r = shape_obj.maximum_radius()
+        h = self._host
+        exists = (h.kind != 0) & (h.shape >= 0)
+        centers = np.stack([h.px, h.py, h.pz], -1)
+        radii = np.array([self.shapes.max_radius[h.shape[i]] if h.shape[i] >= 0 else 0.0
+                          for i in range(len(h.shape))])
+        best_t, best_b = float("inf"), -1
+        for i in np.nonzero(exists)[0]:
+            rel = centers[i] - pos
+            proj = float(rel @ d)
+            perp2 = float(rel @ rel) - proj * proj
+            rr = (r + radii[i]) ** 2
+            if perp2 > rr:
+                continue
+            t_hit = proj - np.sqrt(max(rr - perp2, 0.0))
+            if 0.0 <= t_hit <= max_t and t_hit < best_t:
+                best_t, best_b = t_hit, int(i)
+        return (best_b >= 0, best_t if best_b >= 0 else max_t, best_b)
+
     # --- stepping ----------------------------------------------------------------------
     def _present_types(self):
         return tuple(sorted({int(t) for t in self.shapes.types if t >= 0}))
+
+    def _mesh_bodies(self) -> int:
+        """How many bodies are meshes, from the host's columns (no sync)."""
+        h = self._host
+        shape = h.shape[(h.kind != KIND_EMPTY) & (h.shape >= 0)]
+        return int((self.shapes.types[shape] == MESH).sum())
 
     def _joint_banks(self, device=None) -> dict:
         """The joint banks of every type with a live constraint, on ``device`` (the
@@ -672,7 +895,7 @@ class Simulation:
             self._push()
         self._state, self.last_diag = _step_impl(
             self._state, self.shapes.device(self.device), self._joint_banks(), dt, self.config,
-            self._present_types(),
+            self._present_types(), self._mesh_bodies() > 1,
         )
 
     def run(self, steps: int, dt: float = 1.0 / 60.0, chunk: Optional[int] = None) -> None:
@@ -695,14 +918,6 @@ class Simulation:
 # The rest of the JAX Simulation's methods, refused by name until their ROADMAP item
 # lands, so that a script written for the JAX package fails with the reason.
 _NOT_PORTED = {
-    "ray_cast": "queue 1 item 20 (queries)",
-    "box_query": "queue 1 item 20 (queries)",
-    "sweep": "queue 1 item 20 (queries)",
-    "sweep_shape": "queue 1 item 20 (queries)",
-    "sweep_shape_batch": "queue 1 item 20 (queries)",
-    "contacts": "queue 1 item 20 (queries)",
-    "live_contact_pairs": "queue 1 item 20 (queries)",
-    "contact_events": "queue 1 item 20 (queries)",
     "save_checkpoint": "queue 1 item 21 (utilities)",
     "load_checkpoint": "queue 1 item 21 (utilities)",
 }

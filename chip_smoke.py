@@ -21,12 +21,17 @@ slice 10: ``bench.py``'s colosseum through its sequence, island sleep and wake u
 no host sync). Then slice 11: the 4,096-body pile of the reference's ShapePileBenchmark
 mix (sphere, capsule, box, cylinder, convex hull; the generic GJK/MPR narrow phase beside
 K1) and the car and the tank of ``tests/test_models.py``, each in its test's scene (K3).
-On the card the joint sweep and the generic narrow phase replay as CUDA graphs
+Then slice 12: 4,096 bodies with compound dumbbells on a 7,200-triangle mesh (the compound
+bank with compound-vs-compound records beside the store's, one K1 launch a step), every
+scene query of ``Simulation`` on that pile held to a CPU copy of its state, and 64
+characters on the mesh (K3). On the card the joint sweep, the generic narrow phase and
+the sweeps' conservative advancement replay as CUDA graphs from a layout's second call
 (``bepuphysics2_tpu_torch/utils/replay.py``); no kernel K1-K7 runs inside one.
 
     python3 chip_smoke.py
 
-Each phase prints one line; any failure raises, so the script exits non-zero and prints
+Each phase prints one line, ending with the seconds since the start; any failure raises,
+so the script exits non-zero and prints
 no result. The last line is ``{"ok": true, "device": {...}}``; the line before it lists
 every kernel of the paths with its launch count on its main path, its error against the
 plain version, its time through its wrapper (``ms``), the plain version's time, its bound
@@ -66,6 +71,17 @@ K6_REPLACES = "experiments/pallas_gather_probe.py:36"
 K7_SOURCE = "bepuphysics2_tpu_torch/csrc/probe_scatter.cu"
 K7_REPLACES = "experiments/pallas_gather_probe.py:93"
 WIN_TOL = (2e-2, 1e-3)  # the JAX package's envelope for its windowed kernel (max, median)
+_START = time.perf_counter()
+_print = print
+
+
+def print(*args, **kwargs):  # noqa: A001
+    """A phase's line (one that starts with "[") ends with the seconds since the start."""
+    if args and isinstance(args[0], str) and args[0].startswith("["):
+        args = (f"{args[0]} (at {time.perf_counter() - _START:.0f} s)",) + args[1:]
+    _print(*args, **kwargs)
+
+
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores (data sheet)
 
@@ -2069,8 +2085,19 @@ def _kernels_per_step(sim, steps=1):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sim.run(steps, DT)
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / steps
+    return _cuda_events(prof) / steps
+
+
+def _cuda_events(prof):
+    """The device events (kernels, copies, fills) a finished ``torch.profiler`` run
+    recorded, counted on its raw event list: the events ``key_averages`` would sum, without
+    building its per-event objects (~1 s per 10,000 events on the host)."""
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError:  # a torch without the raw list
+        return sum(e.count for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return sum(1 for e in events if e.device_type() == torch.autograd.DeviceType.CUDA)
 
 
 # Phase 29's capacities, sized up front (``tools/five_shape_pile.py``): at bench.py's 8
@@ -2300,6 +2327,516 @@ def phase_vehicles(dev, name, smi, frames=3, tol=1e-4):
     return out
 
 
+# --- slice 12: the mesh-terrain pile, the queries, the characters (K1, K3) ------------------
+
+TERRAIN_CELLS = 60  # 60 x 60 cells of 2 m: 7,200 triangles, y = 0.5 sin(x/4) cos(z/4)
+TERRAIN_BODIES = 4096
+RAY_TOL, SWEEP_TOL = 1e-5, 1e-4
+CPU_RAYS = 64  # the full-pass rays also held on the CPU
+
+
+def _terrain_gates(sim, label):
+    """Finite state, no overflow, and every dynamic body's centre above the surface.
+    Returns the lowest centre height above the surface."""
+    from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
+    from bepuphysics2_tpu_torch.models import terrain_height
+
+    st = sim.state
+    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
+              st.ccache.penetration, st.store.imp_pen]
+    _require(all(bool(torch.isfinite(t).all()) for t in leaves), f"{label}: non-finite state")
+    dyn = (st.bodies.kind == KIND_DYNAMIC).cpu().numpy()
+    p = [c.cpu().numpy()[dyn] for c in st.bodies.pos]
+    margin = float((p[1] - terrain_height(p[0], p[2])).min())
+    _require(margin > 0.0, f"{label}: a body sank below the terrain (margin {margin:.3f})")
+    _require(not bool(sim.last_diag.overflow),
+             f"{label}: overflow (src {int(sim.last_diag.overflow_src)})")
+    return margin
+
+
+def phase_terrain_pile(dev, name, smi, warm=33, timed=48):
+    """Phase 32: 4,096 bodies (spheres, boxes and, one in eight, a two-box dumbbell
+    compound) dropped on a static 60 x 60-cell height-field mesh
+    (``models.build_terrain_pile_sim``): brute-force broad phase, every body a compound
+    pair with the mesh, the dumbbells compound-vs-compound pairs (``max_cc_pairs``).
+    ``warm`` steps to land, ``autosize``, then ``timed`` timed steps (48, half of
+    bench.py's 96, to fit the run's clock): K1 once per step over the store's bank and
+    the compound bank (no K2-K4, no plain version), no host sync, no overflow after
+    autosize, every body above the terrain. Then two runs of a 64-body pile on 10 x 10
+    cells, 20 steps each, give one ``state_hash``, and 10 card steps of that pile, each
+    from the CPU's state, are within 1e-4 of the CPU's. Returns (the sim, K1 launches over
+    the timed steps, steps/s)."""
+    from bepuphysics2_tpu_torch.models import build_terrain_pile_sim
+
+    t0 = time.perf_counter()
+    n_bodies = TERRAIN_BODIES
+    sim, _ = build_terrain_pile_sim(n_bodies, TERRAIN_CELLS, device=dev)
+    sim.run(warm, DT)
+    sized = sim.autosize(DT, probe_steps=8)
+    src = int(sim.last_diag.overflow_src)
+    c = sim.config
+    torch.cuda.synchronize()
+    built = time.perf_counter() - t0
+    calls, restore = _count_plain_calls()
+    before = _kernel_launches()
+    try:
+        t1 = time.perf_counter()
+        sim.run(timed, DT)
+        torch.cuda.synchronize()
+        sps = timed / (time.perf_counter() - t1)
+        launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+        _, syncs = _timed_syncs(sim, 4)
+    finally:
+        restore()
+    margin = _terrain_gates(sim, "the terrain pile")
+    diag = sim.last_diag
+    hashes = []
+    for _ in range(2):
+        small, _ = build_terrain_pile_sim(64, 10, device=dev)
+        small.run(20, DT)
+        torch.cuda.synchronize()
+        hashes.append(small.state_hash())
+    cpu, _ = build_terrain_pile_sim(64, 10, device="cpu")
+    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, 10)
+    print(f"[32 terrain pile] {n_bodies} bodies ({n_bodies // 8} dumbbells) on a "
+          f"{TERRAIN_CELLS} x "
+          f"{TERRAIN_CELLS}-cell mesh ({2 * TERRAIN_CELLS ** 2} triangles) on {name} "
+          f"({smi}): {sps:.2f} steps/s over {timed} timed steps; {warm} steps, autosize "
+          f"({sized['rounds']} rounds) and build {built:.1f} s; capacities after autosize: "
+          f"max_pairs {c.max_pairs}, max_compound_pairs {c.max_compound_pairs}, max_cc_pairs "
+          f"{c.max_cc_pairs}; overflow_src after autosize {src}, after the timed steps "
+          f"{int(diag.overflow_src)}; pairs {int(diag.pair_count)}, contacts "
+          f"{int(diag.contact_count)}, lowest centre above the terrain {margin:.3f}; launches "
+          f"{launches} over {timed} steps (K1 {launches['K1'] / timed:g} per step), plain "
+          f"calls {len(calls)}, host syncs per step {syncs:g}; 64 bodies, 20 steps twice: "
+          f"state_hash {hashes[0]:#018x} / {hashes[1]:#018x}; 64 bodies on 10 x 10 cells, 10 "
+          f"card steps from the CPU's state within {worst:.3e} (limit {K1_TOL:g})")
+    _require(src == 0, f"overflow after autosize (src {src})")
+    _require(launches == dict(K1=timed, K2=0, K3=0, K4=0), "K1 did not launch once per step")
+    _require(not calls, f"plain versions ran on the card: {sorted(set(calls))}")
+    _require(syncs == 0, f"{syncs} host syncs per step on the terrain pile")
+    _require(hashes[0] == hashes[1], "two identical terrain runs on the card differ")
+    _require(worst <= K1_TOL, "a card step of the terrain pile disagrees with the CPU's")
+    return sim, launches["K1"], sps
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def _hits(out, rows=None):
+    """A RayHit or SweepHit as numpy arrays, ``rows`` of each."""
+    pick = (lambda x: x) if rows is None else (lambda x: x[rows])
+    d = dict(hit=pick(out.hit.cpu().numpy()), t=pick(out.t.cpu().numpy()),
+             body=pick(out.body.cpu().numpy()))
+    if getattr(out, "normal", None) is not None:
+        d["normal"] = np.stack([pick(c.cpu().numpy()) for c in out.normal], -1)
+    if out.saturated is not None:
+        d["saturated"] = pick(out.saturated.cpu().numpy())
+    return d
+
+
+def _hold_hits(label, card, cpu, tol):
+    for k in ("hit", "body", "saturated"):
+        if k in cpu:
+            _require(np.array_equal(card[k], cpu[k]), f"{label}: {k} differs from the CPU's")
+    err = max(float(np.abs(card[k] - cpu[k]).max()) for k in ("t", "normal") if k in cpu)
+    _require(err <= tol, f"{label}: t or normal {err:.3e} from the CPU's (limit {tol:g})")
+    return err
+
+
+def _cpu_query_worker(jobs, results):
+    """The CPU side of phase 33, in a process of its own while the card runs its side:
+    ``("build", (n_bodies, cells))`` builds the terrain pile on the CPU (while the card
+    runs phase 32); ``("state", (config, snapshot, prev_pairs))`` loads the card's config
+    and state (``state_to_numpy``) into it; ``("call", (label, method, args, kwargs))``
+    runs a query of ``Simulation`` on it and puts ``(label, result)`` (ray and sweep hits
+    as numpy); None ends. An exception is put as ``("error", text)``."""
+    import traceback
+
+    from bepuphysics2_tpu_torch.interop import state_from_numpy
+    from bepuphysics2_tpu_torch.models import build_terrain_pile_sim
+
+    torch.set_num_threads(4)
+    cpu = None
+    try:
+        for kind, payload in iter(jobs.get, None):
+            if kind == "build":
+                cpu, _ = build_terrain_pile_sim(*payload, device="cpu")
+            elif kind == "state":
+                config, snapshot, prev = payload
+                cpu.config = config
+                cpu._state = state_from_numpy(snapshot, "cpu")
+                cpu._dirty = False
+                if prev is not None:
+                    cpu._prev_contact_pairs = prev
+            else:
+                label, method, args, kwargs = payload
+                out = getattr(cpu, method)(*args, **kwargs)
+                results.put((label, _hits(out) if hasattr(out, "hit") else out))
+    except Exception:  # noqa: BLE001  (handed to the main process, which raises)
+        results.put(("error", traceback.format_exc()))
+
+
+def _start_cpu_worker():
+    """The process of ``_cpu_query_worker``, told to build the terrain pile: (worker,
+    jobs, results)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    jobs, results = ctx.Queue(), ctx.Queue()
+    worker = ctx.Process(target=_cpu_query_worker, args=(jobs, results), daemon=True)
+    worker.start()
+    jobs.put(("build", (TERRAIN_BODIES, TERRAIN_CELLS)))
+    return worker, jobs, results
+
+
+def phase_queries(dev, sim, cpu_side):
+    """Phase 33: every query of ``Simulation`` on phase 32's settled pile on the card,
+    held against the same query on a CPU copy of that state, which a second process
+    runs while the card runs its side: ``hit``, ``body`` (and ``saturated``) equal,
+    ``t`` and the normal within 1e-5 for rays and ``t`` within 1e-4 for sweeps; each
+    query's synced ms on the card (each query's first call on its layout: eager).
+
+    - 4,096 rays (one a body, from above) at ``prune_k`` 0 and 16, held on the CPU over
+      their first ``CPU_RAYS`` (each row is its own query); where a pruned ray is not
+      ``saturated`` it equals the full pass.
+    - One ray with ``exclude``.
+    - 256 capsule sweeps at ``prune_k`` 0, held on the CPU over their first (a hit: the
+      CPU takes ~10 s a row), and at 16, held over their first 16; where a pruned sweep is not
+      ``saturated`` it equals the full pass, and the saturated count is printed (on this
+      pile every pruned sweep is saturated: a mesh triangle's bound radius is its
+      farthest corner from the mesh's origin, so every triangle enters at t = 0 and the
+      first 16 fill the budget, in the JAX package too: ROADMAP queue 3); CUDA kernels a
+      sweep call.
+    - ``sweep_shape`` (a sphere) and the host's coarse ``sweep``; ``box_query``;
+      ``contacts`` and ``live_contact_pairs``.
+    - ``contact_events`` over 30 steps after a topple (64 bodies flung), ``began`` and
+      ``ended`` non-empty, held on the CPU every 10th step.
+
+    The graph replay of the sweeps and the ray cast is held to their eager runs by
+    ``tests/test_torch_replay.py``'s ``cuda`` cases."""
+    from bepuphysics2_tpu_torch import Capsule, Sphere
+    from bepuphysics2_tpu_torch.interop import state_to_numpy
+    from bepuphysics2_tpu_torch.utils import replay
+
+    n = sim.body_count - 1
+    worker, jobs, results = cpu_side
+    want = {}
+    try:
+        jobs.put(("state", (sim.config, state_to_numpy(sim.state), None)))
+        cpu_call = lambda label, method, *a, **k: jobs.put(("call", (label, method, a, k)))
+        rng = np.random.default_rng(12)
+        pos = np.stack([c.cpu().numpy() for c in sim.state.bodies.pos], -1)[1:n + 1]
+        notes, errs, card = [], {}, {}
+        # One ray a body from above, down and slanted, onto the pile.
+        o = (pos + rng.normal(scale=0.4, size=pos.shape) + np.array([0, 4.0, 0])).astype(np.float32)
+        d = np.tile(np.array([0.0, -1.0, 0.0], np.float32), (n, 1))
+        d[::4] += rng.normal(scale=0.3, size=d[::4].shape).astype(np.float32)
+        sub = slice(0, CPU_RAYS)
+        for k in (0, 16):
+            cpu_call(f"rays k={k}", "ray_cast", o[sub], d[sub], 10.0, prune_k=k)
+        b = 1 + int(rng.integers(0, n))
+        p = pos[b - 1]
+        one_ray = ((p[0], p[1] + 3.0, p[2]), (0, -1, 0), 10.0)
+        cpu_call("ray exclude", "ray_cast", *one_ray, exclude=b)
+        # 256 capsule sweeps down onto the pile, spinning.
+        cap = Capsule(0.3, 0.4)
+        ps = (pos[rng.integers(0, n, 256)] + np.array([0, 3.0, 0])).astype(np.float32)
+        vs = np.tile(np.array([0.0, -2.0, 0.0], np.float32), (256, 1))
+        ws = rng.normal(scale=0.5, size=(256, 3)).astype(np.float32)
+        held = {0: 1, 16: 16}  # sweeps held on the CPU at each prune_k
+        for k, m in held.items():
+            cpu_call(f"sweeps k={k}", "sweep_shape_batch", cap, ps[:m], vs[:m], max_t=3.0,
+                     angular_velocities=ws[:m], prune_k=k)
+        one_sweep = (Sphere(0.4), tuple(ps[0]), (0.0, -2.0, 0.0))
+        cpu_call("sweep_shape", "sweep_shape", *one_sweep, max_t=3.0)
+        coarse = (Sphere(0.4), tuple(ps[0]), (0.0, -1.0, 0.0), 10.0)
+        cpu_call("sweep", "sweep", *coarse)
+        box = ((-10.0, -1.0, -10.0), (10.0, 3.0, 10.0))
+        cpu_call("box_query", "box_query", *box)
+        cpu_call("contacts", "contacts")
+        cpu_call("live_contact_pairs", "live_contact_pairs")
+
+        # The card's side, while the CPU runs its own.
+        for k in (0, 16):
+            out, ms = _synced_ms(lambda: sim.ray_cast(o, d, 10.0, prune_k=k))
+            card[f"rays k={k}"] = h = _hits(out)
+            notes.append(f"{n} rays prune_k {k}: {ms:.1f} ms, {int(h['hit'].sum())} hits")
+            if k:
+                ok = ~h["saturated"]
+                full = card["rays k=0"]
+                same = all(np.array_equal(h[f][ok], full[f][ok]) for f in ("hit", "body"))
+                _require(same and np.abs(h["t"][ok] - full["t"][ok]).max(initial=0.0) <= RAY_TOL,
+                         "a pruned ray that is not saturated differs from the full pass")
+                notes.append(f"{int(h['saturated'].sum())} saturated, the other "
+                             f"{int(ok.sum())} equal to the full pass")
+        out, ms = _synced_ms(lambda: sim.ray_cast(*one_ray, exclude=b))
+        card["ray exclude"] = _hits(out)
+        _require(int(out.body) != b, "the excluded body was hit")
+        notes.append(f"a ray excluding body {b}: hit body {int(out.body)}, {ms:.1f} ms")
+        for k in held:
+            out, ms = _synced_ms(lambda: sim.sweep_shape_batch(
+                cap, ps, vs, max_t=3.0, angular_velocities=ws, prune_k=k))
+            card[f"sweeps k={k}"] = h = _hits(out)
+            note = f"256 capsule sweeps prune_k {k}: {ms:.1f} ms, {int(h['hit'].sum())} hits"
+            if k:
+                ok = ~h["saturated"]
+                full = card["sweeps k=0"]
+                same = all(np.array_equal(h[f][ok], full[f][ok]) for f in ("hit", "body"))
+                _require(same and np.abs(h["t"][ok] - full["t"][ok]).max(initial=0.0)
+                         <= SWEEP_TOL, "a pruned sweep that is not saturated differs from "
+                                       "the full pass")
+                note += (f", {int(h['saturated'].sum())} saturated, the other "
+                         f"{int(ok.sum())} equal to the full pass")
+                if not ok.any():
+                    note += " (a degenerate case: every sweep saturated, ROADMAP queue 3)"
+            notes.append(note)
+        _require(card["sweeps k=0"]["hit"][:held[0]].all(),
+                 "the full-pass sweeps held on the CPU hit nothing")
+        out, ms = _synced_ms(lambda: sim.sweep_shape(*one_sweep, max_t=3.0))
+        card["sweep_shape"] = _hits(out)
+        notes.append(f"sweep_shape {ms:.1f} ms, body {int(out.body)}; "
+                     f"{_sweep_kernels(lambda: sim.sweep_shape(*one_sweep, max_t=3.0)):.0f} "
+                     f"CUDA kernels a sweep call")
+        card["sweep"], ms = _synced_ms(lambda: sim.sweep(*coarse))
+        notes.append(f"sweep {ms:.1f} ms (body {card['sweep'][2]})")
+        card["box_query"], ms = _synced_ms(lambda: sim.box_query(*box))
+        _require(len(card["box_query"]) > 10, "the box query found too few bodies")
+        notes.append(f"box_query {ms:.1f} ms ({len(card['box_query'])} bodies)")
+        card["contacts"], ms = _synced_ms(sim.contacts)
+        _require(len(card["contacts"]) > 0, "contacts() returned nothing")
+        notes.append(f"contacts {ms:.1f} ms ({len(card['contacts'])} records)")
+        card["live_contact_pairs"], ms = _synced_ms(sim.live_contact_pairs)
+        notes.append(f"live_contact_pairs {ms:.1f} ms ({len(card['live_contact_pairs'])} pairs)")
+        # contact_events over 30 steps after a topple: 64 bodies flung up and sideways.
+        sim.contact_events()
+        for h in range(1, n + 1, 64):
+            sim.set_velocity(h, linear=(3.0, 6.0, 0.0))
+        began, ended, ms_all = set(), set(), 0.0
+        for step in range(1, 31):
+            sim.timestep(DT)
+            prev = set(sim._prev_contact_pairs)
+            ev, ms = _synced_ms(sim.contact_events)
+            ms_all += ms
+            if step % 10 == 0:  # held on the CPU every 10th step
+                card[f"events {step}"] = ev
+                jobs.put(("state", (sim.config, state_to_numpy(sim.state), prev)))
+                cpu_call(f"events {step}", "contact_events")
+            began |= ev["began"]
+            ended |= ev["ended"]
+        _require(began and ended, "the topple began or ended no contact")
+        notes.append(f"contact_events over 30 steps {ms_all / 30:.1f} ms a call, {len(began)} "
+                     f"began, {len(ended)} ended")
+        t_wait = time.perf_counter()
+        jobs.put(None)
+        while len(want) < len(card):
+            label, res = results.get(timeout=900)
+            _require(label != "error", f"the CPU side of phase 33 failed:\n{res}")
+            want[label] = res
+        wait = time.perf_counter() - t_wait
+        worker.join(timeout=60)
+    finally:
+        if worker.is_alive():
+            worker.terminate()
+            worker.join()
+    cut = {"rays k=0": sub, "rays k=16": sub, "sweeps k=0": slice(0, held[0]),
+           "sweeps k=16": slice(0, held[16])}
+    for label, got in card.items():
+        if label in cut or label in ("ray exclude", "sweep_shape"):
+            if label in cut:
+                got = {k: v[cut[label]] for k, v in got.items()}
+            tol = RAY_TOL if label.startswith("ray") else SWEEP_TOL
+            errs[label] = _hold_hits(label, got, want[label], tol)
+        else:
+            _require(got == want[label], f"{label} differs from the CPU's")
+    print(f"[33 queries] on phase 32's pile, each held to a CPU copy of its state "
+          f"(largest t or normal gap {max(errs.values()):.3e}; the card then waited "
+          f"{wait:.1f} s for the CPU's side): " + "; ".join(notes))
+    replay.clear()
+
+
+def _kernels_per_call(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _cuda_events(prof)
+
+
+def _sweep_kernels(fn):
+    """CUDA kernels of one sweep call, eager: every conservative-advancement iteration
+    launches the same kernels, so the profiler counts a call of 1 and of 2 iterations
+    (a whole call's ~900,000 events take the profiler minutes) and the count is theirs
+    extended to ``SWEEP_ITERS``."""
+    from bepuphysics2_tpu_torch.collision import sweeps
+    from bepuphysics2_tpu_torch.utils import replay
+
+    full = sweeps.SWEEP_ITERS
+    counts = []
+    try:
+        replay.enabled = False
+        for iters in (1, 2):
+            sweeps.SWEEP_ITERS = iters
+            counts.append(_kernels_per_call(fn))
+    finally:
+        sweeps.SWEEP_ITERS = full
+        replay.enabled = True
+    return counts[0] + (full - 1) * (counts[1] - counts[0])
+
+
+def character_world(device, n=64):
+    """``n`` characters (``models.Character``: a capsule of radius 0.3 and height 1, its
+    rotation locked, a one-body linear motor) in an 8-wide grid 4 m apart, inside the
+    mesh's cells, 1.2 m above
+    phase 32's terrain mesh; ``tests/test_models.py``'s settings (4 substeps, 2 velocity
+    iterations, 8 colors), with the terrain pile's ``child_window`` of 1,024 (64 of the
+    mesh's clusters a pair). Returns (sim, characters)."""
+    from bepuphysics2_tpu_torch import SimConfig, Simulation, StaticDescription
+    from bepuphysics2_tpu_torch.models import Character, terrain_height, terrain_mesh
+
+    sim = Simulation(SimConfig(body_capacity=n + 64, max_pairs=1024, substeps=4,
+                               velocity_iterations=2, num_colors=8, joint_capacity=128,
+                               max_compound_pairs=256, children_per_pair=8,
+                               child_window=1024),
+                     device=device)
+    sim.add_static(StaticDescription(position=(0.0, 0.0, 0.0),
+                                     shape=sim.add_shape(terrain_mesh(TERRAIN_CELLS))))
+    chars = []
+    for i in range(n):
+        # Off the cells' edges: a character dropped on a vertex of the mesh can rest on
+        # the ridge there with its centre 0.916 m above the surface below it, beyond its
+        # support ray's 0.9 m, and a support ray down a triangle's edge can pass between
+        # the two triangles (Moller-Trumbore in float32, both packages): each character
+        # starts, and ends its circle, 0.5 m from a cell's sides and 0.7 m from its
+        # diagonal.
+        x, z = 4.0 * (i % 8) - 13.5, 4.0 * (i // 8) - 13.5
+        chars.append(Character(sim, position=(x, float(terrain_height(x, z)) + 1.2, z)))
+    return sim, chars
+
+
+def _heights(sim):
+    """Every body's position, read to the host at once: (N, 3)."""
+    return torch.stack(list(sim.state.bodies.pos), -1).cpu().numpy()
+
+
+def phase_characters(dev, name, smi, land=60, walk=60, stand=60, flight=30, speed=3.0):
+    """Phase 34: 64 characters on phase 32's terrain (no pile), over K3, in the sequence
+    of ``tests/test_models.py``'s character test: ``land`` ticks, then every character
+    supported (one ray cast each, read to the host: one sync by the JAX package's
+    design); ``walk`` ticks of ``move`` once a tick along half a circle at ``speed`` m/s
+    (60 ticks, half the test's 120, to fit the run's clock), every character more than 1
+    m from where it landed at some tick; ticks of ``move((0,
+    0))`` until every character is supported again, at most ``stand`` (on the terrain a
+    character that stops can bounce off the ground for a few ticks, where the test's flat
+    ground has none); then one ``move`` with a jump (5 m/s) each, every character jumping
+    (supported), and up to ``flight`` ticks until
+    every character has risen more than 0.5 m above its height at the jump (the test's
+    thresholds). K3 every tick as often as 2 banks x substeps x iterations, K1, K2 and K4
+    never, no plain version. Returns (K3 launches, ticks/s)."""
+    sim, chars = character_world(dev)
+    n = len(chars)
+    rows = [c.body for c in chars]
+    cfg = sim.config.solve_config()
+    # K3 runs each contact bank once per substep iteration: the store's bank and the
+    # compound bank (the capsules on the mesh).
+    per_tick = 2 * sum(cfg.iterations_for(s) for s in range(cfg.substeps))
+    calls, restore = _count_plain_calls()
+    before = _kernel_launches()
+    t0 = time.perf_counter()
+    try:
+        sim.run(land, DT)
+        supported = [c.supported() for c in chars]
+        start = _heights(sim)[rows]
+        t1 = time.perf_counter()
+        far = np.zeros(n)
+        for k in range(walk):
+            th = np.pi * k / walk
+            for c in chars:
+                c.move((speed * np.cos(th), speed * np.sin(th)))
+            sim.timestep(DT)
+            far = np.maximum(far, np.hypot(*(_heights(sim)[rows] - start)[:, [0, 2]].T))
+        walk_tps = walk / (time.perf_counter() - t1)
+        stood = 0
+        while stood < stand:
+            for c in chars:
+                c.move((0.0, 0.0))
+            sim.timestep(DT)
+            stood += 1
+            if all(c.supported() for c in chars):
+                break
+        base = _heights(sim)[rows, 1]
+        for c in chars:
+            c.move((0.0, 0.0), jump_speed=5.0)
+        jumped = torch.stack(list(sim.state.bodies.vel), -1).cpu().numpy()[rows, 1] >= 4.99
+        top = base.copy()
+        ticks = land + walk + stood
+        for _ in range(flight):
+            sim.timestep(DT)
+            ticks += 1
+            top = np.maximum(top, _heights(sim)[rows, 1])
+            if (top - base).min() > 0.5:
+                break
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        import warnings
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                for c in chars:
+                    c.move((1.0, 0.0))
+                sim.timestep(DT)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+    finally:
+        restore()
+    ticks += 1
+    launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+    rise = top - base
+    print(f"[34 characters] {n} characters on the {TERRAIN_CELLS} x {TERRAIN_CELLS}-cell mesh "
+          f"on {name} ({smi}): {ticks / elapsed:.2f} ticks/s over {ticks} ticks "
+          f"({walk_tps:.2f} while walking, {n} moves a tick); supported after {land} ticks "
+          f"{sum(supported)} of {n}; walked at least {far.min():.3f} m (limit 1) over {walk} "
+          f"ticks along half a circle at {speed:g} m/s; {stood} ticks standing until all were "
+          f"supported, then one jump pressed each, {int(jumped.sum())} of {n} jumped, risen "
+          f"at least {rise.min():.3f} m (limit 0.5) {ticks - land - walk - stood - 1} ticks "
+          f"later; launches "
+          f"{launches} (K3 {per_tick} per tick: 2 banks), plain calls {len(calls)}; host "
+          f"syncs in a tick of {n} moves {syncs} (each move reads its support ray)")
+    _require(all(supported), "a character is not supported after landing")
+    _require(far.min() > 1.0, "a character did not walk 1 m")
+    _require(jumped.all(), "a character pressed jump off the ground")
+    _require(rise.min() > 0.5, "a character did not jump 0.5 m")
+    _require(launches == dict(K1=0, K2=0, K3=per_tick * ticks, K4=0),
+             f"the characters did not solve through K3 {per_tick} times per tick")
+    _require(not calls, f"plain versions ran on the card: {sorted(set(calls))}")
+    return launches["K3"], ticks / elapsed
+
+
+def slice12_phases(dev, name, smi):
+    """Phases 32-34. Returns each new path's (kernel, launches)."""
+    cpu_side = _start_cpu_worker()  # phase 33's CPU side builds its pile meanwhile
+    try:
+        sim, k1, _ = phase_terrain_pile(dev, name, smi)
+        phase_queries(dev, sim, cpu_side)
+    finally:
+        if cpu_side[0].is_alive():
+            cpu_side[0].terminate()
+            cpu_side[0].join()
+    del sim
+    k3, _ = phase_characters(dev, name, smi)
+    return {"4k mesh-terrain pile": ("K1", k1), "64 characters": ("K3", k3)}
+
+
 def slice11_phases(dev, name, smi):
     """Phases 29-31. Returns each new path's (kernel, launches) and phase 29's numbers."""
     k1, _, _ = phase_five_shape_pile(dev, name, smi)
@@ -2377,6 +2914,8 @@ def main():
     # Slice 11: the five-shape pile over the generic narrow phase (K1), the car and the
     # tank (K3).
     paths.update(slice11_phases(dev, name, smi))
+    # Slice 12: the mesh-terrain pile (K1), the queries on it, 64 characters (K3).
+    paths.update(slice12_phases(dev, name, smi))
     k1["paths"] = {"4k pile": k1["launches"]}
     k2["paths"] = {"16k pile": k2["launches"]}
     for path, (kernel, n) in paths.items():
@@ -2392,7 +2931,7 @@ def main():
             ("probe_sweep (K5)", K5_SOURCE, K5_REPLACES, k5),
             ("probe_gather (K6)", K6_SOURCE, K6_REPLACES, k6),
             ("probe_scatter (K7)", K7_SOURCE, K7_REPLACES, k7)]
-    print(f"[done] 31 phases in {time.perf_counter() - t_start:.0f} s")
+    print(f"[done] 34 phases in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [dict(
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],

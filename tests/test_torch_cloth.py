@@ -111,3 +111,81 @@ def test_cloth_step_matches_jax_pallas(carried, frame):
 def test_the_lattice_reaches_the_sphere(carried):
     """Every held frame solves the nodes' contacts with the sphere beside the links."""
     assert min(carried["contacts"][f] for f in HELD) > 0
+
+
+# --- add_cloth's own settings: the store's churn (ROADMAP queue 3) ----------------------
+
+def _store_admission(package, state, shapes, config):
+    """Bounds, brute-force broad phase and one pair-store update (the step's store stage)
+    in ``package`` ("jax" or "port") from ``state``: (overflow, demand (3,), live rows)."""
+    churn, dead, repair = config.store_caps()
+    if package == "jax":
+        import jax.numpy as jnp
+        from bepuphysics2_tpu.collision import broadphase as jbroad, pairstore as jstore
+        from bepuphysics2_tpu.shapes import bounds as jbounds
+
+        @jax.jit
+        def run(state, shapes):
+            b = state.bodies
+            lo, hi = jbounds.compute_body_bounds(b.pos, b.orn, b.vel, b.omega, b.shape, shapes,
+                                                 jnp.float32(DT), spec_min=b.spec_margin_min)
+            pairs = jbroad.brute_force(lo, hi, b.kind, b.awake, b.collision_group,
+                                       config.max_pairs)
+            store, ovf, demand, _ = jstore.update(
+                state.store, b.kind, b.awake, b.collision_group, lo, hi, pairs.a, pairs.b,
+                pairs.valid, jnp.ones_like(pairs.valid), config.num_colors,
+                jnp.zeros(config.body_capacity + 1, jnp.int32), churn, dead, repair)
+            return ovf, demand, store.live
+
+        out = run(jax.tree_util.tree_map(jnp.asarray, state),
+                  jax.tree_util.tree_map(jnp.asarray, shapes))
+        return tuple(np.asarray(x) for x in out)
+    from bepuphysics2_tpu_torch.collision import broadphase, pairstore
+    from bepuphysics2_tpu_torch.shapes import compute_body_bounds
+
+    st = state_from_numpy(state, "cpu")
+    b = st.bodies
+    lo, hi = compute_body_bounds(b.pos, b.orn, b.vel, b.omega, b.shape,
+                                 shapes_from_numpy(shapes, "cpu"), float(np.float32(DT)),
+                                 spec_min=b.spec_margin_min)
+    pairs = broadphase.brute_force(lo, hi, b.kind, b.awake, b.collision_group,
+                                   config.max_pairs)
+    store, ovf, demand, _ = pairstore.update(
+        st.store, b.kind, b.awake, b.collision_group, lo, hi, pairs.a, pairs.b, pairs.valid,
+        torch.ones_like(pairs.valid), config.num_colors,
+        torch.zeros(config.body_capacity + 1, dtype=torch.int32), churn, dead, repair)
+    return ovf.numpy(), demand.numpy(), store.live.numpy()
+
+
+@pytest.mark.parametrize("width", [22, 24])
+def test_own_settings_store_churn_matches_jax(width):
+    """``add_cloth``'s own settings (``tools/cloth_own_settings.py``: 25 Hz links,
+    spinning nodes, the default ``store_churn`` of 512 for ``max_pairs`` 4,096), the
+    lattice laid flat on the ground, so that every node meets the ground in one step:
+    22 x 22 nodes (484 admissions) fit the churn, 24 x 24 (576) spill it and set the
+    store's overflow bit (4) in both packages, which admit the same rows. Stepped whole
+    (the tool, both packages, 45 steps each), a dropped 32 x 32 lattice is the smallest
+    that sets the bit: at step 41 both admit 524 pairs against the churn of 512 and give
+    the same bits, admissions and live rows on every step; 24 x 24 and 28 x 28 peak
+    below the churn."""
+    from tools.cloth_own_settings import own_cloth_sim
+
+    states = []
+    for package in ("jax", "port"):
+        sim, grid = own_cloth_sim(package, width, drop=0.0)
+        sim._sync_from_device()
+        h = sim._host
+        nodes = grid.reshape(-1)
+        h.px[nodes] += (width - 1) * 0.25 / 2 + 0.125 * width * 0.25 + 0.5  # beside the sphere
+        h.py[nodes] = 0.25 * 0.3 - 0.01  # a node's radius, resting 1 cm into the ground
+        sim._dirty = True
+        states.append((sim, state_to_numpy(sim.state) if package == "port"
+                       else _np(sim.state)))
+    (jsim, jstate), (tsim_, _) = states
+    shapes, config = _np(jsim.shapes.device()), jsim.config
+    want = _store_admission("jax", jstate, shapes, config)
+    got = _store_admission("port", jstate, shapes, tsim_.config)
+    assert bool(got[0]) == bool(want[0]) == (width * width > config.store_caps()[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert int(want[1][0]) == width * width  # one ground pair a node asks to be admitted

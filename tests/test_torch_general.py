@@ -3,9 +3,8 @@ K3's plain version) against the JAX package on the 2-ragdoll tube of
 ``tests/test_models.py``'s ``test_ragdoll_tube_scenario`` (``max_pairs`` 1,024, so the
 store's page is 128 and the JAX package can take its Pallas layout).
 
-- ``solve_all`` from carried JAX states (each of the first five frames here, the next
-  five and frame 60, when the ragdolls lie on the tube's panels, in
-  ``test_torch_general_late.py``), fed the same stage outputs in both packages,
+- ``solve_all`` from carried JAX states (each of the first ten frames, and frame 60, when
+  the ragdolls lie on the tube's panels), fed the same stage outputs in both packages,
   against the JAX ``solve_all`` with ``backend="pallas"`` (its K3 in interpret mode): the
   same coloring, buckets, slices and row math, so integers agree exactly and floats to
   1e-5, absolute and relative (f32 op-order noise scales with the value: limbs tumbling
@@ -52,10 +51,9 @@ from __graft_entry__ import _build_ragdoll_tube_sim  # noqa: E402
 DT = 1 / 60
 FRAMES = 10
 CARRIED = 60  # the ragdolls lie on the tube's panels: every bank has live rows
-SOLVED = tuple(range(FRAMES)) + (CARRIED,)  # frames stepped before the solve compared
-# This file holds the early frames; test_torch_general_late.py the others, so that the
-# two JAX runs go to two test workers.
-EARLY, LATE = SOLVED[:5], SOLVED[5:]
+# Frames stepped before the solve compared. One module holds them all, so the JAX tube's
+# step, its stages and its Pallas solve compile once.
+SOLVED = tuple(range(FRAMES)) + (CARRIED,)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -102,7 +100,7 @@ def carry_jax_tube(frames):
 
 @pytest.fixture(scope="module")
 def jax_tube():
-    return carry_jax_tube(EARLY)
+    return carry_jax_tube(SOLVED)
 
 
 def _jax_stages(state, shapes, banks, config, present):
@@ -168,7 +166,7 @@ _STAGES = jax.jit(_jax_stages, static_argnums=(3, 4))
 _SOLVE = jax.jit(_jax_solve, static_argnums=(3,))
 
 
-@pytest.mark.parametrize("frame", EARLY)
+@pytest.mark.parametrize("frame", SOLVED)
 def test_general_solve_matches_jax_pallas(jax_tube, frame):
     check_general_solve(jax_tube, frame)
 

@@ -6,7 +6,10 @@
   bit.
 - On the card (``cuda``) both replay as CUDA graphs from their second call on: the 30-rig
   battery, a two-ragdoll tube and a 40-body five-shape pile give, step by step, the bits
-  of the same steps run eagerly (``replay.enabled`` off).
+  of the same steps run eagerly (``replay.enabled`` off). So do the queries that replay:
+  a batch of capsule sweeps (the conservative advancement) and a single ray with
+  ``exclude`` (the whole cast), on a 64-body pile on a mesh, called three times (eager,
+  captured, replayed).
 """
 import numpy as np
 import pytest
@@ -106,3 +109,49 @@ def test_replayed_steps_give_the_eager_bits(scene, cuda_device):
                                                       device=d)[0],
              "five_shape_pile": _five_shape_pile}[scene]
     assert _hashes(build, cuda_device, 8, True) == _hashes(build, cuda_device, 8, False)
+
+
+def _query_results(query, device, enabled):
+    """Three calls of ``query`` on a settled 64-body mesh-terrain pile, as numpy."""
+    from bepuphysics2_tpu_torch.models import build_terrain_pile_sim
+
+    replay.clear()
+    replay.enabled = enabled
+    try:
+        sim, _ = build_terrain_pile_sim(64, 10, device=device)
+        sim.run(20, 1 / 60)
+        out = []
+        for k in range(3):
+            res = query(sim, k)
+            out.append([np.asarray(torch.stack(list(v)).cpu() if isinstance(v, tuple)
+                                   else v.cpu()) for v in res if v is not None])
+        return out
+    finally:
+        replay.enabled = True
+        replay.clear()
+
+
+def _sweeps(sim, k):
+    import bepuphysics2_tpu_torch as tbp
+
+    rng = np.random.default_rng(k)
+    p = np.concatenate([rng.uniform(-8, 8, (16, 1)), np.full((16, 1), 4.0),
+                        rng.uniform(-8, 8, (16, 1))], 1)
+    v = np.tile([0.0, -2.0, 0.0], (16, 1))
+    return sim.sweep_shape_batch(tbp.Capsule(0.3, 0.4), p, v, max_t=3.0,
+                                 angular_velocities=rng.normal(scale=0.5, size=(16, 3)))
+
+
+def _ray(sim, k):
+    return sim.ray_cast((k - 1.0, 5.0, 0.5), (0.0, -1.0, 0.0), 10.0, exclude=1 + k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["sweep_shape_batch", "ray_cast"])
+def test_replayed_queries_give_the_eager_bits(query, cuda_device):
+    fn = {"sweep_shape_batch": _sweeps, "ray_cast": _ray}[query]
+    got, want = _query_results(fn, cuda_device, True), _query_results(fn, cuda_device, False)
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a, b)
+    assert any(bool(r[0].any()) for r in want)  # something was hit

@@ -318,18 +318,21 @@ def test_simulation_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("contacts", "item 20"), ("mesh", "item 18"), ("jax_shape", "not a shape of the port"),
-    ("sweep_broadphase", "Not to port"), ("ccd", "item 19"), ("save_checkpoint", "item 21"),
-    ("max_cc_pairs", "item 18"), ("windowed_compound", "queue 3"), ("ray_cast", "item 20"),
+    ("load_checkpoint", "item 21"), ("sharded_solve", "item 23"),
+    ("jax_shape", "not a shape of the port"), ("sweep_broadphase", "Not to port"),
+    ("ccd", "item 19"), ("save_checkpoint", "item 21"), ("legacy_cache", "legacy"),
+    ("windowed_compound", "queue 3"),
 ])
 def test_unported_paths_are_refused_by_name(case, item):
     """A scene or call the port cannot carry raises, naming the ROADMAP item; it is never
     solved on a path the port does not have."""
     with pytest.raises(NotImplementedError, match=item):
-        if case == "contacts":
-            _tiny().contacts()
-        elif case == "mesh":
-            _tiny().add_shape(tbp.Mesh.build([(0.0, 0.0, 0.0)] * 3, [(0, 1, 2)]))
+        if case == "load_checkpoint":
+            _tiny().load_checkpoint(b"unused")
+        elif case == "sharded_solve":
+            sim = _tiny()
+            solve_all(sim.state.bodies, [], {}, sim.config.integrator,
+                      sim.config.solve_config(), DT, axis_name="bodies")
         elif case == "jax_shape":
             _tiny().add_shape(jbp.Cylinder(0.5, 1.0))
         elif case == "sweep_broadphase":
@@ -338,16 +341,14 @@ def test_unported_paths_are_refused_by_name(case, item):
             _tiny(max_ccd_pairs=8).timestep(DT)
         elif case == "save_checkpoint":
             _tiny().save_checkpoint("unused.npz")
-        elif case == "max_cc_pairs":
-            _tiny(max_cc_pairs=4).timestep(DT)
+        elif case == "legacy_cache":
+            _tiny(use_pair_store=False).timestep(DT)
         elif case == "windowed_compound":
             sim = _tiny(solver_backend="pallas_win")
             box = sim.add_shape(tbp.Box(0.5, 0.5, 0.5))
             sim.add_body(tbp.BodyDescription.kinematic((0, -0.5, 0), sim.add_shape(
                 tbp.Compound.build([(box, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 1.0))]))))
             sim.timestep(DT)  # the JAX package's windowed general path fails on it
-        else:
-            _tiny().ray_cast((0, 5, 0), (0, -1, 0))
 
 
 def _egg_support(params, d):
@@ -487,3 +488,18 @@ def test_autosize_clears_overflow():
     assert sim.config.wide_cap_rows == 256 and out["rounds"] >= 1
     live = _pair_records(sim.state.store)
     assert len(live) > 40 and any(r[0][0] > 0 for r in live.values())
+
+
+@pytest.mark.parametrize("frame", FRAMES)
+def test_contacts_and_live_pairs_match_jax(jax_pile, frame):
+    """``contacts()`` and ``live_contact_pairs()`` read from the same carried JAX state in
+    both packages: the same records in the same order, the same pairs."""
+    carried = jax_pile[frame][0]
+    jax_sim, port_sim = _pile(jbp), _pile(tbp)
+    jax_sim._state = jax.tree_util.tree_map(jnp.asarray, carried)
+    jax_sim._dirty = False
+    port_sim._state = state_from_numpy(carried, "cpu")
+    port_sim._dirty = False
+    want, got = jax_sim.contacts(), port_sim.contacts()
+    assert len(want) > 0 and got == want
+    assert port_sim.live_contact_pairs() == jax_sim.live_contact_pairs()

@@ -11,9 +11,11 @@ demand-driven ``autosize``. A ``Simulation`` runs on the CUDA card unless it is 
 and custom convex shapes (the last three over the generic GJK/MPR narrow phase),
 compounds of them and triangle meshes (compound-vs-compound pairs with ``max_cc_pairs``),
 all 30 joint types of the reference, the scene queries (ray casts, sweeps, box queries,
-contact events) and ``models``: the ragdoll, the colosseum, the cloth, the car, the tank
-and the character. The TPU
-design probes of the repository's ``experiments/`` run in ``experiments`` (kernels K5-K7).
+contact events; their conservative advancement in kernel K8), continuous collision
+detection (``max_ccd_pairs``, over K8), checkpoints, metrics, validation and stage
+profiling, and ``models``: the ragdoll, the colosseum, the cloth, the car, the tank and
+the character. The TPU design probes of the repository's ``experiments/`` run in
+``experiments`` (kernels K5-K7).
 """
 
 __version__ = "0.1.0"
@@ -30,6 +32,8 @@ from .shapes import Sphere, Box, Capsule, Cylinder, Triangle, ConvexHull, Compou
 from .shapes.builder import CompoundBuilder
 from .shapes.custom import CustomShape, register_custom_shape
 from .simulation import Simulation, SimConfig
+from .validation import validate
+from .metrics import SimMetrics, simulation_metrics, TraceSession
 
 __all__ = [
     "Vec3", "Quat", "Mat3", "Sym3", "v3",
@@ -37,5 +41,6 @@ __all__ = [
     "KIND_DYNAMIC", "KIND_KINEMATIC", "KIND_STATIC",
     "Sphere", "Box", "Capsule", "Cylinder", "Triangle", "ConvexHull", "Compound", "Mesh",
     "CompoundBuilder", "CustomShape", "register_custom_shape",
-    "Simulation", "SimConfig",
+    "Simulation", "SimConfig", "validate",
+    "SimMetrics", "simulation_metrics", "TraceSession",
 ]

@@ -233,6 +233,8 @@ def gjk_closest(ctx: SupportCtx):
         pts = [w.where(write[:, i], pts[i]) for i in range(4)]
         pas = [pa.where(write[:, i], pas[i]) for i in range(4)]
         mask = torch.where(done[:, None], mask, keep | write)
+        if dev.type == "cpu" and bool(done.all()):
+            break  # nothing changes any more (done is absorbing); the card never reads it
 
     closest, bary, keep = _closest_on_simplex(pts, mask)
     dist = closest.length()

@@ -5,9 +5,10 @@ Counterpart of ``run_convex_testers``, ``convex_pair_records``, ``narrow_phase_s
 ``PairCache``, ``narrow_phase_compound``, ``update_cache_keyed`` and ``retain_sleeping``
 in ``bepuphysics2_tpu/collision/narrowphase.py``, for every convex shape (the analytic
 testers, and the generic GJK/MPR path of ``convex.py`` for the other pairs), compounds of
-them and meshes, compound-vs-compound pairs included. The port has no CCD and no legacy
-per-frame cache path (ROADMAP queue 1 item 19, and "Not to port"); a scene that would
-need them is refused before it is stepped. The JAX package's runtime
+them and meshes, compound-vs-compound pairs included, with CCD (``ccd_eval_times`` and the
+time-of-impact branch of ``convex_pair_records``, over ``sweeps.pair_toi``). The port has
+no legacy per-frame cache path (ROADMAP "Not to port"); a scene that would need it is
+refused before it is stepped. The JAX package's runtime
 ``lax.cond`` skips become unconditional passes whose result is selected by the same
 predicate, so nothing waits for the device.
 """
@@ -20,15 +21,19 @@ import torch
 from ..bodies import BodyState, KIND_DYNAMIC
 from ..constraints.contact import ContactImpulses, ContactPrestep
 from ..shapes.custom import CUSTOM_SUPPORTS, is_custom
-from ..shapes.registry import BOX, CAPSULE, CONVEX_HULL, MESH, SPHERE, TRIANGLE, ShapeData
+from ..shapes.registry import (
+    BIG_COMPOUND, BOX, CAPSULE, COMPOUND, CONVEX_HULL, MESH, SPHERE, TRIANGLE, ShapeData,
+)
 from ..utils import replay
 from ..utils.packing import compact_true, gather_rows
 from ..utils.spring import SpringSettings
 from ..utils.vec import Quat, Vec2, Vec3
 from . import testers
+from ..utils.vec import integrate_orientation
 from .compound import expand_compound_compound, expand_compound_pairs
 from .convex import SupportCtx, generic_convex_manifold
 from .manifold import Manifold
+from .sweeps import pair_toi
 
 _BIG = 2**31 - 1
 
@@ -225,9 +230,13 @@ def convex_pair_records(
     max_ccd: int = 0,
 ):
     """Convex manifolds + contact prestep records for an explicit (a, b, valid) pair set.
-    Returns (prestep, t_eval); t_eval is None (CCD is not ported)."""
-    if max_ccd > 0:
-        raise NotImplementedError("CCD is not ported yet (ROADMAP queue 1 item 19)")
+
+    ``max_ccd > 0`` turns on continuous collision detection (reference
+    ContinuousDetectionMode.Continuous): the pairs with a continuous body whose relative
+    displacement this step risks tunnelling are swept to their time of impact
+    (``_ccd_times``), evaluated at the poses advanced to it, and their depths warped back
+    to t = 0 as speculative contacts, so the solver stops the approach at the impact.
+    Returns (prestep, t_eval); t_eval (per pair; 0 where not swept) is None without CCD."""
     shp = state.shape.clamp_min(0).long()
     btype = torch.where(state.shape >= 0, shapes.type[shp], -1)
     bparams = shapes.params[shp]
@@ -276,12 +285,29 @@ def convex_pair_records(
     vel_a = Vec3(fa[:, 7], fa[:, 8], fa[:, 9])
     vel_b = Vec3(fb[:, 7], fb[:, 8], fb[:, 9])
 
+    t_eval = None
+    if max_ccd > 0:
+        t_eval = _ccd_times(state, shapes, a, b, valid, dt, max_ccd, present_types)
+        # The swept pairs' manifolds at their poses advanced to the time of impact.
+        i = torch.where(swap, b, a).long()
+        j = torch.where(swap, a, b).long()
+        pos_i = pos_i + state.vel[i] * t_eval
+        pos_j = pos_j + state.vel[j] * t_eval
+        orn_i = integrate_orientation(orn_i, state.omega[i], t_eval)
+        orn_j = integrate_orientation(orn_j, state.omega[j], t_eval)
+
     manifold = run_convex_testers(
         shapes, ti, tj, params_i, params_j, pos_i, pos_j, orn_i, orn_j,
         shape_i, shape_j, valid, present_types,
     )
     # Un-flip swapped pairs: offsets relative to scene body a, normal from b to a.
     manifold = manifold.flipped(pos_i - pos_j).where(swap, manifold)
+    if t_eval is not None:
+        # Warp the depths back to t = 0: depth(0) = depth(t) + n·(v_a − v_b)·t (the normal
+        # points B→A, so an approaching pair gets the speculative depth that lets the
+        # solver allow exactly the approach up to the impact).
+        vn = manifold.normal.dot(vel_a - vel_b)
+        manifold = manifold._replace(depth=manifold.depth + (vn * t_eval)[:, None])
 
     # Speculative margin acceptance (reference Collidable.cs:115,131,139).
     rel_speed = (vel_a - vel_b).length()
@@ -312,7 +338,40 @@ def convex_pair_records(
         max_recovery_velocity=max_rec,
         feature=manifold.feature,
     )
-    return prestep, None
+    return prestep, t_eval
+
+
+def _ccd_times(state, shapes, a, b, valid, dt, max_ccd, present_types):
+    """The CCD evaluation time of every pair: the tunnelling-risk gate (a continuous body,
+    a relative displacement this step above half the smaller shape's radius), the risk
+    pairs compacted on the device into ``max_ccd`` slots in pair order (the pairs past it
+    keep t = 0), ``pair_toi`` over them, and the times scattered back: (MP,) float32."""
+    mp = a.shape[0]
+    al, bl = a.long(), b.long()
+    ra = shapes.max_radius[state.shape[al].clamp_min(0).long()]
+    rb = shapes.max_radius[state.shape[bl].clamp_min(0).long()]
+    rel_disp = (state.vel[al] - state.vel[bl]).length() * dt
+    cont = state.continuity
+    risk = valid & ((cont[al] > 0) | (cont[bl] > 0)) & (rel_disp > 0.5 * torch.minimum(ra, rb))
+    sel, count = compact_true(risk, max_ccd)
+    live = torch.arange(max_ccd, device=a.device) < count
+    present = None if present_types is None else set(present_types)
+    composites = present is None or bool(present & {COMPOUND, BIG_COMPOUND, MESH})
+    customs = tuple(t for t in (CUSTOM_SUPPORTS if present is None else present)
+                    if is_custom(t))
+    sl = sel.long()
+    t_hit = pair_toi(state, shapes, a[sl], b[sl], live, dt, composites=composites,
+                     custom_ids=customs)
+    t_eval = torch.zeros(mp + 1, dtype=torch.float32, device=a.device)
+    t_eval[torch.where(live, sl, mp)] = t_hit
+    return t_eval[:mp]
+
+
+def ccd_eval_times(state, shapes, a, b, valid, dt, max_ccd: int, present_types=None):
+    """A CCD pass over an explicit pair set, with the gate and the advancement of the
+    convex records: (MP,) evaluation times. The store path takes the compound expansion's
+    times from it (its pair list is the broad phase's candidates, not the store's slots)."""
+    return _ccd_times(state, shapes, a, b, valid, dt, max_ccd, present_types)
 
 
 def narrow_phase_store(

@@ -1,28 +1,38 @@
-"""Shape sweeps: time of impact by conservative advancement against every collidable,
-then a min-t reduction.
+"""Shape sweeps and CCD: time of impact by conservative advancement against every
+collidable or over an explicit pair set.
 
-Counterpart of ``sweep_shape_all`` in ``bepuphysics2_tpu/collision/sweeps.py`` (reference
-SweepTasks/ConvexSweepTaskCommon.cs:116-230, Simulation_Queries.cs:267): ``SWEEP_ITERS``
-fixed iterations of
+Counterpart of ``sweep_shape_all`` and ``pair_toi`` in
+``bepuphysics2_tpu/collision/sweeps.py`` (reference SweepTasks/ConvexSweepTaskCommon.cs:
+116-230, Simulation_Queries.cs:267, NarrowPhaseCCDContinuations): a fixed number of
+iterations (``SWEEP_ITERS`` for a sweep, 12 for CCD) of
 
     d <- GJK distance between the shapes posed at time t
     done if d < 1e-4 (impact) or t > max_t (miss)
     t <- t + d / (a bound on the approach speed)
 
-over every target at once, with the port's own ``convex.gjk_closest``. Targets are
-(owner body, local pose, convex shape): each plain body, and each child of a compound or
-mesh body (the host enumerates them), the compound itself left out. A batch of R sweeps
-is one pass over (R, T) records, not R calls. On a CUDA device the 32 iterations replay
-as one CUDA graph per batch layout (``utils/replay.py``).
+over flat records, with the port's own ``convex.gjk_closest``. Sweep targets are (owner
+body, local pose, convex shape): each plain body, and each child of a compound or mesh
+body (the host enumerates them), the compound itself left out. A batch of R sweeps is one
+pass over (R, T) records, not R calls.
+
+On a CUDA device the advancement of every record runs in kernel K8
+(``csrc/conservative_advance.cu``, ``conservative_advance``): one thread runs a record's
+whole loop. A registered custom shape's support is a Python function, which no kernel
+can call: where one may occur (decided on the host from the types present) the masked
+loop runs as PyTorch ops instead, replayed as one CUDA graph per layout on the card
+(``utils/replay.py``).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
 from ..bodies import BodyState
-from ..shapes.registry import BIG_COMPOUND, COMPOUND, MESH, TRIANGLE, ShapeData
+from ..ops import build
+from ..shapes.custom import CUSTOM_SUPPORTS
+from ..shapes.registry import BIG_COMPOUND, COMPOUND, MESH, TRIANGLE, ShapeData, ShapeRegistry
 from ..utils import replay
 from ..utils.vec import Quat, Vec3, integrate_orientation
 from .convex import SupportCtx, gjk_closest
@@ -41,16 +51,16 @@ class SweepHit(NamedTuple):
     saturated: torch.Tensor = None
 
 
-def _advance(x, shape_type, custom_ids):
-    """The conservative advancement of every record: (R·T,) time of impact, _INF where
-    none within max_t. ``x`` holds flat per-record tensors."""
+def _advance(x, custom_ids=(), iters: int = SWEEP_ITERS, miss_max_t: bool = False):
+    """The conservative advancement of every record: (n,) time of impact, or the miss
+    value where none within max_t (3e38, or the record's ``max_t`` where
+    ``miss_max_t``). ``x`` holds flat per-record tensors (``conservative_advance``).
+    K8's plain version."""
     sa = x["sweep"]
-    n_rec = sa["pos"].x.shape[0]
     ctx0 = SupportCtx(
-        type_a=torch.full((n_rec,), shape_type, dtype=torch.int32, device=sa["pos"].x.device),
-        params_a=x["params_a"], type_b=x["type_b"], params_b=x["params_b"], orn_ab=None,
-        pos_ab=None, hull_points=x["hull_points"], hull_rows_a=x["hull_a"],
-        hull_rows_b=x["hull_b"], custom_ids=custom_ids)
+        type_a=x["type_a"], params_a=x["params_a"], type_b=x["type_b"],
+        params_b=x["params_b"], orn_ab=None, pos_ab=None, hull_points=x["hull_points"],
+        hull_rows_a=x["hull_a"], hull_rows_b=x["hull_b"], custom_ids=custom_ids)
 
     def ctx_at(t):
         a_pos = sa["pos"] + sa["vel"] * t
@@ -66,8 +76,8 @@ def _advance(x, shape_type, custom_ids):
     max_t = x["max_t"]
     t = torch.zeros_like(speed_bound)
     done = ~x["exists"]
-    hit_t = torch.full_like(speed_bound, _INF)
-    for _ in range(SWEEP_ITERS):
+    hit_t = max_t.clone() if miss_max_t else torch.full_like(speed_bound, _INF)
+    for _ in range(iters):
         dist, _, _, margin = gjk_closest(ctx_at(t))
         dist = dist - margin  # the surface distance, radii included
         impact = dist < 1e-4
@@ -76,7 +86,98 @@ def _advance(x, shape_type, custom_ids):
         new_done = done | impact | (new_t > max_t)
         t = torch.where(new_done, t, new_t)
         done = new_done
-    return torch.where(x["exists"], hit_t, _INF)
+        if t.device.type == "cpu" and bool(done.all()):
+            break  # nothing changes any more (done is absorbing); the card never reads it
+    return hit_t
+
+
+# K8's per-record floats, in its layout (csrc/conservative_advance.cu).
+_F_FIELDS = (("sweep", "pos"), ("sweep", "orn"), ("sweep", "vel"), ("sweep", "omega"),
+             ("o_pos",), ("o_orn",), ("o_vel",), ("o_omega",), ("lpos",), ("lorn",))
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_K8_ARGS = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P]
+
+
+def _shared_rows(t):
+    """(contiguous rows, row stride): one row and stride 0 where every record shares it
+    (an expanded tensor), else the rows themselves."""
+    if t.shape[0] > 1 and t.stride(0) == 0:
+        return t[0].contiguous(), 0
+    return t.contiguous(), t.shape[1]
+
+
+def conservative_advance(x, iters: int = SWEEP_ITERS, miss_max_t: bool = False, work=None):
+    """Kernel K8: ``_advance(x, (), iters, miss_max_t)`` for records of the built-in
+    convex types (sphere, capsule, box, cylinder, triangle, convex hull). ``x`` (n
+    records): ``sweep`` {pos, orn, vel, omega} and ``o_pos``, ``o_orn``, ``o_vel``,
+    ``o_omega`` the two bodies' poses and velocities at t = 0, ``lpos`` / ``lorn`` the
+    target's pose in its owner's frame, ``type_a`` / ``type_b`` (n,) int32, ``params_a``
+    / ``params_b`` (n, 12), ``hull_points`` the registry's pool, ``hull_a`` / ``hull_b``
+    (n, H) pool rows, ``speed_bound``, ``exists`` and ``max_t`` (n,). A-side rows may be
+    one row expanded over the records. On a CUDA tensor it launches K8 (counted in
+    ``conservative_advance.launches``); on a CPU tensor it runs the plain version.
+    ``work`` (card only): an (n, 2) int32 tensor that K8 fills with each record's
+    advancement and GJK iterations."""
+    speed_bound = x["speed_bound"]
+    dev = speed_bound.device
+    if dev.type != "cuda":
+        if dev.type != "cpu":
+            raise ValueError(f"conservative_advance runs on cuda or cpu, not {dev.type}")
+        return _advance(x, (), iters, miss_max_t)
+    n = speed_bound.shape[0]
+    f32 = torch.float32
+    cols = [c for path in _F_FIELDS for c in _field(x, path)]
+    f = torch.stack([c.to(f32) for c in cols] + [speed_bound.to(f32), x["max_t"].to(f32)], -1)
+    ti = torch.stack([x["type_a"].to(torch.int32), x["type_b"].to(torch.int32),
+                      x["exists"].to(torch.int32)], -1)
+    params_a, pa_stride = _shared_rows(x["params_a"].to(f32))
+    params_b = x["params_b"].to(f32).contiguous()
+    hull_a, ha_stride = _shared_rows(x["hull_a"].to(torch.int32))
+    hull_b = x["hull_b"].to(torch.int32).contiguous()
+    hx, hy, hz = (c.to(f32).contiguous() for c in x["hull_points"])
+    width = hull_b.shape[1]
+    if params_b.shape != (n, 12) or hull_b.shape[0] != n or hull_a.shape[-1] != width:
+        raise ValueError(f"conservative_advance: params_b {tuple(params_b.shape)}, hull_a "
+                         f"{tuple(hull_a.shape)}, hull_b {tuple(hull_b.shape)} for {n} records")
+    for name, t in (("f", f), ("params_a", params_a), ("hull_a", hull_a), ("hull_x", hx)):
+        if t.device != dev:
+            raise ValueError(f"conservative_advance: {name} is on {t.device}, expected {dev}")
+    if work is not None and (work.shape != (n, 2) or work.dtype != torch.int32
+                             or work.device != dev or not work.is_contiguous()):
+        raise ValueError(f"conservative_advance: work must be ({n}, 2) int32 on {dev}")
+    out = torch.empty(n, dtype=f32, device=dev)
+    launch = build.bind("conservative_advance", "conservative_advance_launch", _K8_ARGS)
+    err = launch(f.data_ptr(), ti.data_ptr(), params_a.data_ptr(), pa_stride,
+                 params_b.data_ptr(), hx.data_ptr(), hy.data_ptr(), hz.data_ptr(),
+                 hull_a.data_ptr(), ha_stride, hull_b.data_ptr(), width, n, iters,
+                 int(miss_max_t), out.data_ptr(), None if work is None else work.data_ptr(),
+                 build.raw_stream(dev))
+    if err:
+        raise RuntimeError(f"conservative_advance kernel launch failed: CUDA error {err}")
+    conservative_advance.launches += 1
+    return out
+
+
+conservative_advance.launches = 0
+
+
+def _field(x, path):
+    v = x
+    for k in path:
+        v = v[k]
+    return v
+
+
+def advance(x, custom_ids, iters: int = SWEEP_ITERS, miss_max_t: bool = False):
+    """The advancement of every record (``conservative_advance``'s ``x``). ``custom_ids``
+    (a tuple): the custom shape types that may occur in the records, decided on the host
+    from the types present. Without one, K8 (or its plain version on the CPU); with one,
+    the masked loop in PyTorch ops, replayed as a CUDA graph on the card."""
+    if not custom_ids:
+        return conservative_advance(x, iters, miss_max_t)
+    fns = tuple(CUSTOM_SUPPORTS[t] for t in custom_ids)
+    return replay.run(("advance", iters, miss_max_t, custom_ids, fns),
+                      lambda d: _advance(d, custom_ids, iters, miss_max_t), x)
 
 
 def sweep_shape_all(
@@ -194,6 +295,7 @@ def sweep_shape_all(
               else torch.full_like(shapes.hull_rows[0], -1))
     inputs = dict(
         sweep=dict(pos=flat(a_pos), orn=flat(a_orn), vel=flat(a_vel), omega=flat(a_omega)),
+        type_a=torch.full((n_rec,), shape_type, dtype=torch.int32, device=dev),
         params_a=params_a.expand(n_rec, params_a.shape[0]), type_b=flat(tg_type),
         params_b=flat(tg_params), hull_points=Vec3(shapes.hull_x, shapes.hull_y, shapes.hull_z),
         hull_a=hull_a.expand(n_rec, hull_a.shape[0]), hull_b=flat(tg_hull),
@@ -202,9 +304,8 @@ def sweep_shape_all(
         speed_bound=flat(speed_bound.expand(n_sweeps, n_tg)), exists=flat(tg_exists),
         max_t=max_t.expand(n_rec),
     )
-    custom = None if custom_ids is None else tuple(custom_ids)
-    hit_t = replay.run(("sweep_shape_all", shape_type, custom),
-                       lambda x: _advance(x, shape_type, custom), inputs)
+    custom = tuple(CUSTOM_SUPPORTS) if custom_ids is None else tuple(custom_ids)
+    hit_t = advance(inputs, custom, SWEEP_ITERS)
     hit_t = hit_t.reshape(n_sweeps, n_tg)
 
     best = torch.argmin(hit_t, dim=-1)
@@ -225,3 +326,89 @@ def sweep_shape_all(
         out = SweepHit(out.hit[0], out.t[0], out.body[0],
                        None if sat_out is None else sat_out[0])
     return out
+
+
+def _is_composite(t):
+    return (t == COMPOUND) | (t == MESH) | (t == BIG_COMPOUND)
+
+
+def pair_toi(state: BodyState, shapes: ShapeData, a, b, live, max_t, iters: int = 12,
+             max_children: int = 8, composites: bool = True, custom_ids=()):
+    """Conservative-advancement time of impact of body pairs (a[i], b[i]), the CCD sweep
+    (reference NarrowPhaseCCDContinuations, ConvexSweepTaskCommon) over the compacted CCD
+    pair set: (n,) t in [0, max_t], max_t where a pair meets nothing within the step.
+
+    A pair with one compound or mesh body puts it on side B and sweeps against its
+    children (reference ConvexCompoundSweepTask): the clustered child selection of the
+    narrow phase (``compound._select_children_clustered``) queried with the sweep-inflated
+    bounding sphere, the least t over the picked children. Two composites keep the
+    body-level bound. ``composites`` False: the host knows no body is a compound or a
+    mesh, and the child pass, which could then only find nothing, is left out.
+    ``custom_ids``: the custom shape types present (``advance``)."""
+    from .compound import _select_children_clustered
+
+    a, b = a.long(), b.long()
+    type_of = lambda body: torch.where(state.shape[body] >= 0,
+                                       shapes.type[state.shape[body].clamp_min(0).long()], -1)
+    # Canonical: if A is the only composite, swap it onto B.
+    swap = _is_composite(type_of(a)) & ~_is_composite(type_of(b))
+    a, b = torch.where(swap, b, a), torch.where(swap, a, b)
+    sa = state.shape[a].clamp_min(0).long()
+    sb = state.shape[b].clamp_min(0).long()
+    type_a, type_b = type_of(a), type_of(b)
+    comp_pair = _is_composite(type_b) & ~_is_composite(type_a)
+    ra, rb = shapes.max_radius[sa], shapes.max_radius[sb]
+    pos_a0, pos_b0 = state.pos[a], state.pos[b]
+    orn_a0, orn_b0 = state.orn[a], state.orn[b]
+    vel_a, vel_b = state.vel[a], state.vel[b]
+    om_a, om_b = state.omega[a], state.omega[b]
+    speed_bound = (vel_a - vel_b).length() + om_a.length() * ra + om_b.length() * rb + 1e-6
+    n = a.shape[0]
+    dev = a.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    hull_points = Vec3(shapes.hull_x, shapes.hull_y, shapes.hull_z)
+    zero = torch.zeros(n, **f32)
+    body = dict(
+        sweep=dict(pos=pos_a0, orn=orn_a0, vel=vel_a, omega=om_a),
+        type_a=type_a.to(torch.int32), params_a=shapes.params[sa], type_b=type_b.to(torch.int32),
+        params_b=shapes.params[sb], hull_points=hull_points, hull_a=shapes.hull_rows[sa],
+        hull_b=shapes.hull_rows[sb], o_pos=pos_b0, o_orn=orn_b0, o_vel=vel_b, o_omega=om_b,
+        lpos=Vec3(zero, zero, zero), lorn=Quat(zero, zero, zero, torch.ones(n, **f32)),
+        speed_bound=speed_bound, exists=live & ~comp_pair, max_t=torch.full((n,), max_t, **f32))
+    hit_body = advance(body, custom_ids, iters, miss_max_t=True)
+
+    if max_children > 0 and composites:
+        # Child-level sweeps of the convex-vs-compound and convex-vs-mesh pairs.
+        n_pick = max(1, -(-max_children // ShapeRegistry.CLUSTER_SIZE))
+        rel_pos_local = orn_b0.rotate_inverse(pos_a0 - pos_b0)
+        qrad = (ra + (vel_a - vel_b).length() * max_t
+                + (om_a.length() + om_b.length()) * (ra + rb) * max_t)
+        rows, cand_ok, _ = _select_children_clustered(shapes, sb, rel_pos_local, qrad, n_pick)
+        k = rows.shape[1]
+        cr = rows.clamp_min(0).long()
+        cshape = shapes.child_shape[cr]
+        is_tri = cshape < 0
+        cs_c = cshape.clamp_min(0).long()
+        tri12 = torch.nn.functional.pad(shapes.child_tri[cr], (0, 3))
+        cparams = torch.where(is_tri[..., None], tri12, shapes.params[cs_c])
+        cp, cq = shapes.child_pos[cr], shapes.child_orn[cr]
+        live_child = comp_pair[:, None] & live[:, None] & cand_ok & (rows >= 0)
+        flat = lambda v: (v[:, None].expand(n, k).reshape(-1) if torch.is_tensor(v)
+                          else type(v)(*(flat(c) for c in v)))
+        fsa = flat(sa)
+        child = dict(
+            sweep=dict(pos=flat(pos_a0), orn=flat(orn_a0), vel=flat(vel_a), omega=flat(om_a)),
+            type_a=flat(type_a).to(torch.int32), params_a=shapes.params[fsa],
+            type_b=torch.where(is_tri, TRIANGLE, shapes.type[cs_c]).reshape(-1).to(torch.int32),
+            params_b=cparams.reshape(n * k, -1), hull_points=hull_points,
+            hull_a=shapes.hull_rows[fsa],
+            hull_b=torch.where(is_tri[..., None], -1, shapes.hull_rows[cs_c]).reshape(n * k, -1),
+            o_pos=flat(pos_b0), o_orn=flat(orn_b0), o_vel=flat(vel_b), o_omega=flat(om_b),
+            lpos=Vec3(*(cp[..., i].reshape(-1) for i in range(3))),
+            lorn=Quat(*(cq[..., i].reshape(-1) for i in range(4))),
+            speed_bound=flat(speed_bound), exists=live_child.reshape(-1),
+            max_t=torch.full((n * k,), max_t, **f32))
+        hit_child = advance(child, custom_ids, iters, miss_max_t=True).reshape(n, k).amin(1)
+        hit_body = torch.where(comp_pair, hit_child, hit_body)
+
+    return torch.where(live, hit_body.clamp_max(max_t), max_t)

@@ -16,10 +16,9 @@ All parts share one collision group (the reference's SubgroupCollisionFilter key
 the hull handle, Tank.cs:272-277).
 
 The port's copy of ``bepuphysics2_tpu/models/tank.py``, built through the port's
-``Simulation`` API. ``fire`` marks its projectile continuous, but sweeping it needs
-``max_ccd_pairs > 0``, which the port refuses until CCD lands (ROADMAP queue 1 item 19):
-here the projectile collides through speculative contacts alone, as in the JAX package
-with ``max_ccd_pairs`` 0."""
+``Simulation`` API. ``fire`` marks its projectile continuous: with ``max_ccd_pairs > 0``
+its pairs are swept to their time of impact (kernel K8 on the card), as in the JAX
+package; at ``max_ccd_pairs`` 0 it collides through speculative contacts alone."""
 from __future__ import annotations
 
 import numpy as np

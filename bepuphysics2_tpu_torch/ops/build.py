@@ -2,8 +2,8 @@
 
 ``nvcc`` compiles each ``csrc/*.cu`` file at first use into ``build/kernels/`` at the root
 of the checkout (listed in ``.gitignore``), keyed by a hash of the source, of every
-``csrc/*.cuh`` header and of the flags, so an edited source or shared header never loads a
-stale library. Nothing but the repository's sources goes into the build. ``bind`` loads a
+``csrc/*.cuh`` header and of the flags (a kernel's own flags included), so an edited
+source or shared header never loads a stale library. Nothing but the repository's sources goes into the build. ``bind`` loads a
 library once and returns its C entry point with its argument types set, cached, so a
 wrapper's launch costs a dictionary lookup and the ctypes call.
 """
@@ -20,7 +20,10 @@ from pathlib import Path
 # Every kernel of the port: its label and its source ``csrc/<name>.cu``.
 KERNELS = {"K1": "substeps_contacts", "K2": "substeps_contacts_win", "K3": "contact_sweep",
            "K4": "contact_sweep_win", "K5": "probe_sweep", "K6": "probe_gather",
-           "K7": "probe_scatter"}
+           "K7": "probe_scatter", "K8": "conservative_advance"}
+# Flags of one kernel beside ``NVCC_FLAGS``. K8 holds each operation to the rounding of
+# its plain PyTorch version, one op at a time: no multiply-add may be contracted.
+KERNEL_FLAGS = {"conservative_advance": ["-fmad=false"]}
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -44,12 +47,12 @@ def _nvcc() -> str:
 
 def source_key(name: str, csrc: Path = CSRC, defines=()) -> str:
     """Build key of ``<csrc>/<name>.cu``: a hash of that source, of every header in
-    ``csrc`` (name and bytes, in name order), of the compiler flags and of the extra
-    ``defines``, if any."""
+    ``csrc`` (name and bytes, in name order), of the compiler flags (the kernel's own in
+    ``KERNEL_FLAGS`` too) and of the extra ``defines``, if any."""
     h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
     for header in sorted(csrc.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + KERNEL_FLAGS.get(name, [])).encode())
     if defines:
         h.update(("\0" + " ".join(defines)).encode())
     return h.hexdigest()[:16]
@@ -80,8 +83,8 @@ def load_all(names, variants=()):
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *KERNEL_FLAGS.get(name, []),
+               *(f"-D{d}" for d in defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[lab] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True), lib_path, tmp, name, key, time.perf_counter())
     for lab, (proc, lib_path, tmp, name, key, t0) in procs.items():

@@ -14,9 +14,10 @@ between steps and marks the device state dirty; the next timestep pushes the mer
 ``reconfigure`` and ``autosize`` resize capacities between steps, migrating the pair store
 and resizing the compound caches. The queries (ray casts, sweeps, the box query, contact
 records and events) read the device state between steps. The port carries the
-pair-store path for every shape, compounds and meshes with all joint types; a
-configuration or call that needs anything else (CCD, checkpoints, the sharded step) is
-refused with the ROADMAP item that brings it.
+pair-store path for every shape, compounds and meshes with all joint types, CCD
+(``max_ccd_pairs``) and checkpoints; a configuration or call that needs anything else (the
+sharded step, the legacy per-frame cache path) is refused with the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from .bodies import (
 from .collision import broadphase as bp
 from .collision import pairstore
 from .collision.narrowphase import (
-    PairCache, convex_type_mask, narrow_phase_compound, narrow_phase_store,
+    PairCache, ccd_eval_times, convex_type_mask, narrow_phase_compound, narrow_phase_store,
     retain_sleeping_when, update_cache_keyed,
 )
 from .collision.pairstore import PairStore
@@ -182,8 +183,6 @@ def _check_supported(config: SimConfig, present_types) -> None:
         raise NotImplementedError(
             f"broad phase {config.broadphase!r} is not ported (ROADMAP queue 1, "
             "'Not to port'): use 'brute' or 'grid2'")
-    if config.max_ccd_pairs > 0:
-        raise NotImplementedError("CCD is not ported yet (ROADMAP queue 1 item 19)")
     for t in present_types or ():
         if t > CONVEX_HULL and t not in (COMPOUND, BIG_COMPOUND, MESH) and not is_custom(t):
             raise ValueError(f"shape type {t} is neither built in nor a registered custom shape")
@@ -248,16 +247,23 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
         aabb_min, aabb_max, pairs.a, pairs.b, pairs.valid, insertable,
         C, ext_used, churn_cap, dead_cap, repair_cap,
     )
-    prestep, imp, _ = narrow_phase_store(bodies, shapes, store, active, dt,
-                                         present_types=present_types)
+    prestep, imp, t_eval = narrow_phase_store(bodies, shapes, store, active, dt,
+                                              present_types=present_types,
+                                              max_ccd=config.max_ccd_pairs)
     has_compounds = present_types is None or COMPOUND in present_types or MESH in present_types
+    if has_compounds and config.max_ccd_pairs > 0:
+        # t_eval above is aligned with the store's slots; the compound expansion reads the
+        # broad phase's candidates, so its CCD times come from a second pass over them
+        # (under the max_ccd_pairs cap the two passes may keep different pairs).
+        t_eval = ccd_eval_times(bodies, shapes, pairs.a, pairs.b, pairs.valid, dt,
+                                config.max_ccd_pairs, present_types)
     if has_compounds:
         cprestep, cimp, cpcolor, ckey, covfl = narrow_phase_compound(
             bodies, shapes, pairs, state.ccache, dt, config.max_compound_pairs,
             config.children_per_pair, config.child_window, present_types=present_types,
             max_cc_pairs=config.max_cc_pairs, cc_children_per_side=config.cc_children_per_side,
             sleep_bank=state.sleep_ccache if config.enable_sleep else None,
-            meshes_meet=meshes_meet,
+            pair_t=t_eval, meshes_meet=meshes_meet,
         )
 
     # --- Wake sleeping bodies touched by awake dynamics (whole stored islands).
@@ -898,6 +904,27 @@ class Simulation:
             self._present_types(), self._mesh_bodies() > 1,
         )
 
+    def save_checkpoint(self) -> bytes:
+        """The full device state as npz bytes, accumulated impulses included so warm starts
+        survive (reference parity: Solver.GetDescription, EnumerateAccumulatedImpulses)."""
+        from .checkpoint import state_to_bytes
+
+        if self._dirty:
+            self._push()
+        return state_to_bytes(self._state)
+
+    def load_checkpoint(self, data: bytes) -> None:
+        """Restore a state saved by ``save_checkpoint`` on a simulation of the same
+        capacities and topology."""
+        from .checkpoint import state_from_bytes
+
+        if self._dirty:
+            self._push()
+        self._state = state_from_bytes(self._state, data)
+        self._dirty = False
+        self._host.load(self._state.bodies)
+        self._mirrored = self._state
+
     def run(self, steps: int, dt: float = 1.0 / 60.0, chunk: Optional[int] = None) -> None:
         """Step ``steps`` frames. ``last_diag`` then reports the run: overflow flags are
         sticky over it and demand is the peak over it (as the JAX package's scanned
@@ -913,23 +940,3 @@ class Simulation:
         if steps > 0:
             self.last_diag = self.last_diag._replace(overflow=overflow, overflow_src=src,
                                                      demand=peak)
-
-
-# The rest of the JAX Simulation's methods, refused by name until their ROADMAP item
-# lands, so that a script written for the JAX package fails with the reason.
-_NOT_PORTED = {
-    "save_checkpoint": "queue 1 item 21 (utilities)",
-    "load_checkpoint": "queue 1 item 21 (utilities)",
-}
-
-
-def _refuse(name, item):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"Simulation.{name} is not ported yet (ROADMAP {item})")
-
-    method.__name__ = name
-    return method
-
-
-for _name, _item in _NOT_PORTED.items():
-    setattr(Simulation, _name, _refuse(_name, _item))

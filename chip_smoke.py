@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds kernels K1-K7 from the
+"""Smoke run of the PyTorch port on one CUDA card: builds kernels K1-K8 from the
 repository's sources, holds each against its plain PyTorch version at its main path's
 shapes, then drives the port's main paths through ``Simulation`` as ``bench.py`` does and
 checks what comes out: the 4,096-body mixed pile (brute-force broad phase, K1: one
@@ -24,9 +24,18 @@ K1) and the car and the tank of ``tests/test_models.py``, each in its test's sce
 Then slice 12: 4,096 bodies with compound dumbbells on a 7,200-triangle mesh (the compound
 bank with compound-vs-compound records beside the store's, one K1 launch a step), every
 scene query of ``Simulation`` on that pile held to a CPU copy of its state, and 64
-characters on the mesh (K3). On the card the joint sweep, the generic narrow phase and
-the sweeps' conservative advancement replay as CUDA graphs from a layout's second call
-(``bepuphysics2_tpu_torch/utils/replay.py``); no kernel K1-K7 runs inside one.
+characters on the mesh (K3). Then slice 13: the sweeps' and CCD's conservative
+advancement in one hand-written kernel, K8 (held against its plain version on phase 33's
+own call; a sweep or CCD pass with a registered custom shape type keeps the masked
+PyTorch loop, replayed as a CUDA graph, and the phases here, which have none, are
+required never to run it), CCD at full width (phase 35: 256 continuous spheres at 120
+m/s through the 4,096-body pile toward a wall, K1 and K8 once a step) and the utilities
+on phase 4's pile (phase 36: checkpoint and restore, ``validate``, ``simulation_metrics``,
+``profile_stages``, ``TraceSession``). On the card the joint sweep and the generic narrow
+phase replay as CUDA graphs from a layout's second call
+(``bepuphysics2_tpu_torch/utils/replay.py``); no kernel K1-K8 runs inside one. The CPU
+sides of the card-vs-CPU phases run in a process of their own while the card runs
+(``_start_cpu_side``), as does phase 33's.
 
     python3 chip_smoke.py
 
@@ -36,9 +45,9 @@ no result. The last line is ``{"ok": true, "device": {...}}``; the line before i
 every kernel of the paths with its launch count on its main path, its error against the
 plain version, its time through its wrapper (``ms``), the plain version's time, its bound
 (the least time the card could take for the same work), where one PyTorch call computes
-the same function that call's time, for K1, K3, K4, K6 and K7 the kernel's C entry point
-alone (``kernel_ms``, null for the others), and for K1-K4 each path that launches the
-kernel with its count (``launches_by_path``). Imports nothing of JAX: the machine with the
+the same function that call's time, for K1, K3, K4, K6, K7 and K8 the kernel's C entry
+point alone (``kernel_ms``, null for the others), and for K1-K4 and K8 each path that
+launches the kernel with its count (``launches_by_path``). Imports nothing of JAX: the machine with the
 card has none.
 """
 import dataclasses
@@ -533,7 +542,11 @@ def phase_main_path(dev, name, smi):
           f"of the last step's page stream: live pages per color {structure[0]}, "
           f"{structure[1]} Jacobi pages; wave tables of 2 more steps: {_tables_note(checked)}"
           f", each color wave's written bodies named by no other row of the wave")
+    _PILE["4k"] = sim  # phase 36 runs the utilities on it
     return launches, _clone_call(*calls[-1])
+
+
+_PILE = {}
 
 
 def phase_determinism(dev, tag="5 determinism", path="", **overrides):
@@ -553,13 +566,11 @@ def phase_cpu_vs_card(dev, tag="6 cpu vs card", path="", tol=(5e-3, 1e-4), n_bod
                       **overrides):
     """20 frames of a pile on the CPU and on the card, held to ``tol`` (max, median): the
     24-body pile, or ``build_pile(n_bodies)``."""
-    runs = {}
-    for d in ("cpu", dev):
-        sim = small_pile(d, **overrides) if n_bodies is None else build_pile(n_bodies, d,
-                                                                              **overrides)
-        sim.run(20, DT)
-        runs[str(d)] = positions(sim)
-    diff = np.abs(runs["cpu"] - runs[str(dev)])
+    sim = small_pile(dev, **overrides) if n_bodies is None else build_pile(n_bodies, dev,
+                                                                            **overrides)
+    sim.run(20, DT)
+    # The CPU's 20 frames ran in the CPU-side process (``_start_cpu_side``).
+    diff = np.abs(_cpu_result(tag.split()[0]) - positions(sim))
     print(f"[{tag}] {n_bodies or 24}-body pile{path}, 20 frames: max |dpos| {diff.max():.3e} "
           f"(limit {tol[0]:g}), median {np.median(diff):.3e} (limit {tol[1]:g})")
     _require(diff.max() <= tol[0] and np.median(diff) <= tol[1],
@@ -853,6 +864,140 @@ def _card_steps_from_cpu(sim, dev, state, frames, held=None):
     return worst_held, worst_all, state
 
 
+# --- the CPU sides of the card-vs-CPU checks, in a process of their own -----------------
+
+def _scene(builder, device):
+    """The Simulation that ``builder`` (a function name of this module, of
+    ``bepuphysics2_tpu_torch.models`` or of its ``joint_rigs``, its args, its kwargs)
+    builds on ``device``."""
+    import bepuphysics2_tpu_torch.models as models
+    from bepuphysics2_tpu_torch.models import joint_rigs
+
+    name, args, kwargs = builder
+    fn = globals().get(name) or getattr(models, name, None) or getattr(joint_rigs, name)
+    out = fn(*args, device=device, **kwargs)
+    out = out[0] if isinstance(out, tuple) else out
+    return getattr(out, "sim", out)
+
+
+def _cpu_side_worker(jobs, results):
+    """The CPU sides of the card-vs-CPU phases, run while the card runs its own phases:
+    per job ``(key, builder, kind, warm, frames)``, the scene on the CPU, ``warm`` steps,
+    then either its positions after ``frames`` steps (``kind`` "positions") or the
+    ``frames + 1`` states of ``frames`` steps, each from the one before (``kind``
+    "states", as numpy: ``state_to_numpy``). Puts ``(key, result)``; an exception as
+    ``("error", text)``."""
+    import traceback
+
+    from bepuphysics2_tpu_torch import simulation as tsim
+    from bepuphysics2_tpu_torch.interop import state_to_numpy
+
+    torch.set_num_threads(4)
+    try:
+        for key, builder, kind, warm, frames in iter(jobs.get, None):
+            sim = _scene(builder, "cpu")
+            sim.run(warm, DT)
+            if kind == "positions":
+                sim.run(frames, DT)
+                results.put((key, positions(sim)))
+                continue
+            scene = (sim.shapes.device("cpu"), sim._joint_banks("cpu"), DT, sim.config,
+                     sim._present_types())
+            state = sim.state
+            states = [state_to_numpy(state)]
+            for _ in range(frames):
+                state, _ = tsim.step(state, *scene)
+                states.append(state_to_numpy(state))
+            results.put((key, states))
+    except Exception:  # noqa: BLE001  (handed to the main process, which raises)
+        results.put(("error", traceback.format_exc()))
+
+
+_CPU_SIDE = {}
+
+
+def _start_cpu_side(keys=None):
+    """Starts ``_cpu_side_worker`` on every CPU side of the run (or those of ``keys``), in
+    phase order."""
+    import multiprocessing as mp
+
+    win = dict(solver_backend="pallas_win", broadphase="grid2")
+    cloth = ("build_cloth_sim", (CLOTH_SMALL, CLOTH_SMALL), {})
+    jobs_list = [
+        ("6", ("small_pile", (), {}), "positions", 0, 20),
+        ("10", ("small_pile", (), win), "positions", 0, 20),
+        ("14", ("tube_sim", (2,), dict(substeps=2, num_colors=4)), "states", 0, 20),
+        ("19", ("_small_ragdoll_pile", (), {}), "states", 0, 10),
+        ("20", ("build_compound_pile_sim", (252,), {}), "states", 0, 10),
+        ("23", ("build_pile", (512,), _schedule_overrides()), "positions", 0, 20),
+        ("24", ("small_pile", (), {**_schedule_overrides(callback=False), **win}),
+         "positions", 0, 20),
+        ("27", cloth, "states", 0, 30),
+        ("28", ("build_joint_rigs", (), dict(steps=0)), "states", 0, 3),
+        ("30", ("build_pile", (256,), dict(shapes=five_shapes())), "positions", 0, 20),
+        ("31 car", ("vehicle_world", ("car",), {}), "states", 10, 3),
+        ("31 tank", ("vehicle_world", ("tank",), {}), "states", 10, 3),
+        ("32", ("build_terrain_pile_sim", (64, 10), {}), "states", 0, 10),
+        ("35", ("ccd_world", (64, 8), dict(ccd_pairs=512)), "states", 0, 10),
+    ]
+    ctx = mp.get_context("spawn")
+    jobs, results = ctx.Queue(), ctx.Queue()
+    jobs.cancel_join_thread()  # a worker stopped early must not hold this process's exit
+    worker = ctx.Process(target=_cpu_side_worker, args=(jobs, results), daemon=True)
+    worker.start()
+    for job in jobs_list:
+        if keys is None or job[0] in keys:
+            jobs.put(job)
+    jobs.put(None)
+    # The queues live as long as the worker: a queue collected here would take its
+    # semaphore with it before the worker has started.
+    _CPU_SIDE.update(worker=worker, jobs=jobs, results=results, got={})
+
+
+def _stop_cpu_side():
+    worker = _CPU_SIDE.get("worker")
+    if worker is not None and worker.is_alive():
+        worker.terminate()
+        worker.join()
+
+
+def _cpu_result(key):
+    """The CPU side ``key`` from ``_cpu_side_worker`` (waiting for it if it is not done)."""
+    import queue
+
+    got = _CPU_SIDE["got"]
+    while key not in got:
+        try:
+            k, v = _CPU_SIDE["results"].get(timeout=5)
+        except queue.Empty:
+            _require(_CPU_SIDE["worker"].is_alive(), f"the CPU-side process ended without {key}")
+            continue
+        _require(k != "error", f"a CPU side failed:\n{v}")
+        got[k] = v
+    return got.pop(key)
+
+
+def _card_steps_from_states(sim, states):
+    """Each of the CPU's steps (``states``, numpy, from ``_cpu_result``) stepped again on
+    the card from the state before it, with ``sim``'s scene (built on the card): the
+    largest |card - CPU| / (1 + |CPU|) over the bodies' poses and velocities, and the
+    CPU's last state."""
+    from bepuphysics2_tpu_torch import simulation as tsim
+    from bepuphysics2_tpu_torch.interop import state_from_numpy
+
+    dev = sim.device
+    scene = (sim.shapes.device(dev), sim._joint_banks(dev), DT, sim.config,
+             sim._present_types())
+    worst = 0.0
+    for before, after in zip(states, states[1:]):
+        got, _ = tsim.step(state_from_numpy(before, dev), *scene)
+        for f in ("pos", "orn", "vel", "omega"):
+            for g, w in zip(getattr(got.bodies, f), getattr(after.bodies, f)):
+                w = torch.from_numpy(np.asarray(w))
+                worst = max(worst, float(((g.cpu() - w).abs() / (1.0 + w.abs())).max()))
+    return worst, states[-1]
+
+
 K3_COLORS = (6,) * 8  # phase 11's bank: 8 colors of 6 slices of 128 rows, 13 Jacobi slices
 TUBE_K3_STEPS = 60  # the tube's steps (default settings) before tools/k2_vs_parent.py
                     # records its K3 calls
@@ -1142,11 +1287,10 @@ def phase_cpu_vs_card_tube(dev, tol=1e-4, frames=20):
     limit against its plain version). Both 20-frame trajectories are printed beside it,
     not held to the pile's envelope: this scene is chaotic from frame 3 (a difference of
     5e-7 grows to 5e-2 in one frame, between the JAX package's own two paths alike)."""
-    cpu = tube_sim(2, "cpu", substeps=2, num_colors=4)
-    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
     card = tube_sim(2, dev, substeps=2, num_colors=4)
+    worst, last = _card_steps_from_states(card, _cpu_result("14"))
     card.run(frames, DT)
-    traj = np.abs(torch.stack(list(last.bodies.pos)).numpy() - positions(card))
+    traj = np.abs(np.stack(list(last.bodies.pos)) - positions(card))
     print(f"[14 cpu vs card] 2-ragdoll tube, {frames} frames: each card step from the CPU's "
           f"state within {worst:.3e} of the CPU's (limit {tol:g}, absolute and relative); "
           f"the two trajectories after {frames} frames: max |dpos| {traj.max():.3e}, median "
@@ -1213,20 +1357,21 @@ def phase_kernel_k4(dev, n_rows):
 
 def _count_plain_calls():
     """Wrap every kernel's plain version with a call counter. Returns (calls, restore)."""
+    from bepuphysics2_tpu_torch.collision import sweeps
     from bepuphysics2_tpu_torch.ops import sweep
 
-    names = ("_solve_substeps_contacts_plain", "_solve_substeps_contacts_win_plain",
-             "_contact_sweep_plain", "_contact_sweep_win_plain")
-    saved = {n: getattr(sweep, n) for n in names}
+    names = [(sweep, n) for n in ("_solve_substeps_contacts_plain",
+                                  "_solve_substeps_contacts_win_plain", "_contact_sweep_plain",
+                                  "_contact_sweep_win_plain")] + [(sweeps, "_advance")]
+    saved = {(m, n): getattr(m, n) for m, n in names}
     calls = []
 
-    def counted(name):
-        fn = saved[name]
+    def counted(name, fn):
         return lambda *a, **k: calls.append(name) or fn(*a, **k)
 
-    for n in names:
-        setattr(sweep, n, counted(n))
-    return calls, lambda: [setattr(sweep, n, fn) for n, fn in saved.items()]
+    for (m, n), fn in saved.items():
+        setattr(m, n, counted(n, fn))
+    return calls, lambda: [setattr(m, n, fn) for (m, n), fn in saved.items()]
 
 
 def _kernel_launches():
@@ -1371,11 +1516,11 @@ def phase_cpu_vs_card_pile(dev, tol=1e-4, frames=10):
     CPU's next state within ``tol`` (absolute and relative: K4's limit against its plain
     version). Limbs colliding at their joint anchors make the trajectories chaotic, so
     steps are held, not trajectories."""
-    cpu = _small_ragdoll_pile("cpu")
+    card = _small_ragdoll_pile(dev)
     before = _kernel_launches()["K4"]
-    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
+    worst, last = _card_steps_from_states(card, _cpu_result("19"))
     k4 = _kernel_launches()["K4"] - before
-    pos = np.stack([t.numpy() for t in last.bodies.pos])
+    pos = np.stack(list(last.bodies.pos))
     print(f"[19 cpu vs card] 8-ragdoll pile, {frames} frames: each card step from the CPU's "
           f"state within {worst:.3e} of the CPU's (limit {tol:g}, absolute and relative); "
           f"K4 launches {k4}; CPU min y {pos[1][1:81].min():.3f}")
@@ -1394,11 +1539,10 @@ def phase_compound_pile(dev, n_bodies=252, frames=10):
     from bepuphysics2_tpu_torch.models import build_compound_pile_sim
     from bepuphysics2_tpu_torch.ops import sweep
 
-    cpu, _ = build_compound_pile_sim(n_bodies, device="cpu")
-    before = _kernel_launches()
-    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
-    launches = {k: v - before[k] for k, v in _kernel_launches().items()}
     card, _ = build_compound_pile_sim(n_bodies, device=dev)
+    before = _kernel_launches()
+    worst, _ = _card_steps_from_states(card, _cpu_result("20"))
+    launches = {k: v - before[k] for k, v in _kernel_launches().items()}
     k1_before = _kernel_launches()["K1"]
     card.run(frames - 2, DT)
     k1_calls, tables = _k1_steps(card, 2)
@@ -2021,8 +2165,7 @@ def phase_cloth_small(dev, steps=30, frames=30, tol=1e-4):
         sim.run(steps, DT)
         torch.cuda.synchronize()
         hashes.append(sim.state_hash())
-    cpu = build_cloth_sim(CLOTH_SMALL, CLOTH_SMALL, device="cpu")[0]
-    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
+    worst, _ = _card_steps_from_states(sim, _cpu_result("27"))
     print(f"[27 determinism, cpu vs card] {CLOTH_SMALL} x {CLOTH_SMALL} cloth: {steps} steps "
           f"twice, state_hash {hashes[0]:#018x} / {hashes[1]:#018x}; {frames} frames, each "
           f"card step from the CPU's state within {worst:.3e} of the CPU's (limit {tol:g})")
@@ -2039,8 +2182,7 @@ def phase_joint_rigs(dev, frames=3, tol=1e-4, steps=150):
     from bepuphysics2_tpu_torch.models.joint_rigs import ALL_NAMES, build_joint_rigs
 
     t0 = time.perf_counter()
-    cpu = build_joint_rigs("cpu", steps=0)
-    worst, _, _ = _card_steps_from_cpu(cpu.sim, dev, cpu.sim.state, frames)
+    worst, _ = _card_steps_from_states(build_joint_rigs(dev, steps=0).sim, _cpu_result("28"))
     rigs = build_joint_rigs(dev, steps=steps)
     failed = []
     for rig, check in rigs.checks:
@@ -2187,9 +2329,9 @@ def phase_five_shape_small(dev, steps=30, frames=20):
         sim.run(steps, DT)
         torch.cuda.synchronize()
         hashes.append(sim.state_hash())
-    runs = {}
-    for d in ("cpu", "card", "control"):
-        sim = build_pile(256, "cpu" if d == "cpu" else dev, shapes=five_shapes())
+    runs = {"cpu": _cpu_result("30")}  # the CPU's run, in the CPU-side process
+    for d in ("card", "control"):
+        sim = build_pile(256, dev, shapes=five_shapes())
         if d == "control":
             sim._sync_from_device()
             h = sim._host
@@ -2215,9 +2357,9 @@ def vehicle_world(kind, device):
     """``tests/test_models.py``'s car scene (``ground_sim(body_capacity=32)``: 4 substeps, 2
     velocity iterations, 8 colors, a ground box of half extent 50 with its top at 0, the
     car at (0, 0.8, 0)) or its tank scene (``body_capacity`` 64, ``max_pairs`` 1,024, 4
-    substeps, 8 colors, no sleep, a ground box of half extent 120 with its top at 0.25,
-    the tank at (0, 1, 0) with 3 wheels a tread; no CCD: the port has none yet, and no
-    projectile is fired). Returns (simulation, model)."""
+    substeps, 8 colors, no sleep, ``max_ccd_pairs`` 4, a ground box of half extent 120
+    with its top at 0.25, the tank at (0, 1, 0) with 3 wheels a tread). Returns
+    (simulation, model)."""
     from bepuphysics2_tpu_torch import Box, SimConfig, Simulation, StaticDescription
     from bepuphysics2_tpu_torch.models import SimpleCar, Tank
 
@@ -2228,7 +2370,7 @@ def vehicle_world(kind, device):
         ground, top = 50.0, -0.5
     else:
         cfg = dict(body_capacity=64, max_pairs=1024, substeps=4, num_colors=8,
-                   joint_capacity=64, enable_sleep=False)
+                   joint_capacity=64, max_ccd_pairs=4, enable_sleep=False)
         ground, top = 120.0, -0.25
     sim = Simulation(SimConfig(**cfg), device=device)
     g = sim.add_shape(Box(ground, 0.5, ground))
@@ -2256,9 +2398,10 @@ def _drive_car(sim, car):
 
 
 def _drive_tank(sim, tank):
-    """``test_tank_drives_turns_and_fires`` without the fire: 30 steps to settle, 90
-    straight at track speeds (8, 8), 90 skid-steering at (6, -6), 120 aiming the turret
-    a quarter turn. Returns (steps, gates text, gates met)."""
+    """``test_tank_drives_turns_and_fires``: 30 steps to settle, 90 straight at track speeds
+    (8, 8), 90 skid-steering at (6, -6), 120 aiming the turret a quarter turn, then a
+    projectile fired (continuous, swept by CCD) and 10 more steps. Returns (steps, gates
+    text, gates met)."""
     sim.run(30, DT)
     tank.set_track_speeds(8.0, 8.0)
     p0 = sim.get_body(tank.body)[0]
@@ -2271,12 +2414,19 @@ def _drive_tank(sim, tank):
     tank.set_aim(np.pi / 2, 0.0)
     sim.run(120, DT)
     barrel = tank.barrel_direction()
+    proj = tank.fire()
+    launch = float(np.linalg.norm(sim.get_body(proj)[2]))
+    sim.run(10, DT)
+    shot = sim.get_body(proj)[0]
     fwd = p1 - p0
     dyaw = abs((_yaw(q1) - _yaw(q0) + np.pi) % (2 * np.pi) - np.pi)
     met = (abs(fwd[2]) > 0.8 and abs(fwd[2]) > 3 * abs(fwd[0]) and dyaw > 0.15
-           and abs(barrel[0]) > 0.6)
-    return 330, (f"drove dz {fwd[2]:.3f} dx {fwd[0]:.3f}, yaw {dyaw:.3f}, barrel x "
-                 f"{barrel[0]:.3f}"), met
+           and abs(barrel[0]) > 0.6 and launch > 0.8 * tank.projectile_speed
+           and bool(np.isfinite(shot).all()))
+    return 340, (f"drove dz {fwd[2]:.3f} dx {fwd[0]:.3f}, yaw {dyaw:.3f}, barrel x "
+                 f"{barrel[0]:.3f}, fired at {launch:.1f} m/s (projectile_speed "
+                 f"{tank.projectile_speed:g}), the shot at {np.round(shot, 2).tolist()} after "
+                 f"10 steps"), met
 
 
 def phase_vehicles(dev, name, smi, frames=3, tol=1e-4):
@@ -2284,20 +2434,22 @@ def phase_vehicles(dev, name, smi, frames=3, tol=1e-4):
     the card (``vehicle_world``) through that test's steps and gates: the car settles,
     then drives more than 1.0 m with its body above y = 0.2; the tank drives straight
     (|dz| above 0.8 and above 3|dx|), skid-steers (yaw above 0.15) and swivels its turret
-    a quarter turn (the barrel's |x| above 0.6). Per scene: K3 as often per step as
-    substeps x iterations (the store bank beside the joints), K1, K2 and K4 never, no
-    plain version; no host sync over 4 steps after one that pushes the gates' host edits
-    and reads; ``frames`` card steps from the CPU's state (after 10 CPU steps: the wheels
-    reach the ground) within ``tol``. Returns the K3 launches by scene."""
+    a quarter turn (the barrel's |x| above 0.6), then fires a projectile above 0.8 of its
+    speed that stays finite over 10 steps (CCD on, ``max_ccd_pairs`` 4: K8 once a step).
+    Per scene: K3 as often per step as substeps x iterations (the store bank beside the
+    joints), K1, K2 and K4 never, no plain version; no host sync over 4 steps after one
+    that pushes the gates' host edits and reads; ``frames`` card steps from the CPU's
+    state (after 10 CPU steps: the wheels reach the ground) within ``tol``. Returns the
+    K3 launches by scene and the tank's K8 launches."""
+    from bepuphysics2_tpu_torch.collision import sweeps
+
     out = {}
     for kind, drive in (("car", _drive_car), ("tank", _drive_tank)):
-        cpu = vehicle_world(kind, "cpu")[0]
-        cpu.run(10, DT)
-        worst, _, _ = _card_steps_from_cpu(cpu, dev, cpu.state, frames)
         sim, model = vehicle_world(kind, dev)
+        worst, _ = _card_steps_from_states(sim, _cpu_result(f"31 {kind}"))
         cfg = sim.config.solve_config()
         per_step = sum(cfg.iterations_for(s) for s in range(cfg.substeps))
-        before = _kernel_launches()
+        before, k8_before = _kernel_launches(), sweeps.conservative_advance.launches
         calls, restore = _count_plain_calls()
         t0 = time.perf_counter()
         try:
@@ -2310,20 +2462,26 @@ def phase_vehicles(dev, name, smi, frames=3, tol=1e-4):
             restore()
         steps += 5
         launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+        k8 = sweeps.conservative_advance.launches - k8_before
         kps = _kernels_per_step(sim)
         types = sorted(sim._joint_banks())
         print(f"[31 {kind}] {sim.body_count} bodies, {len(types)} joint types, {steps} steps "
               f"on {name} ({smi}): {gates}; {sps:.2f} steps/s over the gates' steps, "
               f"{kps:.0f} CUDA kernels per step; launches {launches} (K3 {per_step} per "
-              f"step), plain calls {len(calls)}, host syncs per step {sync:g}; {frames} card "
+              f"step), K8 {k8}, plain calls {len(calls)}, host syncs per step {sync:g}; "
+              f"{frames} card "
               f"steps from the CPU's state within {worst:.3e} (limit {tol:g})")
         _require(met, f"the {kind} missed its gates: {gates}")
         _require(launches == dict(K1=0, K2=0, K3=per_step * steps, K4=0),
                  f"the {kind} did not solve through K3 {per_step} times per step")
+        _require(k8 == (steps if kind == "tank" else 0),
+                 f"K8 launched {k8} times in {steps} steps of the {kind}")
         _require(not calls, f"plain versions ran on the card: {sorted(set(calls))}")
         _require(sync == 0, f"{sync} host syncs per step on the {kind}")
         _require(worst <= tol, f"a card step of the {kind} disagrees with the CPU's")
         out[kind] = launches["K3"]
+        if kind == "tank":
+            out["tank K8"] = k8
     return out
 
 
@@ -2396,8 +2554,8 @@ def phase_terrain_pile(dev, name, smi, warm=33, timed=48):
         small.run(20, DT)
         torch.cuda.synchronize()
         hashes.append(small.state_hash())
-    cpu, _ = build_terrain_pile_sim(64, 10, device="cpu")
-    worst, _, last = _card_steps_from_cpu(cpu, dev, cpu.state, 10)
+    worst, _ = _card_steps_from_states(build_terrain_pile_sim(64, 10, device=dev)[0],
+                                       _cpu_result("32"))
     print(f"[32 terrain pile] {n_bodies} bodies ({n_bodies // 8} dumbbells) on a "
           f"{TERRAIN_CELLS} x "
           f"{TERRAIN_CELLS}-cell mesh ({2 * TERRAIN_CELLS ** 2} triangles) on {name} "
@@ -2489,6 +2647,7 @@ def _start_cpu_worker():
 
     ctx = mp.get_context("spawn")
     jobs, results = ctx.Queue(), ctx.Queue()
+    jobs.cancel_join_thread()  # a worker stopped early must not hold this process's exit
     worker = ctx.Process(target=_cpu_query_worker, args=(jobs, results), daemon=True)
     worker.start()
     jobs.put(("build", (TERRAIN_BODIES, TERRAIN_CELLS)))
@@ -2521,6 +2680,7 @@ def phase_queries(dev, sim, cpu_side):
     The graph replay of the sweeps and the ray cast is held to their eager runs by
     ``tests/test_torch_replay.py``'s ``cuda`` cases."""
     from bepuphysics2_tpu_torch import Capsule, Sphere
+    from bepuphysics2_tpu_torch.collision import sweeps
     from bepuphysics2_tpu_torch.interop import state_to_numpy
     from bepuphysics2_tpu_torch.utils import replay
 
@@ -2579,9 +2739,19 @@ def phase_queries(dev, sim, cpu_side):
         card["ray exclude"] = _hits(out)
         _require(int(out.body) != b, "the excluded body was hit")
         notes.append(f"a ray excluding body {b}: hit body {int(out.body)}, {ms:.1f} ms")
+        k8_before = sweeps.conservative_advance.launches
+        plain_calls = []  # built-in shapes only: K8, never the masked PyTorch loop
         for k in held:
-            out, ms = _synced_ms(lambda: sim.sweep_shape_batch(
-                cap, ps, vs, max_t=3.0, angular_velocities=ws, prune_k=k))
+            calls, restore = _count_plain_calls()
+            try:
+                with _capture_k8() as k8_calls:
+                    out, ms = _synced_ms(lambda: sim.sweep_shape_batch(
+                        cap, ps, vs, max_t=3.0, angular_velocities=ws, prune_k=k))
+            finally:
+                restore()
+            plain_calls += calls
+            if k == 0:
+                k8_call = k8_calls[0]
             card[f"sweeps k={k}"] = h = _hits(out)
             note = f"256 capsule sweeps prune_k {k}: {ms:.1f} ms, {int(h['hit'].sum())} hits"
             if k:
@@ -2598,10 +2768,12 @@ def phase_queries(dev, sim, cpu_side):
             notes.append(note)
         _require(card["sweeps k=0"]["hit"][:held[0]].all(),
                  "the full-pass sweeps held on the CPU hit nothing")
+        k8_sweeps = sweeps.conservative_advance.launches - k8_before
+        _require(not plain_calls, "a sweep without a custom shape ran the masked PyTorch loop")
         out, ms = _synced_ms(lambda: sim.sweep_shape(*one_sweep, max_t=3.0))
         card["sweep_shape"] = _hits(out)
         notes.append(f"sweep_shape {ms:.1f} ms, body {int(out.body)}; "
-                     f"{_sweep_kernels(lambda: sim.sweep_shape(*one_sweep, max_t=3.0)):.0f} "
+                     f"{_kernels_per_call(lambda: sim.sweep_shape(*one_sweep, max_t=3.0))} "
                      f"CUDA kernels a sweep call")
         card["sweep"], ms = _synced_ms(lambda: sim.sweep(*coarse))
         notes.append(f"sweep {ms:.1f} ms (body {card['sweep'][2]})")
@@ -2656,8 +2828,11 @@ def phase_queries(dev, sim, cpu_side):
             _require(got == want[label], f"{label} differs from the CPU's")
     print(f"[33 queries] on phase 32's pile, each held to a CPU copy of its state "
           f"(largest t or normal gap {max(errs.values()):.3e}; the card then waited "
-          f"{wait:.1f} s for the CPU's side): " + "; ".join(notes))
+          f"{wait:.1f} s for the CPU's side): " + "; ".join(notes)
+          + f"; the two sweep batches launched K8 {k8_sweeps} times, no eager loop")
+    _require(k8_sweeps == 2, f"the two sweep batches launched K8 {k8_sweeps} times")
     replay.clear()
+    return k8_call
 
 
 def _kernels_per_call(fn):
@@ -2668,27 +2843,6 @@ def _kernels_per_call(fn):
         fn()
         torch.cuda.synchronize()
     return _cuda_events(prof)
-
-
-def _sweep_kernels(fn):
-    """CUDA kernels of one sweep call, eager: every conservative-advancement iteration
-    launches the same kernels, so the profiler counts a call of 1 and of 2 iterations
-    (a whole call's ~900,000 events take the profiler minutes) and the count is theirs
-    extended to ``SWEEP_ITERS``."""
-    from bepuphysics2_tpu_torch.collision import sweeps
-    from bepuphysics2_tpu_torch.utils import replay
-
-    full = sweeps.SWEEP_ITERS
-    counts = []
-    try:
-        replay.enabled = False
-        for iters in (1, 2):
-            sweeps.SWEEP_ITERS = iters
-            counts.append(_kernels_per_call(fn))
-    finally:
-        sweeps.SWEEP_ITERS = full
-        replay.enabled = True
-    return counts[0] + (full - 1) * (counts[1] - counts[0])
 
 
 def character_world(device, n=64):
@@ -2822,19 +2976,340 @@ def phase_characters(dev, name, smi, land=60, walk=60, stand=60, flight=30, spee
     return launches["K3"], ticks / elapsed
 
 
+# --- slice 13: K8, CCD (queue 1 item 19) and the utilities (item 21) ----------------------
+
+K8_SOURCE = "bepuphysics2_tpu_torch/csrc/conservative_advance.cu"
+# No TPU kernel: the JAX package compiles this loop with XLA (its fori_loop in pair_toi).
+K8_REPLACES = "none: XLA's loops, bepuphysics2_tpu/collision/sweeps.py:228 and :325"
+K8_TOL = 1e-4  # on the stable records, where K8 and its plain version are not bit-equal
+
+
+class _capture_k8:
+    """Records the advancement calls (``sweeps.advance``'s records, iterations and miss
+    rule) inside a block: K8's inputs where no custom shape is present."""
+
+    def __enter__(self):
+        from bepuphysics2_tpu_torch.collision import sweeps
+
+        self.real, calls = sweeps.advance, []
+
+        def spy(x, custom_ids, iters=sweeps.SWEEP_ITERS, miss_max_t=False):
+            calls.append((x, iters, miss_max_t))
+            return self.real(x, custom_ids, iters, miss_max_t)
+
+        sweeps.advance = spy
+        return calls
+
+    def __exit__(self, *exc):
+        from bepuphysics2_tpu_torch.collision import sweeps
+
+        sweeps.advance = self.real
+        return False
+
+
+def _records(x, rows):
+    """The records ``rows`` of K8's input ``x`` (the hull pool whole)."""
+    if torch.is_tensor(x):
+        return x[rows]
+    if isinstance(x, dict):
+        return {k: v if k == "hull_points" else _records(v, rows) for k, v in x.items()}
+    return type(x)(*(_records(v, rows) for v in x))
+
+
+def _k8_ops(x):
+    """(operations of one advancement iteration outside GJK's loop, of one GJK iteration),
+    counted on the plain version (``sweeps._advance``) for the first record of ``x``."""
+    from bepuphysics2_tpu_torch.collision import convex, sweeps
+
+    one = _to_cpu(_records(x, slice(0, 1)))
+    full = convex.GJK_ITERS
+    try:
+        convex.GJK_ITERS = 0
+        adv = _ops_per_item(sweeps._advance, one, (), 1)
+        convex.GJK_ITERS = 1
+        gjk = _ops_per_item(sweeps._advance, one, (), 1) - adv
+    finally:
+        convex.GJK_ITERS = full
+    return adv, gjk
+
+
+def _to_cpu(x):
+    if torch.is_tensor(x):
+        return x.cpu()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return type(x)(*(_to_cpu(v) for v in x))
+
+
+def phase_kernel_k8(dev, call, launches):
+    """K8 against its plain version (``sweeps._advance``) on phase 33's own K8 call: the
+    256 capsule sweeps at ``prune_k`` 0 against every body and mesh triangle of the
+    4,096-body terrain pile. Bit for bit equal, or within ``K8_TOL`` on every record
+    whose plain result a 1e-7 nudge of the positions leaves in place (the counts
+    printed); deterministic on a repeat. Times: the wrapper and the C entry point alone
+    (CUDA events), the plain version (one call, host clock). Bound: the bytes (each input
+    read once, the output written once) against the operations the records needed (each
+    record's advancement and GJK iterations, counted by K8, times their operations
+    counted on the plain version)."""
+    from bepuphysics2_tpu_torch.collision import sweeps
+
+    x, iters, miss = call
+    n = x["speed_bound"].shape[0]
+    work = torch.empty(n, 2, dtype=torch.int32, device=dev)
+    got = sweeps.conservative_advance(x, iters, miss, work=work)
+    again = sweeps.conservative_advance(x, iters, miss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sweeps._advance(x, (), iters, miss)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    both_miss = (got >= 1e30) & (want >= 1e30)
+    gap = torch.where(both_miss, 0.0, (got - want).abs())
+    unequal = torch.nonzero(got != want)[:, 0]
+    err = float(gap.max())
+    note = f"{n - unequal.numel()} of {n} records bit for bit equal"
+    if unequal.numel():
+        sub = _records(x, unequal)
+        nudge = lambda e: {**sub, "sweep": {**sub["sweep"], "pos": type(sub["sweep"]["pos"])(
+            *(c * (1 + e) for c in sub["sweep"]["pos"]))}}
+        moves = torch.stack([(sweeps._advance(nudge(e), (), iters, miss) - want[unequal]).abs()
+                             for e in (1e-7, -1e-7)]).amax(0)
+        stable = moves <= 1e-5
+        err = float(gap[unequal][stable].max(initial=0.0)) if stable.any() else 0.0
+        note += f"; {int(stable.sum())} of the other {unequal.numel()} stable, within {err:.3e}"
+        _require(err <= K8_TOL,
+                 f"K8 parts from its plain version by {err:.3e} on a stable record")
+    _require(bool((got == again).all()), "K8 differs from itself on a repeat")
+    ms = _time_ms(lambda: sweeps.conservative_advance(x, iters, miss), 5)
+    kernel_ms = _bare_ms("conservative_advance",
+                         lambda: sweeps.conservative_advance(x, iters, miss), 5)
+    adv_ops, gjk_ops = _k8_ops(x)
+    w = work.sum(0).tolist()
+    ops = w[0] * adv_ops + w[1] * gjk_ops
+    pa, _ = sweeps._shared_rows(x["params_a"])
+    ha, _ = sweeps._shared_rows(x["hull_a"])
+    nbytes = (n * (35 + 3 + 12 + x["hull_b"].shape[1] + 1) * 4 + _nbytes(pa, ha)
+              + _nbytes(*x["hull_points"]))
+    bound_ms, bound_by = _bound(nbytes, ops)
+    print(f"[33 K8] conservative advancement on phase 33's call ({n} records, {iters} "
+          f"iterations): {note}; {w[0]} advancement and {w[1]} GJK iterations run "
+          f"({adv_ops} and {gjk_ops} operations each); {ms:.3f} ms through the wrapper, "
+          f"{kernel_ms:.3f} ms alone, plain {plain_ms:.1f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, launches=launches, library_ms=None)
+
+
+CCD_SPHERES = 256
+CCD_SPEED = 120.0  # m/s: 2 m a step at 1/60 s, 20 times a sphere's diameter
+
+
+# The wall's half thickness: a CCD stop may overshoot by up to one substep of the
+# clamped approach (tests/test_ccd.py's compound-panel test sizes its panel for it), here
+# 120 m/s over 1/240 s = 0.5 m; past the wall's centre plane the sphere is pushed out
+# of its far face. So the gated wall is 1 m thick, and a 0.4 m wall (Box(0.2, h, w)) is
+# run at 512 bodies and its crossings printed (ROADMAP queue 3).
+CCD_WALL, THIN_WALL = 0.5, 0.2
+
+
+def ccd_world(n_bodies, n_spheres, device, ccd_pairs, speculative=True, wall=CCD_WALL):
+    """Phase 4's pile (``build_pile``: ``bench.py``'s layout and solver settings, brute
+    force) with a static ``Box(wall, h, w)`` wall behind it that covers its face, 33
+    landing steps, then ``n_spheres`` continuous ``Sphere(0.1)`` of mass 0.1 (as
+    ``tests/test_ccd.py``'s bullet) fired along +x at ``CCD_SPEED`` from 3 m before the
+    pile, spread over its face (numpy seed 13). ``speculative`` False gives the spheres
+    no speculative margin (discrete contacts only). Returns (sim, sphere handles, the
+    wall's far face x)."""
+    from bepuphysics2_tpu_torch import BodyDescription, Box, Sphere, StaticDescription
+
+    sim = build_pile(n_bodies, device, max_ccd_pairs=ccd_pairs,
+                     body_capacity=n_bodies + n_spheres + 64)
+    side = max(1, int(np.ceil(n_bodies ** (1 / 3))))
+    half = 0.6 * side
+    wall_x = half + 1.3 + wall
+    sim.add_static(StaticDescription(position=(wall_x, half, 0.0),
+                                     shape=sim.add_shape(Box(wall, half + 2.0, half + 2.0))))
+    sim.run(33, DT)
+    s = Sphere(0.1)
+    ss = sim.add_shape(s)
+    rng = np.random.default_rng(13)
+    margins = {} if speculative else dict(speculative_margin=0.0, speculative_margin_max=0.0)
+    handles = [sim.add_body(BodyDescription.dynamic(
+        (-half - 3.0, rng.uniform(0.3, 1.0 + 0.9 * side), rng.uniform(-half, half)), ss, 0.1,
+        s, velocity=(CCD_SPEED, 0.0, 0.0), continuity=1, **margins)) for _ in range(n_spheres)]
+    return sim, handles, wall_x + wall
+
+
+def _past(sim, handles, far):
+    xs = sim.state.bodies.pos.x[torch.as_tensor(handles, device=sim.device)]
+    return int((xs > far).sum())
+
+
+class _risk_peak:
+    """The largest count of CCD risk pairs of any step inside a block, kept on the device
+    (the count ``narrowphase._ccd_times`` compacts): read once, after the block."""
+
+    def __init__(self, cap):
+        self.cap = cap
+
+    def __enter__(self):
+        from bepuphysics2_tpu_torch.collision import narrowphase
+
+        self.real = narrowphase.compact_true
+        self.peak = None
+
+        def spy(mask, size, *a):
+            sel, count = self.real(mask, size, *a)
+            if size == self.cap:
+                self.peak = count if self.peak is None else torch.maximum(self.peak, count)
+            return sel, count
+
+        narrowphase.compact_true = spy
+        return self
+
+    def __exit__(self, *exc):
+        from bepuphysics2_tpu_torch.collision import narrowphase
+
+        narrowphase.compact_true = self.real
+        return False
+
+
+def phase_ccd(dev, name, smi, steps=48, ccd_pairs=16384):
+    """Phase 35: CCD at full width. Phase 4's 4,096-body pile, 33 landing steps, then 256
+    continuous spheres at 120 m/s into it toward a thin static wall behind it
+    (``ccd_world``, a 1 m wall), ``max_ccd_pairs`` 16,384, ``steps`` timed steps: every
+    state value finite, no overflow, K1 once a step, K8 as often as the passes say (one
+    body-level pass a step: no compound), no plain version, no host sync, no sphere beyond
+    the wall's far face; the largest risk count of a step beside the capacity. Then 512
+    bodies and 32 spheres, 30 steps twice: one ``state_hash``; the same scene with
+    ``max_ccd_pairs`` 0 and the spheres' speculative margin 0 (discrete contacts alone)
+    must let a sphere through the wall, or the wall's gate proves nothing; the same scene
+    with CCD and a 0.4 m wall, its crossings printed (the solver's overshoot, ROADMAP
+    queue 3); and 64 bodies with 8 spheres, 10 card steps each from the CPU's state within
+    1e-4 of the CPU's. Returns K8's launches over the timed steps."""
+    from bepuphysics2_tpu_torch.collision import sweeps
+
+    sim, spheres, far = ccd_world(4096, CCD_SPHERES, dev, ccd_pairs)
+    calls, restore = _count_plain_calls()
+    before, k8_before = _kernel_launches(), sweeps.conservative_advance.launches
+    try:
+        with _risk_peak(ccd_pairs) as risk:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run(steps, DT)
+            torch.cuda.synchronize()
+            sps = steps / (time.perf_counter() - t0)
+        launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+        k8 = sweeps.conservative_advance.launches - k8_before
+        _, syncs = _timed_syncs(sim, 4)
+    finally:
+        restore()
+    min_y, pairs, contacts = _pile_gates(sim, "the CCD pile")
+    past = _past(sim, spheres, far)
+    peak = int(risk.peak)
+    hashes = []
+    for _ in range(2):
+        small, _, _ = ccd_world(512, 32, dev, 2048)
+        small.run(30, DT)
+        torch.cuda.synchronize()
+        hashes.append(small.state_hash())
+    control, c_spheres, c_far = ccd_world(512, 32, dev, 0, speculative=False)
+    control.run(30, DT)
+    through = _past(control, c_spheres, c_far)
+    thin, t_spheres, t_far = ccd_world(512, 32, dev, 2048, wall=THIN_WALL)
+    thin.run(30, DT)
+    thin_through = _past(thin, t_spheres, t_far)
+    worst, _ = _card_steps_from_states(ccd_world(64, 8, dev, 512)[0], _cpu_result("35"))
+    print(f"[35 ccd] 4096-body pile and {CCD_SPHERES} continuous spheres at {CCD_SPEED:g} m/s "
+          f"into it toward a {2 * CCD_WALL:g} m wall, on {name} ({smi}): {sps:.2f} steps/s "
+          f"over {steps} timed steps; spheres beyond the wall {past}; the largest risk count of a step "
+          f"{peak} (max_ccd_pairs {ccd_pairs}); pairs {pairs}, contacts {contacts}, min "
+          f"dynamic y {min_y:.3f}; launches {launches} and K8 {k8} over {steps} steps "
+          f"({k8 / steps:g} a step), plain calls {len(calls)}, host syncs per step "
+          f"{syncs:g}; 512 bodies and 32 spheres, 30 steps twice: state_hash "
+          f"{hashes[0]:#018x} / {hashes[1]:#018x}; the control (max_ccd_pairs 0, "
+          f"discrete contacts alone): {through} of 32 spheres through the wall; CCD on and a "
+          f"{2 * THIN_WALL:g} m wall: {thin_through} of 32 through; 64 bodies "
+          f"and 8 spheres, 10 card steps from the CPU's state within {worst:.3e} (limit "
+          f"{K1_TOL:g})")
+    _require(past == 0, f"{past} spheres went through the wall")
+    _require(peak <= ccd_pairs, f"{peak} risk pairs in a step, beyond {ccd_pairs}")
+    _require(launches == dict(K1=steps, K2=0, K3=0, K4=0), "K1 did not launch once per step")
+    _require(k8 == steps, f"K8 launched {k8} times in {steps} steps")
+    _require(not calls, f"plain versions ran on the card: {sorted(set(calls))}")
+    _require(syncs == 0, f"{syncs} host syncs per step on the CCD pile")
+    _require(hashes[0] == hashes[1], "two identical CCD runs on the card differ")
+    _require(through > 0, "the control let no sphere through: the wall's gate proves nothing")
+    _require(worst <= K1_TOL, "a card step of the CCD pile disagrees with the CPU's")
+    return k8
+
+
+def phase_utilities(dev, sim):
+    """Phase 36: queue 1 item 21 on phase 4's pile after its timed steps: a checkpoint, 20
+    steps, the checkpoint loaded and the same 20 steps give one ``state_hash``; ``validate``
+    passes; ``simulation_metrics`` is finite and within 1e-4 (relative) of the same
+    function on a CPU copy of the state; ``profile_stages`` times each stage on the card;
+    ``TraceSession`` writes a non-empty trace (under ``build/traces``)."""
+    import os
+
+    from bepuphysics2_tpu_torch import TraceSession, simulation_metrics, validate
+    from bepuphysics2_tpu_torch.interop import state_from_numpy, state_to_numpy
+    from bepuphysics2_tpu_torch.metrics import compute_metrics
+    from bepuphysics2_tpu_torch.profiling import profile_stages
+
+    data = sim.save_checkpoint()
+    sim.run(20, DT)
+    first = sim.state_hash()
+    sim.load_checkpoint(data)
+    sim.run(20, DT)
+    second = sim.state_hash()
+    validate(sim)
+    got = simulation_metrics(sim)
+    cpu_state = state_from_numpy(state_to_numpy(sim.state), "cpu")
+    want = compute_metrics(cpu_state, sim.shapes.device("cpu"), sim.config)
+    gap = 0.0
+    for f in got._fields:
+        g, w = getattr(got, f).cpu().double(), getattr(want, f).double()
+        _require(bool(torch.isfinite(g).all()), f"metric {f} is not finite")
+        gap = max(gap, float(((g - w).abs() / (1.0 + w.abs())).max()))
+    stages = profile_stages(sim, DT, iters=10)
+    log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "traces")
+    with TraceSession(log_dir) as trace:
+        sim.run(2, DT)
+    size = os.path.getsize(trace.path)
+    print(f"[36 utilities] on phase 4's pile: checkpoint, 20 steps, restore, 20 steps: "
+          f"state_hash {first:#018x} / {second:#018x} ({len(data)} bytes); validate passed; "
+          f"metrics within {gap:.3e} of the CPU's (kinetic energy "
+          f"{float(got.kinetic_energy):.4f}, {int(got.contact_count)} contacts); stage ms "
+          + ", ".join(f"{k} {1e3 * v:.3f}" for k, v in stages.items())
+          + f"; TraceSession wrote {size} bytes")
+    _require(first == second, "the steps after a restored checkpoint differ")
+    _require(gap <= 1e-4, f"the card's metrics part from the CPU's by {gap:.3e}")
+    _require(size > 0, "the trace is empty")
+
+
 def slice12_phases(dev, name, smi):
-    """Phases 32-34. Returns each new path's (kernel, launches)."""
+    """Phases 32-34, with K8 held on phase 33's sweeps. Returns each new path's (kernel,
+    launches) and K8's row."""
+    from bepuphysics2_tpu_torch.collision import sweeps
+
     cpu_side = _start_cpu_worker()  # phase 33's CPU side builds its pile meanwhile
     try:
         sim, k1, _ = phase_terrain_pile(dev, name, smi)
-        phase_queries(dev, sim, cpu_side)
+        before = sweeps.conservative_advance.launches
+        k8_call = phase_queries(dev, sim, cpu_side)
+        k8_launches = sweeps.conservative_advance.launches - before
     finally:
         if cpu_side[0].is_alive():
             cpu_side[0].terminate()
             cpu_side[0].join()
     del sim
+    k8 = phase_kernel_k8(dev, k8_call, 2)
+    del k8_call
     k3, _ = phase_characters(dev, name, smi)
-    return {"4k mesh-terrain pile": ("K1", k1), "64 characters": ("K3", k3)}
+    k8["paths"] = {"256 capsule sweeps, twice (phase 33)": 2,
+                   "every query of phase 33": k8_launches}
+    return {"4k mesh-terrain pile": ("K1", k1), "64 characters": ("K3", k3)}, k8
 
 
 def slice11_phases(dev, name, smi):
@@ -2842,7 +3317,9 @@ def slice11_phases(dev, name, smi):
     k1, _, _ = phase_five_shape_pile(dev, name, smi)
     phase_five_shape_small(dev)
     paths = {"4k five-shape pile": ("K1", k1)}
-    paths.update((k, ("K3", n)) for k, n in phase_vehicles(dev, name, smi).items())
+    vehicles = phase_vehicles(dev, name, smi)
+    paths["tank's 345 steps, CCD on (phase 31)"] = ("K8", vehicles.pop("tank K8"))
+    paths.update((k, ("K3", n)) for k, n in vehicles.items())
     return paths
 
 
@@ -2870,6 +3347,15 @@ def main():
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
+    _start_cpu_side()  # the CPU sides of phases 6-35, computed while the card runs
+    try:
+        return _phases(dev, name, smi, t_start)
+    finally:
+        _stop_cpu_side()
+
+
+def _phases(dev, name, smi, t_start):
+    """Phases 3-36 and the kernels line; the CPU sides come from ``_cpu_side_worker``."""
     # The main path runs first: phase 3 holds K1 on its last step's K1 call.
     k1_launches, k1_call = phase_main_path(dev, name, smi)
     k1 = phase_kernel(dev, k1_call)
@@ -2914,12 +3400,16 @@ def main():
     # Slice 11: the five-shape pile over the generic narrow phase (K1), the car and the
     # tank (K3).
     paths.update(slice11_phases(dev, name, smi))
-    # Slice 12: the mesh-terrain pile (K1), the queries on it, 64 characters (K3).
-    paths.update(slice12_phases(dev, name, smi))
+    # Slice 12: the mesh-terrain pile (K1), the queries on it (K8), 64 characters (K3).
+    new, k8 = slice12_phases(dev, name, smi)
+    paths.update(new)
+    # Slice 13: CCD on the 4k pile (K1, K8); the utilities on phase 4's pile.
+    paths["4k pile, 256 continuous spheres (phase 35)"] = ("K8", phase_ccd(dev, name, smi))
+    phase_utilities(dev, _PILE.pop("4k"))
     k1["paths"] = {"4k pile": k1["launches"]}
     k2["paths"] = {"16k pile": k2["launches"]}
     for path, (kernel, n) in paths.items():
-        dict(K1=k1, K2=k2, K3=k3)[kernel]["paths"][path] = n
+        dict(K1=k1, K2=k2, K3=k3, K8=k8)[kernel]["paths"][path] = n
     # No single PyTorch call computes K1-K5 or K7 (ordered Gauss-Seidel walks; 36
     # dependent passes; a read-add-set whose last writer wins): their library_ms is null.
     for k in (k1, k2, k3, k4):
@@ -2930,8 +3420,9 @@ def main():
             ("contact_sweep_win (K4)", K4_SOURCE, K4_REPLACES, k4),
             ("probe_sweep (K5)", K5_SOURCE, K5_REPLACES, k5),
             ("probe_gather (K6)", K6_SOURCE, K6_REPLACES, k6),
-            ("probe_scatter (K7)", K7_SOURCE, K7_REPLACES, k7)]
-    print(f"[done] 34 phases in {time.perf_counter() - t_start:.0f} s")
+            ("probe_scatter (K7)", K7_SOURCE, K7_REPLACES, k7),
+            ("conservative_advance (K8)", K8_SOURCE, K8_REPLACES, k8)]
+    print(f"[done] 36 phases in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [dict(
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],

@@ -35,9 +35,19 @@ CONTACT_KERNELS = tuple(build.KERNELS[k] for k in ("K1", "K2", "K3", "K4"))
 
 
 def test_every_kernel_has_its_source():
-    assert set(build.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K6", "K7"}
+    assert set(build.KERNELS) == {"K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"}
     for name in KERNELS:
         assert (build.CSRC / f"{name}.cu").is_file(), name
+
+
+def test_a_kernels_own_flags_enter_its_key_alone(monkeypatch):
+    """K8 is built with ``-fmad=false`` (``KERNEL_FLAGS``): the flag is in its key, so a
+    library built without it never loads, and in no other kernel's."""
+    assert build.KERNEL_FLAGS == {"conservative_advance": ["-fmad=false"]}
+    keys = {name: build.source_key(name) for name in KERNELS}
+    monkeypatch.setattr(build, "KERNEL_FLAGS", {})
+    for name in KERNELS:
+        assert (build.source_key(name) == keys[name]) == (name != "conservative_advance"), name
 
 
 def test_key_is_stable_and_distinct(csrc_copy):

@@ -6,10 +6,11 @@
   bit.
 - On the card (``cuda``) both replay as CUDA graphs from their second call on: the 30-rig
   battery, a two-ragdoll tube and a 40-body five-shape pile give, step by step, the bits
-  of the same steps run eagerly (``replay.enabled`` off). So do the queries that replay:
-  a batch of capsule sweeps (the conservative advancement) and a single ray with
-  ``exclude`` (the whole cast), on a 64-body pile on a mesh, called three times (eager,
-  captured, replayed).
+  of the same steps run eagerly (``replay.enabled`` off). So does a single ray with
+  ``exclude`` (the whole cast replays), on a 64-body pile on a mesh, called three times
+  (eager, captured, replayed). A batch of capsule sweeps on that pile runs its
+  conservative advancement in kernel K8 and replays nothing: its three calls give the
+  bits of the same calls through K8's plain version (``sweeps._advance``), run eagerly.
 """
 import numpy as np
 import pytest
@@ -112,11 +113,17 @@ def test_replayed_steps_give_the_eager_bits(scene, cuda_device):
 
 
 def _query_results(query, device, enabled):
-    """Three calls of ``query`` on a settled 64-body mesh-terrain pile, as numpy."""
+    """Three calls of ``query`` on a settled 64-body mesh-terrain pile, as numpy. Not
+    ``enabled``: every call eager, and the sweeps' advancement through K8's plain
+    version instead of K8."""
+    from bepuphysics2_tpu_torch.collision import sweeps
     from bepuphysics2_tpu_torch.models import build_terrain_pile_sim
 
     replay.clear()
     replay.enabled = enabled
+    kernel = sweeps.conservative_advance
+    if not enabled:
+        sweeps.conservative_advance = lambda x, iters, miss: sweeps._advance(x, (), iters, miss)
     try:
         sim, _ = build_terrain_pile_sim(64, 10, device=device)
         sim.run(20, 1 / 60)
@@ -127,6 +134,7 @@ def _query_results(query, device, enabled):
                                    else v.cpu()) for v in res if v is not None])
         return out
     finally:
+        sweeps.conservative_advance = kernel
         replay.enabled = True
         replay.clear()
 
@@ -149,8 +157,14 @@ def _ray(sim, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("query", ["sweep_shape_batch", "ray_cast"])
 def test_replayed_queries_give_the_eager_bits(query, cuda_device):
+    from bepuphysics2_tpu_torch.collision import sweeps
+
     fn = {"sweep_shape_batch": _sweeps, "ray_cast": _ray}[query]
-    got, want = _query_results(fn, cuda_device, True), _query_results(fn, cuda_device, False)
+    before = sweeps.conservative_advance.launches
+    got = _query_results(fn, cuda_device, True)
+    if query == "sweep_shape_batch":
+        assert sweeps.conservative_advance.launches == before + 3  # K8 once a call
+    want = _query_results(fn, cuda_device, False)
     for g, w in zip(got, want):
         for a, b in zip(g, w):
             np.testing.assert_array_equal(a, b)

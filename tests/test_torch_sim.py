@@ -318,18 +318,15 @@ def test_simulation_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("load_checkpoint", "item 21"), ("sharded_solve", "item 23"),
-    ("jax_shape", "not a shape of the port"), ("sweep_broadphase", "Not to port"),
-    ("ccd", "item 19"), ("save_checkpoint", "item 21"), ("legacy_cache", "legacy"),
+    ("sharded_solve", "item 23"), ("jax_shape", "not a shape of the port"),
+    ("sweep_broadphase", "Not to port"), ("legacy_cache", "legacy"),
     ("windowed_compound", "queue 3"),
 ])
 def test_unported_paths_are_refused_by_name(case, item):
     """A scene or call the port cannot carry raises, naming the ROADMAP item; it is never
     solved on a path the port does not have."""
     with pytest.raises(NotImplementedError, match=item):
-        if case == "load_checkpoint":
-            _tiny().load_checkpoint(b"unused")
-        elif case == "sharded_solve":
+        if case == "sharded_solve":
             sim = _tiny()
             solve_all(sim.state.bodies, [], {}, sim.config.integrator,
                       sim.config.solve_config(), DT, axis_name="bodies")
@@ -337,10 +334,6 @@ def test_unported_paths_are_refused_by_name(case, item):
             _tiny().add_shape(jbp.Cylinder(0.5, 1.0))
         elif case == "sweep_broadphase":
             _tiny(broadphase="sweep").timestep(DT)
-        elif case == "ccd":
-            _tiny(max_ccd_pairs=8).timestep(DT)
-        elif case == "save_checkpoint":
-            _tiny().save_checkpoint("unused.npz")
         elif case == "legacy_cache":
             _tiny(use_pair_store=False).timestep(DT)
         elif case == "windowed_compound":

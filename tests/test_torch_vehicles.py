@@ -75,9 +75,9 @@ def car_scene(mod):
 
 
 def tank_scene(mod):
-    """``tests/test_models.py``'s tank scene, without CCD (the port has none yet)."""
+    """``tests/test_models.py``'s tank scene, CCD on as there (``max_ccd_pairs`` 4)."""
     sim = _sim(mod, (120.0, -0.25), body_capacity=64, max_pairs=1024, substeps=4,
-               num_colors=8, joint_capacity=64, enable_sleep=False)
+               num_colors=8, joint_capacity=64, max_ccd_pairs=4, enable_sleep=False)
     models = jmodels if mod is jbp else tmodels
     models.Tank(sim, position=(0.0, 1.0, 0.0), wheels_per_tread=3)
     return sim

@@ -3,8 +3,8 @@
 Counterpart of ``bepuphysics2_tpu/checkpoint.py``. The reference has no engine-level
 serializer (its state is rebuilt through public getters: Bodies.GetDescription
 Bodies.cs:530, Solver.GetDescription Solver.cs:1413, accumulated impulses included). Here
-the port's ``SimState`` (bodies, the pair store with its accumulated impulses, the compound
-child caches, joint impulses and colors) is a tree of named tuples and dicts of tensors,
+the port's ``SimState`` (bodies, the pair store with its accumulated impulses or the legacy
+convex caches, the compound child caches, joint impulses and colors) is a tree of named tuples and dicts of tensors,
 so a checkpoint is its leaves in a fixed order (named-tuple fields in order, dict keys
 sorted) and resuming keeps the warm starts bit for bit.
 """
@@ -22,6 +22,8 @@ def _rebuild(template, it):
     """``template``'s tree with every leaf replaced by the next tensor of ``it``."""
     if torch.is_tensor(template):
         return next(it)
+    if template is None:  # the convex banks of the path a configuration does not run
+        return None
     if isinstance(template, dict):
         return {k: _rebuild(template[k], it) for k in sorted(template)}
     if hasattr(template, "_fields"):

@@ -2,15 +2,14 @@
 row-local warm-start carry from the pair store and keyed carry for compound children.
 
 Counterpart of ``run_convex_testers``, ``convex_pair_records``, ``narrow_phase_store``,
-``PairCache``, ``narrow_phase_compound``, ``update_cache_keyed`` and ``retain_sleeping``
-in ``bepuphysics2_tpu/collision/narrowphase.py``, for every convex shape (the analytic
+``PairCache``, ``narrow_phase`` (the legacy per-frame path, with ``update_cache``),
+``narrow_phase_compound``, ``update_cache_keyed`` and ``retain_sleeping`` in
+``bepuphysics2_tpu/collision/narrowphase.py``, for every convex shape (the analytic
 testers, and the generic GJK/MPR path of ``convex.py`` for the other pairs), compounds of
 them and meshes, compound-vs-compound pairs included, with CCD (``ccd_eval_times`` and the
-time-of-impact branch of ``convex_pair_records``, over ``sweeps.pair_toi``). The port has
-no legacy per-frame cache path (ROADMAP "Not to port"); a scene that would need it is
-refused before it is stepped. The JAX package's runtime
-``lax.cond`` skips become unconditional passes whose result is selected by the same
-predicate, so nothing waits for the device.
+time-of-impact branch of ``convex_pair_records``, over ``sweeps.pair_toi``). The JAX
+package's runtime ``lax.cond`` skips become unconditional passes whose result is selected
+by the same predicate, so nothing waits for the device.
 """
 from __future__ import annotations
 
@@ -408,6 +407,48 @@ def narrow_phase_store(
         twist=torch.where(matched, store.imp_tw, 0.0),
     )
     return prestep, imp, t_eval
+
+
+def narrow_phase(state: BodyState, shapes: ShapeData, pairs, cache: PairCache, dt,
+                 spec_margin_max: float = 1.0e30, present_types: tuple = None,
+                 max_ccd: int = 0, pairs_sorted: bool = False, sleep_bank: PairCache = None):
+    """The legacy per-frame candidate path (``SimConfig.use_pair_store=False``, and the
+    sharded step): records for every broad-phase candidate, with a sorted-join warm-start
+    carry against the previous frame's ``PairCache`` by pair key and feature id.
+    ``pairs_sorted``: the candidates come in ascending b-major key order (the brute
+    force, and ``brute_force_rows``), so last frame's cache is sorted by construction and
+    the join skips its sort. Returns (prestep, impulses, carried colors, t_eval)."""
+    n_bodies = state.pos.x.shape[0]
+    prestep, t_eval = convex_pair_records(
+        state, shapes, pairs.a, pairs.b, pairs.valid, dt, spec_margin_max=spec_margin_max,
+        present_types=present_types, max_ccd=max_ccd)
+    imp, carried_color = _warm_start_from_cache(prestep, cache, n_bodies,
+                                                presorted=pairs_sorted, sleep_bank=sleep_bank)
+    return prestep, imp, carried_color, t_eval
+
+
+def _warm_start_from_cache(prestep: ContactPrestep, cache: PairCache, n_bodies: int,
+                           presorted: bool = False, sleep_bank: PairCache = None):
+    """The keyed carry of ``_warm_start_from_cache_keyed`` with b-major pair keys."""
+    key = pair_key(prestep.body_a, prestep.body_b, n_bodies)
+    return _warm_start_from_cache_keyed(prestep, cache, key, presorted=presorted,
+                                        sleep_bank=sleep_bank)
+
+
+def update_cache(prestep: ContactPrestep, imp: ContactImpulses, n_bodies: int, color,
+                 slot_live=None) -> PairCache:
+    """This frame's records as next frame's warm-start cache; ``color`` is the solver
+    color each record took (-1: Jacobi or none, retried next frame). Keys are masked by
+    ``slot_live`` (the broad phase's live slots, a prefix of the list), not by
+    ``prestep.valid``: records without contacts sit between ones with contacts, and
+    masking their keys would break the ascending order the presorted join relies on. The
+    carry itself is still gated by ``valid`` at match time."""
+    live = prestep.valid if slot_live is None else slot_live
+    key = torch.where(live, pair_key(prestep.body_a, prestep.body_b, n_bodies), _BIG)
+    return PairCache(key=key.to(torch.int32), feature=prestep.feature,
+                     penetration=imp.penetration, tangent=imp.tangent, twist=imp.twist,
+                     valid=prestep.valid, color=color.to(torch.int32),
+                     body_a=prestep.body_a, body_b=prestep.body_b)
 
 
 def narrow_phase_compound(

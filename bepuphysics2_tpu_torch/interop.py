@@ -2,9 +2,9 @@
 
 ``state_from_numpy`` turns a JAX ``SimState`` whose leaves are numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, sim.state)``) into the port's ``SimState``: bodies,
-the compound child caches, joint impulses and colors, and the pair store (the legacy
-convex caches are not read by the store path; a compound child cache sized for
-compound-vs-compound records carries as it is). ``shapes_from_numpy`` does the same for
+the legacy convex caches, the compound child caches, joint impulses and colors, and the
+pair store (None in a legacy configuration, in both packages; a compound child cache
+sized for compound-vs-compound records carries as it is). ``shapes_from_numpy`` does the same for
 ``ShapeData`` (its hull pool, compound and mesh child rows, triangles and cluster tables
 included),
 ``joint_banks_from_numpy`` for the joint banks a step takes (``JointTypeStore.device()``
@@ -31,6 +31,8 @@ _TYPES = {c.__name__: c for c in (BodyState, ContactImpulses, ContactPrestep, Pa
 
 def _to_torch(src, device):
     """A NamedTuple or dict tree of numpy arrays → the port's tree of tensors, by name."""
+    if src is None:
+        return None
     if hasattr(src, "_fields"):
         cls = _TYPES[type(src).__name__]
         if cls is ShapeData:
@@ -42,6 +44,8 @@ def _to_torch(src, device):
 
 
 def _to_numpy(src):
+    if src is None:
+        return None
     if hasattr(src, "_fields"):
         return type(src)(*(_to_numpy(v) for v in src))
     if isinstance(src, dict):

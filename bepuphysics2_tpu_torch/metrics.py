@@ -63,26 +63,34 @@ def _body_terms(state: BodyState, gravity):
 
 def compute_metrics(state, shapes, config) -> SimMetrics:
     """Reduce a SimState to SimMetrics on its device (``shapes`` is unused, as in the JAX
-    package's signature). The JAX state carries two legacy convex caches (``cache`` and
-    ``sleep_cache``, ``max_pairs`` rows each) that its pair-store path never writes: they
-    add nothing but their capacity to ``pair_utilization``, which the port counts too,
-    and ``max_penetration`` reads the first of them, so on that path it is 0 in both
-    packages."""
+    package's signature). Records count from every convex and compound cache and the pair
+    store. On the store path the JAX state carries two empty legacy convex caches
+    (``cache`` and ``sleep_cache``, ``max_pairs`` rows each) where the port's are None:
+    their capacity still counts in ``pair_utilization``, and ``max_penetration`` reads the
+    first of them, so on that path it is 0 in both packages."""
     bodies = state.bodies
     dyn, ke, pe, mv, lm, speed, wspeed = _body_terms(bodies, config.integrator.gravity)
     dev = bodies.kind.device
-    caches = [state.ccache, state.sleep_ccache]
+    caches = [c for c in (state.cache, state.ccache, state.sleep_cache, state.sleep_ccache)
+              if c is not None]
     imp_total = sum(torch.where(c.valid[:, None], c.penetration, 0.0).sum() for c in caches)
     n_contacts = sum((c.valid[:, None] & (c.feature >= 0) & (c.penetration != 0.0))
                      .sum().to(torch.int32) for c in caches)
     util_live = sum(c.valid.sum().to(torch.int32) for c in caches)
-    util_cap = sum(c.valid.shape[0] for c in caches) + 2 * config.max_pairs
+    util_cap = sum(c.valid.shape[0] for c in caches)
+    max_pen = torch.zeros((), dtype=torch.float32, device=dev)
+    if state.cache is not None:
+        c = state.cache
+        max_pen = torch.where(c.valid[:, None], c.penetration.abs(), 0.0).max()
     st = state.store
-    imp_total = imp_total + torch.where(st.live[:, None], st.imp_pen, 0.0).sum()
-    n_contacts = n_contacts + (st.live[:, None] & (st.feature >= 0)
-                               & (st.imp_pen != 0.0)).sum().to(torch.int32)
-    util_live = util_live + st.live.sum().to(torch.int32)
-    util_cap = util_cap + st.live.shape[0]
+    if st is not None:
+        if state.cache is None:
+            util_cap = util_cap + 2 * config.max_pairs
+        imp_total = imp_total + torch.where(st.live[:, None], st.imp_pen, 0.0).sum()
+        n_contacts = n_contacts + (st.live[:, None] & (st.feature >= 0)
+                                   & (st.imp_pen != 0.0)).sum().to(torch.int32)
+        util_live = util_live + st.live.sum().to(torch.int32)
+        util_cap = util_cap + st.live.shape[0]
     zero = torch.zeros_like(speed)
     return SimMetrics(
         kinetic_energy=ke,
@@ -91,7 +99,7 @@ def compute_metrics(state, shapes, config) -> SimMetrics:
         angular_momentum_origin=lm,
         max_speed=torch.where(dyn, speed, zero).max(),
         max_angular_speed=torch.where(dyn, wspeed, zero).max(),
-        max_penetration=torch.zeros((), dtype=torch.float32, device=dev),
+        max_penetration=max_pen,
         contact_impulse_total=imp_total,
         awake_dynamic_count=dyn.sum().to(torch.int32),
         sleeping_count=((bodies.kind == KIND_DYNAMIC) & ~bodies.awake).sum().to(torch.int32),

@@ -4,8 +4,9 @@ the stage taxonomy of DefaultTimestepper.cs:28).
 Counterpart of ``bepuphysics2_tpu/profiling.py`` ``profile_stages``, with its keys and
 stages: bounds, broad phase, narrow phase and solve, each run on its own from the
 simulation's current state as one step runs it (``simulation._step_impl``: the narrow
-phase is the pair store's update and its narrow phase, with the compound bank where
-compounds or meshes are present; the solve takes every bank of the step). Each stage is
+phase is the pair store's update and its narrow phase, or on the legacy path the
+per-frame records and their cache join, with the compound bank where compounds or meshes
+are present; the solve takes every bank of the step). Each stage is
 timed over ``iters`` calls after one warm-up call: with CUDA events on the card (the
 device's time for the stage), with the host clock on the CPU. For tuning, not for the hot
 path: it syncs with the device per stage.
@@ -41,12 +42,11 @@ def profile_stages(sim, dt: float = 1.0 / 60.0, iters: int = 20) -> dict:
     ``bounds``, ``broadphase``, ``narrowphase``, ``solve``."""
     import numpy as np
 
-    from .collision import broadphase as bp
     from .collision import pairstore
-    from .collision.narrowphase import narrow_phase_compound, narrow_phase_store
+    from .collision.narrowphase import narrow_phase, narrow_phase_compound, narrow_phase_store
     from .shapes import compute_body_bounds
     from .shapes.registry import COMPOUND, MESH
-    from .simulation import _broadphase_method
+    from .simulation import _broadphase_method, broad_phase
     from .solver.solve import solve_all
     from .utils.vec import Vec3
 
@@ -78,17 +78,25 @@ def profile_stages(sim, dt: float = 1.0 / 60.0, iters: int = 20) -> dict:
                 amax.where(has_shape, Vec3.full(has_shape.shape, -big, -big, -big, device=dev)))
 
     def stage_broad(amin, amax, b):
-        if _broadphase_method(config) == "brute":
-            return bp.brute_force(amin, amax, b.kind, b.awake, b.collision_group,
-                                  config.max_pairs)
-        return bp.grid2(amin, amax, b.kind, b.awake, b.collision_group, config.max_pairs,
-                        config.grid_cell_size, config.grid_cell_capacity,
-                        config.grid_max_large, config.grid_entry_factor,
-                        config.grid_cell_factor, config.grid_pair_k)
+        return broad_phase(amin, amax, b, config)
 
     has_compounds = COMPOUND in present or MESH in present
 
     def stage_narrow(amin, amax, b, pairs):
+        comp = None
+        if has_compounds:
+            comp = narrow_phase_compound(
+                b, shapes, pairs, state.ccache, dt, config.max_compound_pairs,
+                config.children_per_pair, config.child_window, present_types=present,
+                max_cc_pairs=config.max_cc_pairs,
+                cc_children_per_side=config.cc_children_per_side,
+                meshes_meet=sim._mesh_bodies() > 1)
+        if not config.use_pair_store:
+            prestep, imp, pcolor, _ = narrow_phase(
+                b, shapes, pairs, state.cache, dt, present_types=present,
+                pairs_sorted=_broadphase_method(config) == "brute",
+                sleep_bank=state.sleep_cache if config.enable_sleep else None)
+            return None, pcolor, prestep, imp, comp
         sa = b.shape[pairs.a.long()]
         sb = b.shape[pairs.b.long()]
         ta = torch.where(sa >= 0, shapes.type[sa.clamp_min(0).long()], -1)
@@ -106,23 +114,19 @@ def profile_stages(sim, dt: float = 1.0 / 60.0, iters: int = 20) -> dict:
             repair_cap)
         prestep, imp, _ = narrow_phase_store(b, shapes, store, active, dt,
                                              present_types=present)
-        comp = None
-        if has_compounds:
-            comp = narrow_phase_compound(
-                b, shapes, pairs, state.ccache, dt, config.max_compound_pairs,
-                config.children_per_pair, config.child_window, present_types=present,
-                max_cc_pairs=config.max_cc_pairs,
-                cc_children_per_side=config.cc_children_per_side,
-                meshes_meet=sim._mesh_bodies() > 1)
         return store, active, prestep, imp, comp
 
     joint_banks = sim._joint_banks()
 
     def stage_solve(b, narrow):
+        # The store path's (store, active rows); the legacy path's (None, carried colors).
         store, active, prestep, imp, comp = narrow
         banks = {name: dict(joint_banks[name], impulse=state.joint_impulses[name],
                             color=state.joint_colors[name]) for name in joint_banks}
         contact_banks = [comp[:3]] if comp is not None else []
+        if store is None:
+            return solve_all(b, [(prestep, imp, active)] + contact_banks, banks,
+                             config.integrator, config.solve_config(), dt)
         return solve_all(b, contact_banks, banks, config.integrator, config.solve_config(),
                          dt, store_bank=dict(store=store, ps=prestep, imp=imp, active=active),
                          base_used=store.used)

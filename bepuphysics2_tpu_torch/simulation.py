@@ -3,21 +3,25 @@
 Counterpart of ``bepuphysics2_tpu/simulation.py`` (reference Simulation.cs:106 Create,
 Simulation.cs:316 Timestep). One step is, in order:
 
-    bounds → broad phase (brute force, or grid2 above 8,192 bodies) → pair store update →
-    narrow phase (+ warm-start carry; compound children keyed through their cache) → wake
-    → substepped TGS solve (store-only scenes: kernel K1, or the windowed K2 above 8,192
-    bodies; scenes with joints: the general path over K3) → island sleep → compound
-    cache and sleep-bank update
+    bounds → broad phase (brute force, or grid2 above 8,192 bodies; ``sweep`` and ``grid``
+    on request) → pair store update → narrow phase (+ warm-start carry; compound children
+    keyed through their cache) → wake → substepped TGS solve (store-only scenes: kernel
+    K1, or the windowed K2 above 8,192 bodies; scenes with joints: the general path over
+    K3) → island sleep → compound cache and sleep-bank update
+
+With ``use_pair_store=False`` (the legacy per-frame path) the pair store gives way to the
+broad phase's candidates: their records carry last frame's impulses and colors through a
+sorted join against the convex ``cache``, the general path colors and buckets them every
+step (one K1 launch for a contact-only scene, K3 beside joints), and the records of
+sleeping pairs move to ``sleep_cache`` and back.
 
 Topology mutation (bodies, statics, shapes, constraints, host setters) happens host-side
 between steps and marks the device state dirty; the next timestep pushes the merged state.
 ``reconfigure`` and ``autosize`` resize capacities between steps, migrating the pair store
 and resizing the compound caches. The queries (ray casts, sweeps, the box query, contact
-records and events) read the device state between steps. The port carries the
-pair-store path for every shape, compounds and meshes with all joint types, CCD
-(``max_ccd_pairs``) and checkpoints; a configuration or call that needs anything else (the
-sharded step, the legacy per-frame cache path) is refused with the ROADMAP item that
-brings it.
+records and events) read the device state between steps. Every configuration the JAX
+package accepts runs; the constraint-sharded step and batched worlds are in
+``parallel/sharding.py``.
 """
 from __future__ import annotations
 
@@ -36,8 +40,8 @@ from .bodies import (
 from .collision import broadphase as bp
 from .collision import pairstore
 from .collision.narrowphase import (
-    PairCache, ccd_eval_times, convex_type_mask, narrow_phase_compound, narrow_phase_store,
-    retain_sleeping_when, update_cache_keyed,
+    PairCache, ccd_eval_times, convex_type_mask, narrow_phase, narrow_phase_compound,
+    narrow_phase_store, retain_sleeping_when, update_cache, update_cache_keyed,
 )
 from .collision.pairstore import PairStore
 from .constraints.joints import (
@@ -56,9 +60,8 @@ from .utils.vec import Vec3
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     """Static configuration; the same fields as the JAX package's SimConfig, so configs
-    carry across unchanged. Fields of paths the port does not have yet must keep their
-    defaults (see ``_check_supported``). ``solver_backend="pallas_win"`` forces the
-    windowed solve (K2) at any size; every other value takes K1 up to 8,192 bodies."""
+    carry across unchanged. ``solver_backend="pallas_win"`` forces the windowed solve (K2)
+    at any size; every other value takes K1 up to 8,192 bodies."""
 
     body_capacity: int = 1024
     max_pairs: int = 4096
@@ -138,15 +141,20 @@ class SimConfig:
 
 
 class SimState(NamedTuple):
-    """Device-side state: the JAX SimState's fields less the legacy convex caches
-    (``cache``, ``sleep_cache``), which the pair-store path never reads."""
+    """Device-side state, the JAX SimState's fields in its order. The convex records live
+    in the pair store, or with ``use_pair_store=False`` in the per-frame ``cache`` and its
+    sleep bank; the banks of the path a configuration does not run are None (the JAX
+    package carries empty convex caches beside its store, which its store path never
+    reads)."""
 
     bodies: BodyState
+    cache: Optional[PairCache]  # legacy path: convex contact records, b-major keys
     ccache: PairCache  # compound child contact records
     joint_impulses: dict  # name -> (M, N_IMPULSE)
     joint_colors: dict  # name -> (M,) int32 persisted solver colors, -1 = none
+    sleep_cache: Optional[PairCache]  # legacy path: sleeping convex records
     sleep_ccache: PairCache  # sleeping compound child records
-    store: PairStore
+    store: Optional[PairStore] = None  # the pair store; None in a legacy configuration
 
 
 class StepDiagnostics(NamedTuple):
@@ -154,7 +162,7 @@ class StepDiagnostics(NamedTuple):
     contact_count: torch.Tensor
     overflow: torch.Tensor
     # Which capacity tripped (bitmask): 1=broad phase, 2=solver buckets, 4=pair store,
-    # 8=compound children, 32=compound sleep retention.
+    # 8=compound children, 16=sleep retention, 32=compound sleep retention.
     overflow_src: torch.Tensor = 0
     # (12,) int32 true demand counters:
     # [0 broad-phase candidate pairs, 1 grid entries, 2 grid large set,
@@ -170,19 +178,33 @@ DEMAND_LEN = 12
 
 
 def _broadphase_method(config: SimConfig) -> str:
+    """The broad phase a configuration runs: ``auto`` is brute force up to 8,192 bodies and
+    grid2 above; a name other than brute, grid2 and grid is the sweep, as in the JAX
+    package."""
     if config.broadphase == "auto":
         return "brute" if config.body_capacity <= 8192 else "grid2"
-    return config.broadphase
+    return config.broadphase if config.broadphase in ("brute", "grid2", "grid") else "sweep"
+
+
+def broad_phase(aabb_min, aabb_max, bodies, config: SimConfig):
+    """The configuration's broad phase over these bounds (JAX ``_step_impl`` :240-269)."""
+    args = (aabb_min, aabb_max, bodies.kind, bodies.awake, bodies.collision_group,
+            config.max_pairs)
+    method = _broadphase_method(config)
+    if method == "brute":
+        return bp.brute_force(*args)
+    if method == "grid2":
+        return bp.grid2(*args, config.grid_cell_size, config.grid_cell_capacity,
+                        config.grid_max_large, config.grid_entry_factor,
+                        config.grid_cell_factor, config.grid_pair_k)
+    if method == "grid":
+        return bp.grid(*args, config.grid_cell_size, config.grid_cell_capacity,
+                       config.grid_max_large)
+    return bp.sweep(*args, config.sweep_window)
 
 
 def _check_supported(config: SimConfig, present_types) -> None:
-    """Refuse, before stepping, a configuration that needs a path the port lacks."""
-    if not config.use_pair_store:
-        raise NotImplementedError("the legacy per-frame cache path is not ported")
-    if _broadphase_method(config) not in ("brute", "grid2"):
-        raise NotImplementedError(
-            f"broad phase {config.broadphase!r} is not ported (ROADMAP queue 1, "
-            "'Not to port'): use 'brute' or 'grid2'")
+    """Refuse, before stepping, a scene whose shape types are unknown."""
     for t in present_types or ():
         if t > CONVEX_HULL and t not in (COMPOUND, BIG_COMPOUND, MESH) and not is_custom(t):
             raise ValueError(f"shape type {t} is neither built in nor a registered custom shape")
@@ -209,54 +231,57 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
     aabb_max = aabb_max.where(has_shape, Vec3.full(has_shape.shape, -big, -big, -big, device=dev))
 
     # --- Broad phase.
-    if _broadphase_method(config) == "brute":
-        pairs = bp.brute_force(aabb_min, aabb_max, bodies.kind, bodies.awake,
-                               bodies.collision_group, config.max_pairs)
-    else:
-        pairs = bp.grid2(
-            aabb_min, aabb_max, bodies.kind, bodies.awake, bodies.collision_group,
-            config.max_pairs, config.grid_cell_size, config.grid_cell_capacity,
-            config.grid_max_large, config.grid_entry_factor, config.grid_cell_factor,
-            config.grid_pair_k,
-        )
-
-    # --- Pair store + narrow phase. Only convex-capable pairs live in the store;
-    # compound-endpoint pairs flow to the child expansion below.
-    def _shape_type(body):
-        s = bodies.shape[body.long()]
-        return torch.where(s >= 0, shapes.type[s.clamp_min(0).long()], -1)
-
-    ta_, tb_ = _shape_type(pairs.a), _shape_type(pairs.b)
+    pairs = broad_phase(aabb_min, aabb_max, bodies, config)
+    use_store = config.use_pair_store
+    nb_cap = config.body_capacity
     customs = [t for t in (CUSTOM_SUPPORTS if present_types is None else present_types)
                if is_custom(t)]
-    insertable = convex_type_mask(ta_, customs) & convex_type_mask(tb_, customs)
-    # Color claims held by the joint banks and the compound child records: the store
-    # must not admit a pair into a (body, color) slot one of them holds.
-    nb_cap = config.body_capacity
-    ext_used = torch.zeros(nb_cap + 1, dtype=torch.int32, device=dev)
-    for name in joint_banks:
-        bank = joint_banks[name]
-        ext_used = ext_used | pairstore.store_claims(
-            bank["bodies"], state.joint_colors[name], bank["valid"], nb_cap, C)
-    cc = state.ccache
-    ext_used = ext_used | pairstore.store_claims(
-        torch.stack([cc.body_a, cc.body_b], -1), cc.color, cc.valid, nb_cap, C)
-    churn_cap, dead_cap, repair_cap = config.store_caps()
-    store, sovfl, store_demand, active = pairstore.update(
-        state.store, bodies.kind, bodies.awake, bodies.collision_group,
-        aabb_min, aabb_max, pairs.a, pairs.b, pairs.valid, insertable,
-        C, ext_used, churn_cap, dead_cap, repair_cap,
-    )
-    prestep, imp, t_eval = narrow_phase_store(bodies, shapes, store, active, dt,
-                                              present_types=present_types,
-                                              max_ccd=config.max_ccd_pairs)
     has_compounds = present_types is None or COMPOUND in present_types or MESH in present_types
-    if has_compounds and config.max_ccd_pairs > 0:
-        # t_eval above is aligned with the store's slots; the compound expansion reads the
-        # broad phase's candidates, so its CCD times come from a second pass over them
-        # (under the max_ccd_pairs cap the two passes may keep different pairs).
-        t_eval = ccd_eval_times(bodies, shapes, pairs.a, pairs.b, pairs.valid, dt,
-                                config.max_ccd_pairs, present_types)
+
+    if use_store:
+        # --- Pair store + narrow phase. Only convex-capable pairs live in the store;
+        # compound-endpoint pairs flow to the child expansion below.
+        def _shape_type(body):
+            s = bodies.shape[body.long()]
+            return torch.where(s >= 0, shapes.type[s.clamp_min(0).long()], -1)
+
+        insertable = (convex_type_mask(_shape_type(pairs.a), customs)
+                      & convex_type_mask(_shape_type(pairs.b), customs))
+        # Color claims held by the joint banks and the compound child records: the store
+        # must not admit a pair into a (body, color) slot one of them holds.
+        ext_used = torch.zeros(nb_cap + 1, dtype=torch.int32, device=dev)
+        for name in joint_banks:
+            bank = joint_banks[name]
+            ext_used = ext_used | pairstore.store_claims(
+                bank["bodies"], state.joint_colors[name], bank["valid"], nb_cap, C)
+        cc = state.ccache
+        ext_used = ext_used | pairstore.store_claims(
+            torch.stack([cc.body_a, cc.body_b], -1), cc.color, cc.valid, nb_cap, C)
+        churn_cap, dead_cap, repair_cap = config.store_caps()
+        store, sovfl, store_demand, active = pairstore.update(
+            state.store, bodies.kind, bodies.awake, bodies.collision_group,
+            aabb_min, aabb_max, pairs.a, pairs.b, pairs.valid, insertable,
+            C, ext_used, churn_cap, dead_cap, repair_cap,
+        )
+        prestep, imp, t_eval = narrow_phase_store(bodies, shapes, store, active, dt,
+                                                  present_types=present_types,
+                                                  max_ccd=config.max_ccd_pairs)
+        if has_compounds and config.max_ccd_pairs > 0:
+            # t_eval above is aligned with the store's slots; the compound expansion reads
+            # the broad phase's candidates, so its CCD times come from a second pass over
+            # them (under the max_ccd_pairs cap the two passes may keep different pairs).
+            t_eval = ccd_eval_times(bodies, shapes, pairs.a, pairs.b, pairs.valid, dt,
+                                    config.max_ccd_pairs, present_types)
+        pcolor = None
+    else:
+        # --- Legacy per-frame path: every candidate's records, joined to last frame's
+        # cache (presorted where the brute force emits ascending b-major keys).
+        store, store_demand = None, torch.zeros(3, dtype=torch.int32, device=dev)
+        prestep, imp, pcolor, t_eval = narrow_phase(
+            bodies, shapes, pairs, state.cache, dt, present_types=present_types,
+            max_ccd=config.max_ccd_pairs,
+            pairs_sorted=_broadphase_method(config) == "brute",
+            sleep_bank=state.sleep_cache if config.enable_sleep else None)
     if has_compounds:
         cprestep, cimp, cpcolor, ckey, covfl = narrow_phase_compound(
             bodies, shapes, pairs, state.ccache, dt, config.max_compound_pairs,
@@ -275,28 +300,35 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
     # --- Solve (substepped TGS; includes all pose/velocity integration).
     banks = {name: dict(joint_banks[name], impulse=state.joint_impulses[name],
                         color=state.joint_colors[name]) for name in joint_banks}
-    store_bank = dict(store=store, ps=prestep, imp=imp, active=active)
-    contact_banks = [(cprestep, cimp, cpcolor)] if has_compounds else []
+    if use_store:
+        store_bank = dict(store=store, ps=prestep, imp=imp, active=active)
+        contact_banks = []
+    else:
+        store_bank = None
+        contact_banks = [(prestep, imp, pcolor)]
+    if has_compounds:
+        contact_banks.append((cprestep, cimp, cpcolor))
     bodies, imps, joint_imps, solver_overflow, ccolors, jcolors, solver_demand = solve_all(
         bodies, contact_banks, banks, config.integrator, config.solve_config(), dt,
-        store_bank=store_bank, base_used=store.used,
+        store_bank=store_bank, base_used=store.used if use_store else None,
     )
-    # Impulses return in slot order and persist only for rows that solved this frame;
-    # sleeping rows keep their banked impulses and features.
-    imp_slot = imps[0]
-    sleeping_row = store.live & ~active
-    a1 = active[:, None]
-    store = store._replace(
-        imp_pen=torch.where(a1, imp_slot.penetration, store.imp_pen),
-        imp_tx=torch.where(active, imp_slot.tangent.x, store.imp_tx),
-        imp_ty=torch.where(active, imp_slot.tangent.y, store.imp_ty),
-        imp_tw=torch.where(active, imp_slot.twist, store.imp_tw),
-        feature=torch.where(
-            prestep.valid[:, None], prestep.feature,
-            torch.where(sleeping_row[:, None], store.feature, -1),
-        ),
-        active_prev=torch.where(active, prestep.valid, store.active_prev),
-    )
+    if use_store:
+        # Impulses return in slot order and persist only for rows that solved this frame;
+        # sleeping rows keep their banked impulses and features.
+        imp_slot = imps[0]
+        sleeping_row = store.live & ~active
+        a1 = active[:, None]
+        store = store._replace(
+            imp_pen=torch.where(a1, imp_slot.penetration, store.imp_pen),
+            imp_tx=torch.where(active, imp_slot.tangent.x, store.imp_tx),
+            imp_ty=torch.where(active, imp_slot.tangent.y, store.imp_ty),
+            imp_tw=torch.where(active, imp_slot.twist, store.imp_tw),
+            feature=torch.where(
+                prestep.valid[:, None], prestep.feature,
+                torch.where(sleeping_row[:, None], store.feature, -1),
+            ),
+            active_prev=torch.where(active, prestep.valid, store.active_prev),
+        )
 
     # --- Island sleeping.
     if config.enable_sleep:
@@ -306,20 +338,33 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
     def _src(flag, bit):
         return torch.where(flag, bit, 0).to(torch.int32)
 
-    overflow = pairs.overflow | solver_overflow | sovfl
-    ovfl_src = _src(pairs.overflow, 1) | _src(solver_overflow, 2) | _src(sovfl, 4)
+    overflow = pairs.overflow | solver_overflow
+    ovfl_src = _src(pairs.overflow, 1) | _src(solver_overflow, 2)
+    if use_store:
+        cache = state.cache  # not read by the store path
+        overflow = overflow | sovfl
+        ovfl_src = ovfl_src | _src(sovfl, 4)
+    else:
+        cache = update_cache(prestep, imps[0], nb_cap, ccolors[0], slot_live=pairs.valid)
     contact_count = (prestep.contact_mask & prestep.valid[:, None]).sum().to(torch.int32)
-    ccache, sleep_ccache = state.ccache, state.sleep_ccache
+    ccache, sleep_ccache, sleep_cache = state.ccache, state.sleep_ccache, state.sleep_cache
     if has_compounds:
-        ccache = update_cache_keyed(cprestep, imps[-1], ckey, ccolors[0])
+        ccache = update_cache_keyed(cprestep, imps[-1], ckey, ccolors[0 if use_store else 1])
         overflow = overflow | covfl
         ovfl_src = ovfl_src | _src(covfl, 8)
         contact_count = contact_count + (
             cprestep.contact_mask & cprestep.valid[:, None]).sum().to(torch.int32)
-        if config.enable_sleep:
-            # The JAX package runs the merge only when something sleeps or the bank holds
-            # rows; the port runs it always and keeps the bank where that is false.
-            asleep = ((bodies.kind == KIND_DYNAMIC) & ~bodies.awake).any()
+    if config.enable_sleep and (has_compounds or not use_store):
+        # The JAX package merges a sleep bank only when something sleeps or the bank holds
+        # rows; the port merges always and keeps the bank where that is false.
+        asleep = ((bodies.kind == KIND_DYNAMIC) & ~bodies.awake).any()
+        if not use_store:  # the store retains its sleeping pairs in place
+            sleep_cache, rovfl = retain_sleeping_when(
+                asleep | state.sleep_cache.valid.any(), state.sleep_cache, cache,
+                bodies.kind, bodies.awake, nb_cap)
+            overflow = overflow | rovfl
+            ovfl_src = ovfl_src | _src(rovfl, 16)
+        if has_compounds:
             sleep_ccache, scovfl = retain_sleeping_when(
                 asleep | state.sleep_ccache.valid.any(), state.sleep_ccache, ccache,
                 bodies.kind, bodies.awake, nb_cap, sub_cap=config.compound_sub_cap())
@@ -327,7 +372,7 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
             ovfl_src = ovfl_src | _src(scovfl, 32)
     bd = pairs.demand
     diag = StepDiagnostics(
-        pair_count=store.live.sum().to(torch.int32),
+        pair_count=(store.live if use_store else pairs.valid).sum().to(torch.int32),
         contact_count=contact_count,
         overflow=overflow,
         overflow_src=ovfl_src,
@@ -336,16 +381,20 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
             store_demand[1:2], bd[3:6], torch.zeros(1, dtype=torch.int32, device=dev),
         ]),
     )
-    return SimState(bodies, ccache, joint_imps, jcolors, sleep_ccache, store), diag
+    return SimState(bodies, cache, ccache, joint_imps, jcolors, sleep_cache, sleep_ccache,
+                    store), diag
 
 
 step = _step_impl
 
 
 def _leaves(tree):
-    """Tensor leaves of a NamedTuple tree, in field order (dicts in key order)."""
+    """Tensor leaves of a NamedTuple tree, in field order (dicts in key order; a None
+    field has none)."""
     if isinstance(tree, torch.Tensor):
         yield tree
+    elif tree is None:
+        return
     elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k])
@@ -382,24 +431,34 @@ class Simulation:
     def reconfigure(self, **overrides) -> None:
         """Change the static configuration in place (reference Simulation.EnsureCapacity /
         Resize, Simulation.cs:332-415). A change of the pair store's capacity or page
-        migrates the store host-side, keeping every live pair's record; the compound child
-        caches resize with their records kept. ``body_capacity`` is not resizable: the
-        store's per-body tables and the cache keys are sized by it."""
+        migrates the store host-side, keeping every live pair's record; the legacy convex
+        caches and the compound child caches resize with their records kept.
+        ``body_capacity`` is not resizable: the store's per-body tables and the cache keys
+        are sized by it."""
         if "body_capacity" in overrides and overrides["body_capacity"] != self.config.body_capacity:
             raise ValueError("body_capacity is not resizable (pair keys encode it)")
         self._sync_from_device()
         self.config = dataclasses.replace(self.config, **overrides)
         cfg = self.config
-        if self._state is not None:
-            store = self._state.store
-            cap, page = cfg.store_layout()
-            if store.capacity != cap or store.page != page:
-                store = pairstore.migrate(store, cap, cfg.body_capacity, page, cfg.num_colors,
-                                          kind=self._host.kind)
+        st = self._state
+        if st is not None:
+            cache = sleep_cache = store = None
+            if cfg.use_pair_store:
+                store = st.store
+                cap, page = cfg.store_layout()
+                if store is None:
+                    store = PairStore.empty(cap, cfg.body_capacity, page, device=self.device)
+                elif store.capacity != cap or store.page != page:
+                    store = pairstore.migrate(store, cap, cfg.body_capacity, page,
+                                              cfg.num_colors, kind=self._host.kind)
+            else:
+                fresh = lambda: PairCache.empty(cfg.max_pairs, device=self.device)
+                cache = (st.cache or fresh()).resized(cfg.max_pairs)
+                sleep_cache = (st.sleep_cache or fresh()).resized(cfg.max_pairs)
             cc_cap = cfg.compound_capacity()
-            self._state = self._state._replace(
-                store=store, ccache=self._state.ccache.resized(cc_cap),
-                sleep_ccache=self._state.sleep_ccache.resized(cc_cap))
+            self._state = st._replace(
+                cache=cache, sleep_cache=sleep_cache, store=store,
+                ccache=st.ccache.resized(cc_cap), sleep_ccache=st.sleep_ccache.resized(cc_cap))
         self._dirty = True
 
     def autosize(self, dt: float = 1.0 / 60.0, probe_steps: int = 16,
@@ -441,10 +500,11 @@ class Simulation:
             if want_pairs != self.config.max_pairs:
                 new["max_pairs"] = want_pairs
             # Store churn caps, bounded by a quarter of the pair world.
-            bank = new.get("max_pairs", self.config.max_pairs)
-            new["store_churn"] = min(up(d[D_ADMIT], 128, 256), max(256, bank // 4))
-            new["store_dead"] = min(up(d[D_DEAD], 128, 256), max(256, bank // 4))
-            new["store_repair"] = min(up(d[D_JACOBI], 64, 128), max(128, bank // 8))
+            if self.config.use_pair_store:
+                bank = new.get("max_pairs", self.config.max_pairs)
+                new["store_churn"] = min(up(d[D_ADMIT], 128, 256), max(256, bank // 4))
+                new["store_dead"] = min(up(d[D_DEAD], 128, 256), max(256, bank // 4))
+                new["store_repair"] = min(up(d[D_JACOBI], 64, 128), max(128, bank // 8))
             # Windowed wide rows (Morton-seam crossings).
             new["wide_cap_rows"] = up(d[D_WIDE], 256, 256)
             # Grid structures (only when the grid broad phase ran).
@@ -567,24 +627,37 @@ class Simulation:
         cc_cap = cfg.compound_capacity()
         st = self._state
         stale = self._colors_stale
-        store = st.store if st is not None else None
+        legacy = not cfg.use_pair_store
+        store = st.store if st is not None and not legacy else None
+        cache = st.cache if st is not None and legacy else None
+        if legacy and cache is None:
+            cache = PairCache.empty(cfg.max_pairs, device=self.device)
         ccache = st.ccache if st is not None else PairCache.empty(cc_cap, device=self.device)
-        if store is None or stale:
+        if stale:
             # A body's kind changed or a slot was recycled: every carried color and the
             # store (its colors, claims and hash key off body slots) reset; constraints
             # re-propose colors over the next frames.
-            store = PairStore.empty(cap, cfg.body_capacity, page, device=self.device)
+            store = None
             ccache = ccache._replace(color=torch.full_like(ccache.color, -1))
+            if legacy:
+                cache = cache._replace(color=torch.full_like(cache.color, -1))
             for js in self.joints.values():
                 js.color[:] = -1
             self._colors_stale = False
-        sleep_ccache = (st.sleep_ccache if st is not None and not stale
-                        else PairCache.empty(cc_cap, device=self.device))
+        if store is None and not legacy:
+            store = PairStore.empty(cap, cfg.body_capacity, page, device=self.device)
+        keep = st is not None and not stale
+        sleep_ccache = st.sleep_ccache if keep else PairCache.empty(cc_cap, device=self.device)
+        sleep_cache = None
+        if legacy:
+            sleep_cache = (st.sleep_cache if keep and st.sleep_cache is not None
+                           else PairCache.empty(cfg.max_pairs, device=self.device))
         t = lambda a: to_device(a, self.device)
         live = {name: js for name, js in self.joints.items() if js.count > 0}
-        self._state = SimState(self._host.device(self.device), ccache,
+        self._state = SimState(self._host.device(self.device), cache, ccache,
                                {n: t(js.impulse) for n, js in live.items()},
-                               {n: t(js.color) for n, js in live.items()}, sleep_ccache, store)
+                               {n: t(js.color) for n, js in live.items()}, sleep_cache,
+                               sleep_ccache, store)
         self._mirrored = self._state
         self._dirty = False
 
@@ -752,11 +825,19 @@ class Simulation:
         return np.nonzero(ok.cpu().numpy())[0].tolist()
 
     def contacts(self):
-        """The pair store's live contact records after the last step (reference
-        ContactEventsDemo): a list of dicts of bodies and accumulated impulses."""
+        """The convex contact records after the last step (reference ContactEventsDemo),
+        the pair store's live ones or the legacy cache's: a list of dicts of bodies and
+        accumulated impulses."""
         if self._state is None:
             return []
         st = self._state.store
+        if st is None:
+            c = self._state.cache
+            nb = self.config.body_capacity
+            keys, pen = c.key.cpu().numpy(), c.penetration.cpu().numpy()
+            return [dict(body_a=int(keys[i]) % nb, body_b=int(keys[i]) // nb,
+                         impulses=pen[i].tolist())
+                    for i in np.nonzero(c.valid.cpu().numpy())[0]]
         valid = (st.live & st.active_prev).cpu().numpy()
         a, b, pen = (x.cpu().numpy() for x in (st.body_a, st.body_b, st.imp_pen))
         return [dict(body_a=int(a[i]), body_b=int(b[i]), impulses=pen[i].tolist())
@@ -764,15 +845,21 @@ class Simulation:
 
     def live_contact_pairs(self) -> set:
         """(body_a, body_b) pairs with live contact records after the last step: the pair
-        store's, and the compound child cache's, keyed pair_key x sub_cap + slot."""
+        store's (or the legacy cache's, b-major keys b x NB + a), and the compound child
+        cache's, keyed pair_key x sub_cap + slot."""
         cur = set()
         if self._state is None:
             return cur
         nb = self.config.body_capacity
         st = self._state.store
-        valid = (st.live & st.active_prev).cpu().numpy()
-        aa, bb = st.body_a.cpu().numpy(), st.body_b.cpu().numpy()
-        cur.update((int(aa[i]), int(bb[i])) for i in np.nonzero(valid)[0])
+        if st is None:
+            c = self._state.cache
+            keys = c.key.cpu().numpy()[c.valid.cpu().numpy()].astype(np.int64)
+            cur.update((int(k % nb), int(k // nb)) for k in keys)
+        else:
+            valid = (st.live & st.active_prev).cpu().numpy()
+            aa, bb = st.body_a.cpu().numpy(), st.body_b.cpu().numpy()
+            cur.update((int(aa[i]), int(bb[i])) for i in np.nonzero(valid)[0])
         cc = self._state.ccache
         keys = cc.key.cpu().numpy()[cc.valid.cpu().numpy()].astype(np.int64)
         pk = keys // self.config.compound_sub_cap()

@@ -9,12 +9,19 @@ The JAX package skips the label pass and the wake pass behind ``lax.cond`` when 
 can change. The port runs both unconditionally: when the JAX condition is false, the
 passes return their input unchanged (no candidate → no island sleeps; nothing asleep →
 nothing wakes), so the results are identical and the step needs no host sync.
+
+Under the constraint-sharded step (``group``, a ``torch.distributed`` process group, where
+the JAX package takes ``axis_name``) the bodies are replicated and the constraint banks
+sharded: each label round ends in an ``all_reduce(MIN)`` of the labels, and the woken
+labels combine with an ``all_reduce(MAX)``, so islands spanning ranks sleep and wake as
+on one device.
 """
 from __future__ import annotations
 
 import torch
 
 from .bodies import BodyState, KIND_DYNAMIC
+from .parallel import comm
 from .utils.vec import Vec3
 
 LABEL_ROUNDS = 4  # scatter-min + pointer-jump rounds
@@ -35,11 +42,11 @@ def _collect_edges(presteps, joint_banks: dict):
 
 
 def compute_islands(state: BodyState, presteps, joint_banks: dict,
-                    axis_name: str = None) -> torch.Tensor:
+                    group=None) -> torch.Tensor:
     """Island label per body (min body index in the island) over dynamic bodies joined by
-    live constraints; non-dynamic bodies keep their own index."""
-    if axis_name is not None:
-        raise NotImplementedError("sharded islands are not ported yet (ROADMAP queue 1 item 23)")
+    live constraints; non-dynamic bodies keep their own index. ``group`` (JAX
+    ``axis_name``): the banks are this rank's shard, and each round's labels take the
+    minimum over the ranks."""
     n = state.pos.x.shape[0]
     labels = torch.arange(n, dtype=torch.int32, device=state.kind.device)
     ea, eb, live = _collect_edges(presteps, joint_banks)
@@ -49,15 +56,17 @@ def compute_islands(state: BodyState, presteps, joint_banks: dict,
         m = torch.where(edge_ok, torch.minimum(labels[ea], labels[eb]), n)
         labels = labels.scatter_reduce(0, ea, m, "amin", include_self=True)
         labels = labels.scatter_reduce(0, eb, m, "amin", include_self=True)
+        if group is not None:
+            labels = comm.pmin(labels, group)
         labels = labels[labels.long()]
         labels = labels[labels.long()]
     return labels
 
 
-def wake_touched(state: BodyState, prestep, axis_name: str = None) -> BodyState:
-    """Wake sleeping bodies contacted by awake dynamics — whole stored island at once."""
-    if axis_name is not None:
-        raise NotImplementedError("sharded wake is not ported yet (ROADMAP queue 1 item 23)")
+def wake_touched(state: BodyState, prestep, group=None) -> BodyState:
+    """Wake sleeping bodies contacted by awake dynamics — whole stored island at once.
+    ``group`` (JAX ``axis_name``): ``prestep`` is this rank's shard, and a label woken on
+    any rank wakes its island on every rank."""
     n = state.pos.x.shape[0]
     sleeping_dyn = (state.kind == KIND_DYNAMIC) & ~state.awake
     a, b = prestep.body_a.long(), prestep.body_b.long()
@@ -68,6 +77,8 @@ def wake_touched(state: BodyState, prestep, axis_name: str = None) -> BodyState:
     woken_label = torch.zeros(n + 1, dtype=torch.bool, device=a.device)  # n = sink
     woken_label.index_fill_(0, torch.where(touch_b, lbl[b], n), True)
     woken_label.index_fill_(0, torch.where(touch_a, lbl[a], n), True)
+    if group is not None:
+        woken_label = comm.pmax(woken_label, group)
     wake = sleeping_dyn & woken_label[:n][lbl]
     return state._replace(
         awake=state.awake | wake,
@@ -76,8 +87,9 @@ def wake_touched(state: BodyState, prestep, axis_name: str = None) -> BodyState:
 
 
 def update_sleep(state: BodyState, presteps, joint_banks: dict, dt, sleep_time: float,
-                 axis_name: str = None) -> BodyState:
-    """Post-solve candidacy update + island sleep decision."""
+                 group=None) -> BodyState:
+    """Post-solve candidacy update + island sleep decision (``group``: see
+    ``compute_islands``)."""
     n = state.pos.x.shape[0]
     dyn_awake = (state.kind == KIND_DYNAMIC) & state.awake
     kinetic = state.vel.length_squared() + state.omega.length_squared()
@@ -86,7 +98,7 @@ def update_sleep(state: BodyState, presteps, joint_banks: dict, dt, sleep_time: 
     timer = torch.where(dyn_awake & below, state.sleep_timer + dt, 0.0)
     candidate = dyn_awake & below & can_sleep & (timer > sleep_time)
 
-    labels = compute_islands(state, presteps, joint_banks, axis_name=axis_name).long()
+    labels = compute_islands(state, presteps, joint_banks, group=group).long()
     # Island sleeps iff every dynamic awake member is a candidate.
     island_all = torch.ones(n + 1, dtype=torch.int32, device=labels.device)  # n = sink
     island_all = island_all.scatter_reduce(

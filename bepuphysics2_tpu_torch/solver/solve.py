@@ -1,5 +1,6 @@
 """Substepped TGS solver: the store fast path over kernels K1 and K2, and the general
-(bucketed) path over kernels K3 and K4 (K1 for a contact-only scene with a compound bank).
+(bucketed) path over kernels K3 and K4 (K1 for a contact-only scene with a compound bank,
+and for a contact-only scene of the legacy per-frame path).
 
 Counterpart of ``SolveConfig``, ``_solve_store_fast`` and the single-chip bucketed branch
 of ``solve_all`` in ``bepuphysics2_tpu/solver/solve.py`` (reference Solver_Solve.cs:1415).
@@ -296,21 +297,35 @@ def _ctx14(state: BodyState, world_ii: Sym3) -> torch.Tensor:
     return torch.stack([*state.pos, *state.orn, state.inv_mass, *world_ii], -1)
 
 
-def _split14(rows, scale=None):
-    """(m, 14) context rows → (pos, orn, GatheredInertia), inertia times ``scale``."""
-    im = rows[:, 7:14]
+def _inertia_rows(im, scale=None) -> GatheredInertia:
+    """(m, 7) inverse-inertia rows (inverse mass, then the symmetric 3 x 3) → a
+    GatheredInertia, times ``scale``."""
     if scale is not None:
         im = im * scale[:, None]
+    return GatheredInertia(im[:, 0], Sym3(*im[:, 1:].unbind(-1)))
+
+
+def _split14(rows, scale=None):
+    """(m, 14) context rows → (pos, orn, GatheredInertia), inertia times ``scale``."""
     return (Vec3(rows[:, 0], rows[:, 1], rows[:, 2]),
             Quat(rows[:, 3], rows[:, 4], rows[:, 5], rows[:, 6]),
-            GatheredInertia(im[:, 0], Sym3(*im[:, 1:].unbind(-1))))
+            _inertia_rows(rows[:, 7:14], scale))
+
+
+def _body_vel(g) -> BodyVel:
+    return BodyVel(Vec3(g[:, 0], g[:, 1], g[:, 2]), Vec3(g[:, 3], g[:, 4], g[:, 5]))
+
+
+def _vel(v6, idx) -> BodyVel:
+    """The (NB, 6) velocity rows ``idx`` as a BodyVel."""
+    return _body_vel(v6[idx])
 
 
 def _vel_pair(v6, idx2):
+    """Both sides' velocities from one gather of ``idx2`` (the A indices, then the B)."""
     g = v6[idx2]
     m = idx2.shape[0] // 2
-    return (BodyVel(Vec3(g[:m, 0], g[:m, 1], g[:m, 2]), Vec3(g[:m, 3], g[:m, 4], g[:m, 5])),
-            BodyVel(Vec3(g[m:, 0], g[m:, 1], g[m:, 2]), Vec3(g[m:, 3], g[m:, 4], g[m:, 5])))
+    return _body_vel(g[:m]), _body_vel(g[m:])
 
 
 def _pack_dv(dv: BodyVel) -> torch.Tensor:
@@ -376,17 +391,31 @@ def _whole_solve_ok(integrator_cfg, cfg) -> bool:
     return cfg.iteration_schedule is None and integrator_cfg.velocity_callback is None
 
 
+def legacy_slice(contact_banks, cfg) -> int:
+    """The slice size of the contact banks when there is no pair store (JAX ``solve_all``
+    :646-649): ``min(512, round_up(max color capacity, 128))``, the capacity of a color
+    being ``ceil(color_cap_factor * rows / C)``."""
+    caps = [max(1, -(-int(cfg.color_cap_factor * cb[0].body_a.shape[0]) // cfg.num_colors))
+            for cb in contact_banks]
+    return min(512, _round_up(max(caps + [1]), 128))
+
+
 def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg, dt,
                    store_bank: dict, base_used, use_win: bool = False):
     """The general solve for scenes with joints or a compound bank beside the pair store,
-    or with an iteration schedule or a velocity callback: the JAX package's bucketed
+    or with an iteration schedule or a velocity callback, and for every scene of the
+    legacy per-frame path (``store_bank`` None: its contact banks colored with their
+    carried colors and bucketed in slices of ``legacy_slice``): the JAX package's bucketed
     ``substep_bucketed`` loop in its Pallas form. Up to 8,192 bodies every contact bank
     goes through K3 (one launch per bank per velocity iteration per substep; a lone
     contact bank, as JAX runs it, one launch per substep carrying that substep's
     iterations); on the windowed layout (``use_win``: no compound bank) the store goes
     through K4 instead. A contact-only scene (no joints) without a schedule or a callback
     takes the JAX package's whole-solve branch: one K1 launch over the concatenated
-    banks. Returns as ``solve_all``."""
+    banks. Above 8,192 bodies the JAX package solves a legacy scene on its XLA bucketed
+    path, because its kernels route bodies through one-hot products whose cost grows with
+    the body count; the card's kernels index bodies directly, so the same K1 and K3 routes
+    serve at every size. Returns as ``solve_all``."""
     h, inv_h = substep_scalars(dt, cfg.substeps)
     C = cfg.num_colors
     n_bodies = state.pos.x.shape[0]
@@ -399,16 +428,19 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
                       torch.full((cb[0].body_a.shape[0],), -1, dtype=torch.int32, device=dev))
                      for cb in contact_banks]
 
-    # The pair store in page-execution order (pages by color, Jacobi pages last).
-    st = store_bank["store"]
-    page = st.page
-    perm_pages, is_jac_pages, inv_perm = _ps.exec_order(st, C)
-    pp, ip = perm_pages.long(), inv_perm.long()
-    pg = lambda x: x.reshape((st.n_pages, page) + x.shape[1:])[pp].reshape(x.shape)
-    ipg = lambda x: x.reshape((st.n_pages, page) + x.shape[1:])[ip].reshape(x.shape)
     tree = lambda f, t: f(t) if torch.is_tensor(t) else type(t)(*(tree(f, x) for x in t))
-    sps = tree(pg, store_bank["ps"])
-    jrow = is_jac_pages.repeat_interleave(page)
+    st = store_bank["store"] if store_bank is not None else None
+    if st is not None:
+        # The pair store in page-execution order (pages by color, Jacobi pages last).
+        page = st.page
+        perm_pages, is_jac_pages, inv_perm = _ps.exec_order(st, C)
+        pp, ip = perm_pages.long(), inv_perm.long()
+        pg = lambda x: x.reshape((st.n_pages, page) + x.shape[1:])[pp].reshape(x.shape)
+        ipg = lambda x: x.reshape((st.n_pages, page) + x.shape[1:])[ip].reshape(x.shape)
+        sps = tree(pg, store_bank["ps"])
+        jrow = is_jac_pages.repeat_interleave(page)
+    else:
+        page = legacy_slice(contact_banks, cfg)
 
     table = bk_mod.color_table(state, contact_banks, joint_banks, tb_names, mb_names, cfg, page,
                                base_used)
@@ -431,21 +463,24 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         jac_demand = torch.maximum(jac_demand, ju["jac_n"])
     for name in tb_names + mb_names:
         in_jacobi.append(table["bank_valid"][name] & (table["jcolors"][name] == C))
-    valence = bk_mod.valence(table, in_jacobi, n_bodies, st.jacv)
+    valence = bk_mod.valence(table, in_jacobi, n_bodies, None if st is None else st.jacv)
 
     # The store bucket: page order with Jacobi pages mass-split by the global valence, or
     # the windowed layout (its own split scales, K4).
-    jac_demand = torch.maximum(jac_demand, (jrow & sps.valid).sum().to(torch.int32))
-    v = lambda t: sps.valid.reshape((-1,) + (1,) * (t.dim() - 1))
-    simp = tree(lambda x: torch.where(v(x), x, 0.0), tree(pg, store_bank["imp"]))
+    n_store = int(st is not None)
+    if st is not None:
+        jac_demand = torch.maximum(jac_demand, (jrow & sps.valid).sum().to(torch.int32))
+        v = lambda t: sps.valid.reshape((-1,) + (1,) * (t.dim() - 1))
+        simp = tree(lambda x: torch.where(v(x), x, 0.0), tree(pg, store_bank["imp"]))
     if use_win:
         win = _win_store_bucket(state, st, sps, simp, pg(st.color), jrow, cfg, n_bodies)
         overflow = overflow | win["overflow"]
         wide_demand = win["wide_demand"]
         buckets.insert(0, win)
     else:
-        buckets.insert(0, dict(ps=sps, imp=simp, is_j=jrow))
-        for b in buckets[1:]:
+        if st is not None:
+            buckets.insert(0, dict(ps=sps, imp=simp, is_j=jrow))
+        for b in buckets[n_store:]:
             b["is_j"] = torch.arange(b["ps"].body_a.shape[0], device=dev) >= C * b["cap"]
     for b in buckets:
         if not use_win:
@@ -465,7 +500,7 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         still = psweep.body_still(state.inv_mass, state.inv_inertia)
         for k, b in enumerate(buckets):
             valid, idx = b["ps"].valid, b["k_idx2"].view(-1, 2 * page)
-            colors = (st.page_color[pp] if k == 0 else bucket_page_colors(
+            colors = (st.page_color[pp] if k < n_store else bucket_page_colors(
                 b["cap"], valid.shape[0], page, C, dev))
             b["k_waves"] = page_wave_table([colors], valid, page, C)
             writes = bk_mod.slice_major(valid, valid, page).view(-1, 2 * page) & ~still[idx.long()]
@@ -477,9 +512,9 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
         # The wave keys: the store's page colors in execution order, then each bucket's.
         pack = lambda f: torch.cat([f(b) for b in buckets], 1).contiguous()
         ps_k = pack(lambda b: psweep.pack_contact_prestep_cols(b["ps"], b["spring"]).T)
-        colors = [st.page_color[pp]] + [
+        colors = [st.page_color[pp] for _ in range(n_store)] + [
             bucket_page_colors(b["cap"], b["ps"].body_a.shape[0], page, C, dev)
-            for b in buckets[1:]]
+            for b in buckets[n_store:]]
         state, imp_out = _k1_solve(
             state, integrator_cfg, cfg, ps_k,
             pack(lambda b: psweep.pack_contact_impulses_cols(b["imp"]).T),
@@ -519,8 +554,8 @@ def solve_bucketed(state, contact_banks, joint_banks: dict, integrator_cfg, cfg,
             placed.reshape((-1,) + (1,) * (old.dim() - 1)), new[dc], old)
         imps_out = [tree(ipg, _map_impulses(back, imps[0], w["imp_orig"]))]
     else:
-        imps_out = [tree(ipg, imps[0])]
-    for b, (_, im0, _), im in zip(buckets[1:], contact_banks, imps[1:]):
+        imps_out = [tree(ipg, imps[0]) for _ in range(n_store)]
+    for b, (_, im0, _), im in zip(buckets[n_store:], contact_banks, imps[n_store:]):
         B = b["ps"].body_a.shape[0]
         inb = b["pos"] < B
         pc = torch.clamp_max(b["pos"], B - 1).long()
@@ -767,15 +802,18 @@ def solve_all(
     integrator_cfg: IntegratorConfig,
     cfg: SolveConfig,
     dt,
-    axis_name: str = None,
+    group=None,
     store_bank: dict = None,
     base_used=None,
 ):
     """Full substepped solve, picking its kernels as the JAX package's ``solve_all`` picks
     them. Store-only scenes solve through K1 (up to 8,192 bodies) or K2 (above that, or
     with ``backend="pallas_win"``). Scenes with joints take the general path over K3, or
-    over K4 on the windowed layout; a contact-only scene with a compound bank takes one K1
-    launch over the concatenated banks. An iteration schedule or a velocity callback
+    over K4 on the windowed layout; a contact-only scene with a compound bank, or any
+    contact-only scene of the legacy per-frame path (``store_bank`` None), takes one K1
+    launch over the concatenated banks. ``group`` (JAX ``axis_name``), a
+    ``torch.distributed`` process group: the banks are this rank's shards, and the solve is
+    the masked one of ``masked.py``, in plain PyTorch ops (no kernel, in either package). An iteration schedule or a velocity callback
     takes every scene off the whole-solve kernels K1 and K2 (JAX ``solve.py:583-584``,
     ``:1792-1793``): it runs the general path's substep loop, K3 up to 8,192 bodies and K4
     on the windowed layout. The JAX package's VMEM and 650k-row feasibility
@@ -783,14 +821,16 @@ def solve_all(
     kernels take every windowed bank. Every other bank shape is refused by name. Returns
     (state, [impulses], {joint impulses}, overflow, [colors], {joint colors}, demand (2,)
     [Jacobi rows, wide rows])."""
-    if axis_name is not None:
-        raise NotImplementedError("sharded solve is not ported yet (ROADMAP queue 1 item 23)")
-    if store_bank is None:
-        raise NotImplementedError(
-            "the port solves through the pair store only (the legacy per-frame path is not "
-            "ported: ROADMAP queue 1, 'Not to port')")
-    use_win = state.pos.x.shape[0] > 8192 or cfg.backend == "pallas_win"
-    if not joint_banks and not contact_banks and _whole_solve_ok(integrator_cfg, cfg):
+    if group is not None:
+        if store_bank is not None:
+            raise ValueError("store banks are single-device; use the masked sharded path")
+        from .masked import solve_masked
+
+        return solve_masked(state, contact_banks, joint_banks, integrator_cfg, cfg, dt, group)
+    use_win = store_bank is not None and (state.pos.x.shape[0] > 8192
+                                          or cfg.backend == "pallas_win")
+    if (store_bank is not None and not joint_banks and not contact_banks
+            and _whole_solve_ok(integrator_cfg, cfg)):
         return _solve_store_fast(state, store_bank, integrator_cfg, cfg, dt, use_win)
     if use_win and contact_banks:
         raise NotImplementedError(

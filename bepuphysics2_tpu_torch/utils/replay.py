@@ -21,6 +21,8 @@ enabled = True  # off: every call runs eagerly (to hold a replay against its eag
 def _leaves(tree):
     if torch.is_tensor(tree):
         return [tree]
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _leaves(tree[k])]
     return [x for t in tree for x in _leaves(t)]

@@ -28,6 +28,8 @@ def _leaves_with_path(tree, path=""):
     ``.field`` for a named tuple's field, ``['key']`` for a dict's key."""
     if torch.is_tensor(tree):
         yield path, tree
+    elif tree is None:  # the convex banks of the path a configuration does not run
+        return
     elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves_with_path(tree[k], f"{path}[{k!r}]")
@@ -80,12 +82,17 @@ def validate(sim) -> None:
         f"non-dynamic body with inverse mass: {np.nonzero(nd & (inv_mass != 0))[0][:5]}",
     )
 
-    # 5. Contact records reference existing bodies (ValidateConstraintMaps). The JAX
-    # package checks its legacy per-frame cache, which the pair-store path leaves empty;
-    # the port checks the pair store's live rows, where that path keeps its records.
+    # 5. Contact records reference existing bodies (ValidateConstraintMaps): the legacy
+    # per-frame cache's, as the JAX package checks them, or on the store path (where that
+    # cache is left empty) the pair store's live rows, where the records are kept.
     nb = sim.config.body_capacity
-    live = state.store.live.cpu().numpy()
-    ca, cb = state.store.body_a.cpu().numpy()[live], state.store.body_b.cpu().numpy()[live]
+    if state.store is None:
+        keys = state.cache.key.cpu().numpy().astype(np.int64)
+        live = state.cache.valid.cpu().numpy()
+        cb, ca = keys[live] // nb, keys[live] % nb  # b-major keys: b x NB + a
+    else:
+        live = state.store.live.cpu().numpy()
+        ca, cb = state.store.body_a.cpu().numpy()[live], state.store.body_b.cpu().numpy()[live]
     _check(
         bool(((ca >= 0) & (ca < nb) & (cb >= 0) & (cb < nb)).all()),
         "contact cache key out of range",

@@ -31,11 +31,18 @@ PyTorch loop, replayed as a CUDA graph, and the phases here, which have none, ar
 required never to run it), CCD at full width (phase 35: 256 continuous spheres at 120
 m/s through the 4,096-body pile toward a wall, K1 and K8 once a step) and the utilities
 on phase 4's pile (phase 36: checkpoint and restore, ``validate``, ``simulation_metrics``,
-``profile_stages``, ``TraceSession``). On the card the joint sweep and the generic narrow
+``profile_stages``, ``TraceSession``). Then slice 14: the 4,096-body pile on the legacy
+per-frame path (phase 37: K1 once a step over the per-frame color buckets; a 4-ragdoll
+tube on it through K3), the sweep and grid broad phases on that pile (38: every step's
+pair list equal to the CPU function's), eight batched 512-body worlds (39: each
+bit-identical to a lone ``Simulation``) and the constraint-sharded step on one and on two
+gloo ranks sharing the card (40: in processes of their own, bit-identical across world
+sizes; the masked solve reaches no kernel). On the card the joint sweep and the generic narrow
 phase replay as CUDA graphs from a layout's second call
 (``bepuphysics2_tpu_torch/utils/replay.py``); no kernel K1-K8 runs inside one. The CPU
 sides of the card-vs-CPU phases run in a process of their own while the card runs
-(``_start_cpu_side``), as does phase 33's.
+(``_start_cpu_side``), as does phase 33's. Phase 31's car and tank, bound by the host's
+launches, step in a process of their own on the card beside phases 34-40.
 
     python3 chip_smoke.py
 
@@ -55,6 +62,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -108,11 +116,12 @@ def _nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def build_pile(n_bodies, device, shapes=None, **overrides):
+def build_pile(n_bodies, device, shapes=None, seed=7, floor=1.0, **overrides):
     """The mixed sphere/box pile on a static box ground, as ``__graft_entry__.
     _build_pile_sim`` builds it (seed 7), with ``bench.py``'s capacities and solver
     settings (16 colors above 8,192 bodies). ``shapes``: the shape objects the bodies take
-    in turn (a sphere of radius 0.5 and a box of half extent 0.5 by default)."""
+    in turn (a sphere of radius 0.5 and a box of half extent 0.5 by default); ``seed``
+    jitters the positions; ``floor`` is the height of the lowest layer's centres."""
     from bepuphysics2_tpu_torch import (
         BodyDescription, Box, SimConfig, Simulation, Sphere, StaticDescription,
     )
@@ -127,7 +136,7 @@ def build_pile(n_bodies, device, shapes=None, **overrides):
     objs = shapes or (Sphere(0.5), Box(0.5, 0.5, 0.5))
     ids = [sim.add_shape(o) for o in objs]
     sim.add_static(StaticDescription(position=(0, -0.5, 0), shape=ground))
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     side = max(1, int(np.ceil(n_bodies ** (1 / 3))))
     n = 0
     for ix in range(side):
@@ -135,7 +144,7 @@ def build_pile(n_bodies, device, shapes=None, **overrides):
             for iz in range(side):
                 if n >= n_bodies:
                     break
-                p = ((ix - side / 2) * 1.2 + rng.uniform(-0.05, 0.05), 1.0 + iy * 1.2,
+                p = ((ix - side / 2) * 1.2 + rng.uniform(-0.05, 0.05), floor + iy * 1.2,
                      (iz - side / 2) * 1.2 + rng.uniform(-0.05, 0.05))
                 k = n % len(objs)
                 sim.add_body(BodyDescription.dynamic(p, ids[k], 1.0, objs[k]))
@@ -467,8 +476,10 @@ def _pile_gates(sim, label):
     from bepuphysics2_tpu_torch.bodies import KIND_DYNAMIC
 
     diag, st = sim.last_diag, sim.state
-    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega,
-              st.store.imp_pen, st.store.imp_tx, st.store.imp_ty, st.store.imp_tw]
+    leaves = [*st.bodies.pos, *st.bodies.orn, *st.bodies.vel, *st.bodies.omega]
+    leaves += ([st.store.imp_pen, st.store.imp_tx, st.store.imp_ty, st.store.imp_tw]
+               if st.store is not None else  # the legacy path: the per-frame cache
+               [st.cache.penetration, *st.cache.tangent, st.cache.twist])
     _require(all(bool(torch.isfinite(t).all()) for t in leaves), f"{label}: non-finite state")
     min_y = float(st.bodies.pos.y[st.bodies.kind == KIND_DYNAMIC].min())
     _require(min_y > -0.2, f"{label}: a dynamic body fell through the ground (y = {min_y})")
@@ -549,15 +560,15 @@ def phase_main_path(dev, name, smi):
 _PILE = {}
 
 
-def phase_determinism(dev, tag="5 determinism", path="", **overrides):
-    """The 512-body pile, 60 steps twice on the card: the same ``state_hash``."""
+def phase_determinism(dev, tag="5 determinism", path="", steps=60, **overrides):
+    """The 512-body pile, ``steps`` steps twice on the card: the same ``state_hash``."""
     hashes = []
     for _ in range(2):
         sim = build_pile(512, dev, **overrides)
-        sim.run(60, DT)
+        sim.run(steps, DT)
         torch.cuda.synchronize()
         hashes.append(sim.state_hash())
-    print(f"[{tag}] 512-body pile{path}, 60 steps twice: state_hash {hashes[0]:#018x} "
+    print(f"[{tag}] 512-body pile{path}, {steps} steps twice: state_hash {hashes[0]:#018x} "
           f"/ {hashes[1]:#018x}")
     _require(hashes[0] == hashes[1], "two identical runs on the card differ")
 
@@ -939,6 +950,8 @@ def _start_cpu_side(keys=None):
         ("31 tank", ("vehicle_world", ("tank",), {}), "states", 10, 3),
         ("32", ("build_terrain_pile_sim", (64, 10), {}), "states", 0, 10),
         ("35", ("ccd_world", (64, 8), dict(ccd_pairs=512)), "states", 0, 10),
+        ("37", ("build_pile", (256,), LEGACY), "positions", 0, 20),
+        ("37t", ("legacy_tube", (4,), {}), "states", 0, 6),
     ]
     ctx = mp.get_context("spawn")
     jobs, results = ctx.Queue(), ctx.Queue()
@@ -2429,7 +2442,7 @@ def _drive_tank(sim, tank):
                  f"10 steps"), met
 
 
-def phase_vehicles(dev, name, smi, frames=3, tol=1e-4):
+def phase_vehicles(dev, name, smi, cpu_states, frames=3, tol=1e-4):
     """Phase 31: the car and the tank of ``tests/test_models.py``, each in its own scene on
     the card (``vehicle_world``) through that test's steps and gates: the car settles,
     then drives more than 1.0 m with its body above y = 0.2; the tank drives straight
@@ -2440,13 +2453,14 @@ def phase_vehicles(dev, name, smi, frames=3, tol=1e-4):
     joints), K1, K2 and K4 never, no plain version; no host sync over 4 steps after one
     that pushes the gates' host edits and reads; ``frames`` card steps from the CPU's
     state (after 10 CPU steps: the wheels reach the ground) within ``tol``. Returns the
-    K3 launches by scene and the tank's K8 launches."""
+    K3 launches by scene and the tank's K8 launches. ``cpu_states``: the CPU sides
+    "31 car" and "31 tank" by scene ("car", "tank")."""
     from bepuphysics2_tpu_torch.collision import sweeps
 
     out = {}
     for kind, drive in (("car", _drive_car), ("tank", _drive_tank)):
         sim, model = vehicle_world(kind, dev)
-        worst, _ = _card_steps_from_states(sim, _cpu_result(f"31 {kind}"))
+        worst, _ = _card_steps_from_states(sim, cpu_states[kind])
         cfg = sim.config.solve_config()
         per_step = sum(cfg.iterations_for(s) for s in range(cfg.substeps))
         before, k8_before = _kernel_launches(), sweeps.conservative_advance.launches
@@ -2483,6 +2497,50 @@ def phase_vehicles(dev, name, smi, frames=3, tol=1e-4):
         if kind == "tank":
             out["tank K8"] = k8
     return out
+
+
+def _vehicles_proc(out_path, name, smi, cpu_states, start):
+    """Phase 31 in a process of its own: ``phase_vehicles`` on card 0, its lines timed
+    from the main process's ``start`` (the same monotonic clock), its result or its
+    failure pickled to ``out_path``."""
+    import pickle
+    import traceback
+
+    global _START
+    _START = start
+    torch.set_num_threads(1)
+    try:
+        torch.cuda.set_device(0)
+        out = phase_vehicles(torch.device("cuda", 0), name, smi, cpu_states)
+    except Exception:  # noqa: BLE001  (handed to the main process, which raises)
+        out = dict(error=traceback.format_exc())
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _start_vehicles(name, smi):
+    """Starts phase 31 (``_vehicles_proc``) with its CPU sides. The car and the tank are
+    bound by the host's ~160,000 launches a step, with the card idle most of that time,
+    so they step beside the phases that follow. Returns the handle ``_join_procs``
+    takes."""
+    import multiprocessing as mp
+
+    cpu_states = {kind: _cpu_result(f"31 {kind}") for kind in ("car", "tank")}
+    root = Path("build") / f"vehicles_{time.time_ns()}"
+    root.mkdir(parents=True)
+    out = root / "phase31.pkl"
+    proc = mp.get_context("spawn").Process(target=_vehicles_proc, daemon=True, args=(
+        str(out), name, smi, cpu_states, _START))
+    proc.start()
+    return dict(procs=[proc], outs=[out])
+
+
+def _vehicle_paths(handle):
+    """Phase 31's result from its process → each of its paths' (kernel, launches)."""
+    (vehicles,) = _join_procs(handle, "phase 31's process")
+    paths = {"tank's 345 steps, CCD on (phase 31)": ("K8", vehicles.pop("tank K8"))}
+    paths.update((k, ("K3", n)) for k, n in vehicles.items())
+    return paths
 
 
 # --- slice 12: the mesh-terrain pile, the queries, the characters (K1, K3) ------------------
@@ -3288,8 +3346,376 @@ def phase_utilities(dev, sim):
     _require(size > 0, "the trace is empty")
 
 
+# --- slice 14: the legacy per-frame path (K1, K3), the sweep and grid broad phases,
+# batched worlds and the constraint-sharded step --------------------------------------
+
+LEGACY = dict(use_pair_store=False)
+BATCHED_WORLDS = 8  # phase 39: 512-body piles of seeds 0-7
+SHARD_BODIES = 1024  # phase 40's pile
+SHARD_JOINTS = 8  # ball sockets between z-neighbours of its first rows
+SHARD_STEPS = 20
+SHARD_TIMEOUT_S = 300  # every rendezvous, collective and join of phase 40
+
+
+def legacy_tube(n_ragdolls, device):
+    """The ragdoll tube at the package's default solver settings, 2 substeps and 4 colors,
+    on the legacy per-frame path: its convex records and its compound children each a
+    contact bank through K3, beside the joint sweep."""
+    sim = tube_sim(n_ragdolls, device, substeps=2, num_colors=4, bench=False)
+    sim.config = dataclasses.replace(sim.config, **LEGACY)
+    sim._dirty = True
+    return sim
+
+
+def phase_legacy_pile(dev, name, smi, warm=33, timed=32):
+    """Phase 37: the 4,096-body pile of phase 4 at bench.py's settings on the legacy
+    per-frame path (``use_pair_store=False``): ``warm`` landing steps, then ``timed`` timed.
+    Per step the candidates' records join last frame's cache, the general path colors and
+    buckets them (slices of 512 rows), and one K1 launch solves them: K1 once a step, no
+    plain version, 0 host syncs (4 steps more), the pile's gates. Returns (the
+    simulation, K1 launches)."""
+    t0 = time.perf_counter()
+    sim = build_pile(4096, dev, **LEGACY)
+    calls, restore = _count_plain_calls()
+    before = _kernel_launches()
+    try:
+        sim.run(warm, DT)
+        torch.cuda.synchronize()
+        landed = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        sim.run(timed, DT)
+        torch.cuda.synchronize()
+        sps = timed / (time.perf_counter() - t1)
+        launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+        _, syncs = _timed_syncs(sim, 4)
+    finally:
+        restore()
+    min_y, pairs, contacts = _pile_gates(sim, "the legacy 4k pile")
+    diag = sim.last_diag
+    print(f"[37 legacy pile] 4096-body pile on the legacy per-frame path, {warm} + {timed} "
+          f"steps on {name} ({smi}): {sps:.2f} steps/s over the {timed} timed steps; landing "
+          f"{landed:.1f} s; pairs {pairs}, contacts {contacts}, peak Jacobi rows "
+          f"{int(diag.demand[5])}, min dynamic y {min_y:.3f}; launches {launches}, plain "
+          f"calls {len(calls)}, host syncs per step {syncs:g}")
+    _require(launches == dict(K1=warm + timed, K2=0, K3=0, K4=0),
+             "K1 did not launch once per step on the legacy pile")
+    _require(not calls, f"plain versions ran on the card: {sorted(set(calls))}")
+    _require(syncs == 0, f"{syncs} host syncs per step on the legacy pile")
+    return sim, launches["K1"]
+
+
+def phase_legacy_tube(dev, frames=6, steps=4, tol=1e-4):
+    """Phase 37's tube: the 4-ragdoll ``legacy_tube``. Each of the CPU's ``frames`` steps
+    (``_start_cpu_side``), stepped again on the card from the CPU's state before it, within
+    ``tol`` of the CPU's (absolute and relative); then ``steps`` card steps with the
+    launches counted: K3 once per contact bank per substep (two banks, 2 substeps, one
+    iteration: 4 a step), nothing else, no plain version, 0 host syncs. Returns K3's
+    launches over those steps."""
+    sim = legacy_tube(4, dev)
+    worst, _ = _card_steps_from_states(sim, _cpu_result("37t"))
+    sim.run(2, DT)
+    calls, restore = _count_plain_calls()
+    before = _kernel_launches()
+    try:
+        sim.run(steps, DT)
+        torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+        _, syncs = _timed_syncs(sim, 4)
+    finally:
+        restore()
+    print(f"[37 legacy tube] 4-ragdoll tube on the legacy path: {frames} card steps from "
+          f"the CPU's state within {worst:.3e} of the CPU's (limit {tol:g}); launches over "
+          f"{steps} steps {launches}, plain calls {len(calls)}, host syncs per step {syncs:g}")
+    _require(worst <= tol, "a card step of the legacy tube disagrees with the CPU's")
+    _require(launches == dict(K1=0, K2=0, K3=4 * steps, K4=0),
+             "K3 did not launch once per contact bank per substep on the legacy tube")
+    _require(not calls, f"plain versions ran on the card: {sorted(set(calls))}")
+    _require(syncs == 0, f"{syncs} host syncs per step on the legacy tube")
+    return launches["K3"]
+
+
+def phase_broadphases(dev, sim, steps=8):
+    """Phase 38: the sweep (its window 512: an x-slab of the pile holds some 256 bodies) and
+    the grid broad phases on phase 37's pile, ``steps`` steps each. Every step's pair list
+    (pairs, their order, validity, overflow and the demand counters) must be exactly the CPU
+    function's on the same bounds. The overflow flags are printed, not held: the sweep keeps
+    a pair in the row of the body first along x, and the ground, first of all, meets more
+    bodies than a row keeps (32), in both packages. Returns K1's launches over those
+    steps."""
+    from types import SimpleNamespace
+
+    from bepuphysics2_tpu_torch import simulation as tsim
+    from bepuphysics2_tpu_torch.utils.vec import Vec3
+
+    fn = tsim.broad_phase
+    seen = []
+
+    def record(lo, hi, bodies, config):
+        out = fn(lo, hi, bodies, config)
+        seen.append(([t.cpu() for t in (*lo, *hi)], [t.cpu() for t in (
+            bodies.kind, bodies.awake, bodies.collision_group)], config, out))
+        return out
+
+    before = _kernel_launches()
+    notes = []
+    for method, over in (("sweep", dict(sweep_window=512)), ("grid", {})):
+        sim.reconfigure(broadphase=method, **over)
+        seen.clear()
+        tsim.broad_phase = record
+        t0 = time.perf_counter()
+        try:
+            sim.run(steps, DT)
+            torch.cuda.synchronize()
+        finally:
+            tsim.broad_phase = fn
+        elapsed = time.perf_counter() - t0
+        same, counts, ovf = 0, [], False
+        for bounds, (kind, awake, group), config, out in seen:
+            want = fn(Vec3(*bounds[:3]), Vec3(*bounds[3:]),
+                      SimpleNamespace(kind=kind, awake=awake, collision_group=group), config)
+            same += all(torch.equal(getattr(out, f).cpu(), getattr(want, f))
+                        for f in ("a", "b", "valid", "overflow", "demand"))
+            counts.append(int(want.valid.sum()))
+            ovf |= bool(want.overflow)
+        notes.append(f"{method}: {same} of {len(seen)} steps' pair lists equal to the CPU's, "
+                     f"{min(counts)}-{max(counts)} pairs a step, overflow {ovf}, "
+                     f"{steps / elapsed:.2f} steps/s (the bounds copied out each step)")
+        _require(len(seen) == steps and same == steps,
+                 f"the {method} broad phase on the card differs from the CPU's")
+    launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+    print(f"[38 sweep and grid] phase 37's pile, {steps} steps each: " + "; ".join(notes)
+          + f"; launches {launches}")
+    _require(launches == dict(K1=2 * steps, K2=0, K3=0, K4=0), "K1 did not launch once a step")
+    return launches["K1"]
+
+
+def phase_batched(dev, n_bodies=512, steps=4):
+    """Phase 39: ``BATCHED_WORLDS`` 512-body piles of seeds 0-7, their lowest layer on the
+    ground (so that the steps solve contacts), stacked and stepped ``steps`` times by
+    ``parallel.sharding.batched_step_fn`` (one world after another, as the JAX package's
+    scan), each world bit-identical to a lone card ``Simulation`` of the same seed stepped
+    as often (every leaf of the state). Returns K1's launches in the batched steps."""
+    from bepuphysics2_tpu_torch.parallel.sharding import _stack, batched_step_fn
+    from bepuphysics2_tpu_torch.simulation import _leaves
+
+    sims = [build_pile(n_bodies, dev, seed=s, floor=0.5) for s in range(BATCHED_WORLDS)]
+    states = _stack([s.state for s in sims])
+    fn = batched_step_fn(sims[0].config, present_types=sims[0]._present_types())
+    shapes = sims[0].shapes.device(dev)
+    before = _kernel_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        states, diags = fn(states, shapes, {}, DT)
+    torch.cuda.synchronize()
+    sps = steps / (time.perf_counter() - t0)
+    launches = {k: v - before[k] for k, v in _kernel_launches().items()}
+    equal = 0
+    for i, sim in enumerate(sims):
+        sim.run(steps, DT)
+        world = [x[i] for x in _leaves(states)]
+        lone = list(_leaves(sim.state))
+        equal += len(world) == len(lone) and all(torch.equal(a, b) for a, b in zip(world, lone))
+    print(f"[39 batched worlds] {BATCHED_WORLDS} {n_bodies}-body piles (seeds 0-"
+          f"{BATCHED_WORLDS - 1}), {steps} batched steps: {sps:.2f} batched steps/s "
+          f"({sps * BATCHED_WORLDS:.2f} world steps/s); {equal} of {BATCHED_WORLDS} worlds "
+          f"bit-identical to a lone card Simulation of the same seed; launches {launches}; "
+          f"pairs per world {[int(p) for p in diags.pair_count]}, contacts "
+          f"{[int(c) for c in diags.contact_count]}")
+    _require(equal == BATCHED_WORLDS, "a batched world differs from its lone simulation")
+    _require(bool((diags.contact_count > 0).all()), "a batched world solved no contact")
+    _require(launches == dict(K1=BATCHED_WORLDS * steps, K2=0, K3=0, K4=0),
+             "K1 did not launch once per world per step")
+    return launches["K1"]
+
+
+def sharded_pile(device):
+    """Phase 40's scene: ``build_pile(1024)`` (bench.py's settings, sleep on) with its
+    lowest layer on the ground, so that every step solves contacts, and ``SHARD_JOINTS``
+    ball sockets, each between two z-neighbours of one of its first rows (handles
+    1 + 11 j and 2 + 11 j, 1.2 m apart: the pile is 11 bodies deep)."""
+    sim = build_pile(SHARD_BODIES, device, floor=0.5)
+    for j in range(SHARD_JOINTS):
+        sim.add_constraint("ball_socket", [1 + 11 * j, 2 + 11 * j],
+                           local_offset_a=(0.0, 0.0, 0.6), local_offset_b=(0.0, 0.0, -0.6))
+    return sim
+
+
+def _sharded_run(dev):
+    """``SHARD_STEPS`` steps of ``sharded_pile`` through ``sharded_step_fn`` on the default
+    process group. Returns this rank's numbers and bodies."""
+    import torch.distributed as dist
+
+    from bepuphysics2_tpu_torch.parallel import comm
+    from bepuphysics2_tpu_torch.parallel.sharding import make_mesh, shard_state, sharded_step_fn
+
+    sim = sharded_pile(dev)
+    state, shapes, banks = sim.state, sim.shapes.device(dev), sim._joint_banks()
+    mesh = make_mesh()
+    fn = sharded_step_fn(sim.config, mesh, sim._present_types())(state, shapes, banks)
+    st = shard_state(state, mesh)
+    contact_steps = torch.zeros((), dtype=torch.int32, device=dev)
+    before = _kernel_launches()
+    torch.cuda.synchronize()
+    c0, t0 = comm.calls, time.perf_counter()
+    for _ in range(SHARD_STEPS):
+        st, diag = fn(st, shapes, banks, DT)
+        contact_steps += diag.contact_count > 0
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    b = st.bodies
+    return dict(
+        bodies=torch.cat([torch.stack(list(getattr(b, f)))
+                          for f in ("pos", "orn", "vel", "omega")]).cpu().numpy(),
+        awake=b.awake.cpu().numpy(), sps=SHARD_STEPS / elapsed,
+        collectives=(comm.calls - c0) / SHARD_STEPS, pairs=int(diag.pair_count),
+        contacts=int(diag.contact_count), contact_steps=int(contact_steps),
+        overflow=bool(diag.overflow),
+        launches={k: v - before[k] for k, v in _kernel_launches().items()},
+        backend=str(dist.get_backend()), world=dist.get_world_size())
+
+
+def _shard_rank(rank, world, store_path, out_path, device_index, backend):
+    """One rank of phase 40 in a process of its own: its rendezvous through a FileStore,
+    ``_sharded_run`` on card ``device_index``, its result pickled to ``out_path``."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    try:
+        torch.cuda.set_device(device_index)
+        dist.init_process_group(backend, store=dist.FileStore(store_path, world), rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            out = _sharded_run(torch.device("cuda", device_index))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # noqa: BLE001  (handed to the main process, which raises)
+        out = dict(error=traceback.format_exc())
+    with open(out_path, "wb") as f:
+        pickle.dump(out, f)
+
+
+def _start_shard_ranks(world, backend="gloo", one_card=True):
+    """Starts ``world`` ranks of ``_shard_rank`` (on card 0, or one card each). Returns the
+    handle ``_join_procs`` takes."""
+    import multiprocessing as mp
+
+    root = Path("build") / f"shard_{backend}_{world}_{time.time_ns()}"
+    root.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    outs = [root / f"rank_{r}.pkl" for r in range(world)]
+    procs = [ctx.Process(target=_shard_rank, daemon=True, args=(
+        r, world, str(root / "store"), str(outs[r]), 0 if one_card else r, backend))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    return dict(procs=procs, outs=outs)
+
+
+def _join_procs(handle, label="phase 40's ranks"):
+    """Waits for every process of ``handle`` (one deadline) and returns their results."""
+    import pickle
+
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    for p in handle["procs"]:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [r for r, p in enumerate(handle["procs"]) if p.is_alive()]
+    _stop_procs(handle)
+    _require(not hung, f"{label} {hung} did not finish within {SHARD_TIMEOUT_S} s")
+    results = []
+    for r, path in enumerate(handle["outs"]):
+        _require(path.exists(), f"{label} {r} ended without a result")
+        with open(path, "rb") as f:
+            res = pickle.load(f)
+        _require("error" not in res, f"{label} {r} failed:\n{res.get('error')}")
+        results.append(res)
+    return results
+
+
+def _stop_procs(handle):
+    for p in handle["procs"]:
+        if p.is_alive():
+            p.terminate()
+            p.join(10)
+
+
+def _shard_note(res):
+    return (f"{res['sps']:.2f} steps/s, {res['collectives']:g} collectives a step, "
+            f"contacts on {res['contact_steps']} of {SHARD_STEPS} steps, last step's pairs "
+            f"{res['pairs']} and contacts {res['contacts']}, overflow {res['overflow']}")
+
+
+def phase_sharded(dev, name, smi, runs):
+    """Phase 40: queue 1 item 23 on the card. ``sharded_pile`` (1,024 bodies, 8 ball
+    sockets, sleep on), ``SHARD_STEPS`` steps of the constraint-sharded step on one gloo
+    rank and on two gloo ranks sharing the card (``runs``: processes of their own,
+    started before phase 37, stepping while phases 37-39 run on the same card; their
+    steps/s are taken so). Gloo runs every collective of the path on the CUDA tensors it
+    is given: ``all_gather_into_tensor`` (the coloring table, the warm start's and the
+    Jacobi pass's rows) and ``all_reduce`` with SUM (each color's velocity deltas and the
+    diagnostics), MIN (island labels) and MAX (woken labels, the overflow flag). The two
+    ranks' bodies must be identical to each other and to the one rank's (the Jacobi and
+    warm-start rows are summed in one global order, so the result does not depend on the
+    world size; a difference of at most 1e-6 is allowed and printed). The masked solve
+    reaches no kernel. Where the machine has two cards, two ranks on NCCL, one per card,
+    are held the same way."""
+    (one,), two = (_join_procs(r) for r in runs)
+    held = [("2 gloo ranks on one card", two)]
+    if torch.cuda.device_count() >= 2:
+        held.append(("2 NCCL ranks, one per card", _join_procs(_start_shard_ranks(
+            2, "nccl", one_card=False))))
+    notes, worst = [], 0.0
+    for label, res in held:
+        diff = max(float(np.abs(r["bodies"] - one["bodies"]).max()) for r in res)
+        same = all(np.array_equal(r["bodies"], one["bodies"])
+                   and np.array_equal(r["awake"], one["awake"]) for r in res)
+        worst = max(worst, diff)
+        notes.append(f"{label} ({res[0]['backend']}): {_shard_note(res[0])}; "
+                     + ("bit-identical to the one rank" if same
+                        else f"max |d| from the one rank {diff:.3e}"))
+        _require(all(r["launches"] == dict(K1=0, K2=0, K3=0, K4=0) for r in res),
+                 "the masked sharded solve launched a kernel")
+        _require(not res[0]["overflow"], "the sharded pile overflowed")
+    print(f"[40 sharded] {SHARD_BODIES}-body pile, {SHARD_JOINTS} ball sockets, sleep on, "
+          f"{SHARD_STEPS} steps of the constraint-sharded step on {name} ({smi}), while "
+          f"phases 37-39 ran: one gloo rank ({one['backend']}): {_shard_note(one)}; "
+          + "; ".join(notes))
+    _require(worst <= 1e-6, f"the ranks' bodies part from the one rank's by {worst:.3e}")
+    _require(one["contact_steps"] == SHARD_STEPS,
+             f"the sharded pile solved contacts on {one['contact_steps']} of {SHARD_STEPS} "
+             "steps only")
+
+
+def slice14_phases(dev, name, smi):
+    """Phases 37-40. Returns each new path's (kernel, launches)."""
+    # Phase 40's runs, one rank and two, step in processes of their own meanwhile.
+    runs = [_start_shard_ranks(1), _start_shard_ranks(2)]
+    try:
+        sim, k1_legacy = phase_legacy_pile(dev, name, smi)
+        phase_determinism(dev, "37 determinism", " on the legacy path", steps=30, **LEGACY)
+        phase_cpu_vs_card(dev, "37 cpu vs card", " on the legacy path", n_bodies=256,
+                          **LEGACY)
+        k3_tube = phase_legacy_tube(dev)
+        k1_bp = phase_broadphases(dev, sim)
+        del sim
+        k1_batched = phase_batched(dev)
+        phase_sharded(dev, name, smi, runs)
+    finally:
+        for r in runs:
+            _stop_procs(r)
+    return {"4k pile, legacy path (phase 37)": ("K1", k1_legacy),
+            "4-ragdoll tube, legacy path (phase 37)": ("K3", k3_tube),
+            "4k legacy pile, sweep and grid, 8 steps each (phase 38)": ("K1", k1_bp),
+            "8 batched 512-body worlds (phase 39)": ("K1", k1_batched)}
+
+
 def slice12_phases(dev, name, smi):
-    """Phases 32-34, with K8 held on phase 33's sweeps. Returns each new path's (kernel,
+    """Phases 32-33, with K8 held on phase 33's sweeps. Returns each new path's (kernel,
     launches) and K8's row."""
     from bepuphysics2_tpu_torch.collision import sweeps
 
@@ -3306,21 +3732,17 @@ def slice12_phases(dev, name, smi):
     del sim
     k8 = phase_kernel_k8(dev, k8_call, 2)
     del k8_call
-    k3, _ = phase_characters(dev, name, smi)
     k8["paths"] = {"256 capsule sweeps, twice (phase 33)": 2,
                    "every query of phase 33": k8_launches}
-    return {"4k mesh-terrain pile": ("K1", k1), "64 characters": ("K3", k3)}, k8
+    return {"4k mesh-terrain pile": ("K1", k1)}, k8
 
 
 def slice11_phases(dev, name, smi):
-    """Phases 29-31. Returns each new path's (kernel, launches) and phase 29's numbers."""
-    k1, _, _ = phase_five_shape_pile(dev, name, smi)
+    """Phases 29-30 (phase 31 steps in a process of its own: ``_start_vehicles``).
+    Returns each new path's (kernel, launches)."""
+    k1, _, _ = phase_five_shape_pile(dev, name, smi, timed=48)
     phase_five_shape_small(dev)
-    paths = {"4k five-shape pile": ("K1", k1)}
-    vehicles = phase_vehicles(dev, name, smi)
-    paths["tank's 345 steps, CCD on (phase 31)"] = ("K8", vehicles.pop("tank K8"))
-    paths.update((k, ("K3", n)) for k, n in vehicles.items())
-    return paths
+    return {"4k five-shape pile": ("K1", k1)}
 
 
 def slice10_phases(dev, name, smi):
@@ -3347,7 +3769,7 @@ def main():
     t_start = time.perf_counter()
     name, smi = phase_device()
     phase_build()
-    _start_cpu_side()  # the CPU sides of phases 6-35, computed while the card runs
+    _start_cpu_side()  # the CPU sides of phases 6-37, computed while the card runs
     try:
         return _phases(dev, name, smi, t_start)
     finally:
@@ -3355,7 +3777,7 @@ def main():
 
 
 def _phases(dev, name, smi, t_start):
-    """Phases 3-36 and the kernels line; the CPU sides come from ``_cpu_side_worker``."""
+    """Phases 3-40 and the kernels line; the CPU sides come from ``_cpu_side_worker``."""
     # The main path runs first: phase 3 holds K1 on its last step's K1 call.
     k1_launches, k1_call = phase_main_path(dev, name, smi)
     k1 = phase_kernel(dev, k1_call)
@@ -3363,9 +3785,10 @@ def _phases(dev, name, smi, t_start):
     phase_determinism(dev)
     phase_cpu_vs_card(dev)
     k2 = phase_kernel_win(dev)
-    # The two 32-ragdoll tubes time 16 steps instead of bench.py's 96 (and the ragdoll
-    # pile 32) to keep the whole run well inside its time limit on a slow host.
-    k2["launches"] = phase_main_path_win(dev, name, smi)
+    # The timed windows gate nothing, and they are cut to keep the whole run inside its
+    # time limit: the two 32-ragdoll tubes time 16 steps and the ragdoll pile 32, the 16k
+    # and five-shape piles 48 (bench.py: 96).
+    k2["launches"] = phase_main_path_win(dev, name, smi, timed=48)
     win = dict(solver_backend="pallas_win", broadphase="grid2")
     phase_determinism(dev, "9 determinism", " on the windowed path (grid2, K2)", **win)
     phase_cpu_vs_card(dev, "10 cpu vs card", " on the windowed path", WIN_TOL, **win)
@@ -3397,15 +3820,27 @@ def _phases(dev, name, smi, t_start):
                       WIN_TOL, **_schedule_overrides(callback=False), **win)
     # Slice 10: the colosseum through K1 and K2, the cloth through K3, every joint type.
     paths = slice10_phases(dev, name, smi)
-    # Slice 11: the five-shape pile over the generic narrow phase (K1), the car and the
-    # tank (K3).
+    # Slice 11: the five-shape pile over the generic narrow phase (K1).
     paths.update(slice11_phases(dev, name, smi))
-    # Slice 12: the mesh-terrain pile (K1), the queries on it (K8), 64 characters (K3).
+    # Slice 12: the mesh-terrain pile (K1), the queries on it (K8).
     new, k8 = slice12_phases(dev, name, smi)
     paths.update(new)
-    # Slice 13: CCD on the 4k pile (K1, K8); the utilities on phase 4's pile.
-    paths["4k pile, 256 continuous spheres (phase 35)"] = ("K8", phase_ccd(dev, name, smi))
-    phase_utilities(dev, _PILE.pop("4k"))
+    # Phase 31, slice 11's car and tank (K3, K8), steps in a process of its own from here,
+    # beside phases 34-40: after K8's hold, whose times it would share the card with.
+    vehicles = _start_vehicles(name, smi)
+    try:
+        # Slice 12: 64 characters (K3).
+        paths["64 characters"] = ("K3", phase_characters(dev, name, smi)[0])
+        # Slice 13: CCD on the 4k pile (K1, K8); the utilities on phase 4's pile.
+        paths["4k pile, 256 continuous spheres (phase 35)"] = (
+            "K8", phase_ccd(dev, name, smi))
+        phase_utilities(dev, _PILE.pop("4k"))
+        # Slice 14: the legacy path (K1, K3), sweep and grid, batched worlds, the sharded
+        # step.
+        paths.update(slice14_phases(dev, name, smi))
+        paths.update(_vehicle_paths(vehicles))
+    finally:
+        _stop_procs(vehicles)
     k1["paths"] = {"4k pile": k1["launches"]}
     k2["paths"] = {"16k pile": k2["launches"]}
     for path, (kernel, n) in paths.items():
@@ -3422,7 +3857,7 @@ def _phases(dev, name, smi, t_start):
             ("probe_gather (K6)", K6_SOURCE, K6_REPLACES, k6),
             ("probe_scatter (K7)", K7_SOURCE, K7_REPLACES, k7),
             ("conservative_advance (K8)", K8_SOURCE, K8_REPLACES, k8)]
-    print(f"[done] 36 phases in {time.perf_counter() - t_start:.0f} s")
+    print(f"[done] 40 phases in {time.perf_counter() - t_start:.0f} s")
     print(json.dumps({"kernels": [dict(
         name=n, route="cuda", source=src, replaces=rep, launches=k["launches"],
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],

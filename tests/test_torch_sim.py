@@ -318,30 +318,46 @@ def test_simulation_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("case,item", [
-    ("sharded_solve", "item 23"), ("jax_shape", "not a shape of the port"),
-    ("sweep_broadphase", "Not to port"), ("legacy_cache", "legacy"),
-    ("windowed_compound", "queue 3"),
+    ("jax_shape", "not a shape of the port"), ("windowed_compound", "queue 3"),
 ])
 def test_unported_paths_are_refused_by_name(case, item):
     """A scene or call the port cannot carry raises, naming the ROADMAP item; it is never
     solved on a path the port does not have."""
     with pytest.raises(NotImplementedError, match=item):
-        if case == "sharded_solve":
-            sim = _tiny()
-            solve_all(sim.state.bodies, [], {}, sim.config.integrator,
-                      sim.config.solve_config(), DT, axis_name="bodies")
-        elif case == "jax_shape":
+        if case == "jax_shape":
             _tiny().add_shape(jbp.Cylinder(0.5, 1.0))
-        elif case == "sweep_broadphase":
-            _tiny(broadphase="sweep").timestep(DT)
-        elif case == "legacy_cache":
-            _tiny(use_pair_store=False).timestep(DT)
         elif case == "windowed_compound":
             sim = _tiny(solver_backend="pallas_win")
             box = sim.add_shape(tbp.Box(0.5, 0.5, 0.5))
             sim.add_body(tbp.BodyDescription.kinematic((0, -0.5, 0), sim.add_shape(
                 tbp.Compound.build([(box, (0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 1.0))]))))
             sim.timestep(DT)  # the JAX package's windowed general path fails on it
+
+
+@pytest.mark.parametrize("case", ["sweep_broadphase", "grid_broadphase", "legacy_cache"])
+def test_formerly_refused_configurations_run(case):
+    """The configurations the port refused until the legacy path and the last two broad
+    phases were ported: a step runs, the ball falls, nothing overflows."""
+    sim = _tiny(**dict(sweep_broadphase=dict(broadphase="sweep"),
+                       grid_broadphase=dict(broadphase="grid"),
+                       legacy_cache=dict(use_pair_store=False))[case])
+    sim.run(3, DT)
+    assert sim.get_body(0)[0][1] < 1.0 and not bool(sim.last_diag.overflow)
+    assert (sim.state.store is None) == (case == "legacy_cache")
+
+
+def test_formerly_refused_sharded_solve_runs_on_one_rank(tmp_path):
+    """``solve_all`` with a process group (JAX ``axis_name``) solves on a one-rank gloo
+    group (in a spawned rank, so this process keeps no process group)."""
+    from torch_ranks import run_ranks
+
+    sim = _tiny()
+    sim.run(1, DT)
+    st = sim.state
+    res = run_ranks(1, {"sharded": dict(
+        state=st._replace(store=None), shapes=sim.shapes.device("cpu"), banks={},
+        present=sim._present_types(), config=sim.config, dt=DT, frames=2)}, tmp_path)
+    assert res[0]["sharded"]["bodies"][-1].pos.y[0] < float(st.bodies.pos.y[0])
 
 
 def _egg_support(params, d):
@@ -352,10 +368,19 @@ def _egg_support(params, d):
 
 
 @pytest.mark.parametrize("shape", ["cylinder", "triangle", "convex_hull", "custom"])
-def test_ported_shapes_register_and_step(shape):
+def test_ported_shapes_register_and_step(shape, request):
     """Each shape the port now carries registers, and a body of it falls onto a box and
     comes to rest on it on the CPU (the generic GJK/MPR narrow phase for the cylinder, the
-    hull and the custom shape, the box-triangle tester for the triangle)."""
+    hull and the custom shape, the box-triangle tester for the triangle). The custom type
+    is unregistered afterwards, so that a later module of the same worker finds its ids
+    free."""
+    from bepuphysics2_tpu_torch.shapes.custom import CUSTOM_SUPPORTS
+
+    def custom():
+        tid = tbp.register_custom_shape(_egg_support)
+        request.addfinalizer(lambda: CUSTOM_SUPPORTS.pop(tid))
+        return tbp.CustomShape(tid, (0.4, 0.25, 0.3), 0.4, (0.03, 0.05, 0.04))
+
     sim = tbp.Simulation(tbp.SimConfig(body_capacity=8, max_pairs=64, substeps=4), device="cpu")
     ground = sim.add_shape(tbp.Box(5.0, 0.5, 5.0))
     sim.add_static(tbp.StaticDescription(position=(0, -0.5, 0), shape=ground))
@@ -363,8 +388,7 @@ def test_ported_shapes_register_and_step(shape):
            "triangle": lambda: tbp.Triangle((-0.5, 0.0, -0.4), (0.5, 0.0, -0.4), (0.0, 0.0, 0.6)),
            "convex_hull": lambda: tbp.ConvexHull.from_points(
                np.random.default_rng(3).normal(size=(20, 3)) * 0.3),
-           "custom": lambda: tbp.CustomShape(tbp.register_custom_shape(_egg_support),
-                                             (0.4, 0.25, 0.3), 0.4, (0.03, 0.05, 0.04))}[shape]()
+           "custom": custom}[shape]()
     body = sim.add_body(tbp.BodyDescription.dynamic((0, 0.8, 0), sim.add_shape(obj), 1.0, obj))
     sim.run(60, DT)
     pos, _, vel, _ = sim.get_body(body)

@@ -61,6 +61,26 @@ class BodyState(NamedTuple):
     def world_inv_inertia(self) -> Sym3:
         return self.inv_inertia.rotation_sandwich(self.orn.to_matrix())
 
+    @staticmethod
+    def empty(capacity: int, device="cuda") -> "BodyState":
+        """``capacity`` empty slots on ``device``: at rest at the origin, no shape (-1),
+        the default speculative margins (0.1 and 3e38)."""
+        f32, i32 = torch.float32, torch.int32
+
+        def z(dtype=f32):
+            return torch.zeros(capacity, dtype=dtype, device=device)
+
+        return BodyState(
+            pos=Vec3.zeros(capacity, device=device), orn=Quat.identity(capacity, device=device),
+            vel=Vec3.zeros(capacity, device=device), omega=Vec3.zeros(capacity, device=device),
+            inv_mass=z(), inv_inertia=Sym3.zeros(capacity, device=device), kind=z(i32),
+            awake=z(torch.bool), shape=torch.full((capacity,), -1, dtype=i32, device=device),
+            friction=z(), spring_frequency=z(), spring_damping=z(), max_recovery_velocity=z(),
+            sleep_threshold=z(), sleep_timer=z(), sleep_island=z(i32), collision_group=z(i32),
+            continuity=z(i32),
+            spec_margin_min=torch.full((capacity,), 0.1, dtype=f32, device=device),
+            spec_margin_max=torch.full((capacity,), 3.0e38, dtype=f32, device=device))
+
 
 @dataclasses.dataclass
 class BodyDescription:

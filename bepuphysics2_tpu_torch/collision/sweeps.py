@@ -16,11 +16,13 @@ body (the host enumerates them), the compound itself left out. A batch of R swee
 pass over (R, T) records, not R calls.
 
 On a CUDA device the advancement of every record runs in kernel K8
-(``csrc/conservative_advance.cu``, ``conservative_advance``): one thread runs a record's
-whole loop. A registered custom shape's support is a Python function, which no kernel
-can call: where one may occur (decided on the host from the types present) the masked
-loop runs as PyTorch ops instead, replayed as one CUDA graph per layout on the card
-(``utils/replay.py``).
+(``csrc/conservative_advance.cu``, ``conservative_advance``) over factored records: an A
+table of the swept sides and a B table of the targets, each row once, and either their
+product (a sweep batch against every target) or an explicit (A row, B row) list (a
+pruned sweep, CCD's pairs). A registered custom shape's support is a Python function,
+which no kernel can call: where one may occur (decided on the host from the types
+present) the masked loop runs as PyTorch ops over the gathered records instead, replayed
+as one CUDA graph per layout on the card (``utils/replay.py``).
 """
 from __future__ import annotations
 
@@ -54,8 +56,8 @@ class SweepHit(NamedTuple):
 def _advance(x, custom_ids=(), iters: int = SWEEP_ITERS, miss_max_t: bool = False):
     """The conservative advancement of every record: (n,) time of impact, or the miss
     value where none within max_t (3e38, or the record's ``max_t`` where
-    ``miss_max_t``). ``x`` holds flat per-record tensors (``conservative_advance``).
-    K8's plain version."""
+    ``miss_max_t``). ``x`` holds flat per-record tensors (``gather_records``). The loop
+    of K8's plain version (``conservative_advance_plain``)."""
     sa = x["sweep"]
     ctx0 = SupportCtx(
         type_a=x["type_a"], params_a=x["params_a"], type_b=x["type_b"],
@@ -91,67 +93,155 @@ def _advance(x, custom_ids=(), iters: int = SWEEP_ITERS, miss_max_t: bool = Fals
     return hit_t
 
 
-# K8's per-record floats, in its layout (csrc/conservative_advance.cu).
-_F_FIELDS = (("sweep", "pos"), ("sweep", "orn"), ("sweep", "vel"), ("sweep", "omega"),
-             ("o_pos",), ("o_orn",), ("o_vel",), ("o_omega",), ("lpos",), ("lorn",))
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_K8_ARGS = [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P]
+# K8's tables (csrc/conservative_advance.cu): the float rows of a (C, rows) table.
+A_COLS = 26  # position 0-2, orientation 3-6, velocity 7-9, angular velocity 10-12,
+#              the radius of the speed bound 13, packed params 14-25
+B_COLS = 33  # and the target's pose in its owner's frame: position 26-28, orientation 29-32
+# The int rows: type, registry row into ``hull_rows`` (-1: none), exists.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_K8_ARGS = [_P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _F, _I, _I, _P, _P, _P,
+            _P, _I, _P]
 
 
-def _shared_rows(t):
-    """(contiguous rows, row stride): one row and stride 0 where every record shares it
-    (an expanded tensor), else the rows themselves."""
-    if t.shape[0] > 1 and t.stride(0) == 0:
-        return t[0].contiguous(), 0
-    return t.contiguous(), t.shape[1]
+class Table(NamedTuple):
+    """One side of K8's records, structure-of-arrays: ``f`` (A_COLS or B_COLS, rows)
+    float32, ``i`` (3, rows) int32."""
+    f: torch.Tensor
+    i: torch.Tensor
+
+    @property
+    def rows(self) -> int:
+        return self.f.shape[1]
 
 
-def conservative_advance(x, iters: int = SWEEP_ITERS, miss_max_t: bool = False, work=None):
-    """Kernel K8: ``_advance(x, (), iters, miss_max_t)`` for records of the built-in
-    convex types (sphere, capsule, box, cylinder, triangle, convex hull). ``x`` (n
-    records): ``sweep`` {pos, orn, vel, omega} and ``o_pos``, ``o_orn``, ``o_vel``,
-    ``o_omega`` the two bodies' poses and velocities at t = 0, ``lpos`` / ``lorn`` the
-    target's pose in its owner's frame, ``type_a`` / ``type_b`` (n,) int32, ``params_a``
-    / ``params_b`` (n, 12), ``hull_points`` the registry's pool, ``hull_a`` / ``hull_b``
-    (n, H) pool rows, ``speed_bound``, ``exists`` and ``max_t`` (n,). A-side rows may be
-    one row expanded over the records. On a CUDA tensor it launches K8 (counted in
-    ``conservative_advance.launches``); on a CPU tensor it runs the plain version.
-    ``work`` (card only): an (n, 2) int32 tensor that K8 fills with each record's
-    advancement and GJK iterations."""
-    speed_bound = x["speed_bound"]
-    dev = speed_bound.device
+def table(pos: Vec3, orn: Quat, vel: Vec3, omega: Vec3, radius, type_, params, hull_row,
+          exists=None, lpos: Vec3 = None, lorn: Quat = None) -> Table:
+    """A table of (rows,) columns (a number, or a tensor that broadcasts): the pose and
+    velocity, the radius of the speed bound, the type, ``params`` (rows or 1, 12), the
+    registry row into ``hull_rows`` (-1: none) and ``exists`` (default all); with ``lpos``
+    / ``lorn`` a B table (the target's pose in its owner's frame), else an A table. A
+    number becomes a filled column, never a copy from the host."""
+    rows = pos.x.shape[0]
+    dev = pos.x.device
+
+    def col(c, dtype):
+        if torch.is_tensor(c):
+            return c.to(dtype).expand(rows)
+        return torch.full((rows,), c, dtype=dtype, device=dev)
+
+    f32 = torch.float32
+    parts = [torch.stack([col(c, f32) for c in (*pos, *orn, *vel, *omega, radius)]),
+             params.to(f32).expand(rows, 12).T]
+    if lpos is not None:
+        parts.append(torch.stack([col(c, f32) for c in (*lpos, *lorn)]))
+    i = torch.stack([col(c, torch.int32) for c in (type_, hull_row,
+                                                   1 if exists is None else exists)])
+    return Table(torch.cat(parts), i)
+
+
+class Records(NamedTuple):
+    """K8's records over two tables. ``pairs`` None: every A row against every B row,
+    A-major (record r = (r // b.rows, r % b.rows)), each with B's ``exists``; else (n, 2)
+    int32 (A row, B row) with ``exists`` (n,) bool. ``hull_rows`` (S, H) int32 and
+    ``hull_points`` the registry's hull pool; ``max_t`` a float."""
+    a: Table
+    b: Table
+    pairs: torch.Tensor
+    exists: torch.Tensor
+    max_t: float
+    hull_rows: torch.Tensor
+    hull_points: Vec3
+
+    @property
+    def n(self) -> int:
+        if self.pairs is None:
+            return self.a.rows * self.b.rows
+        return self.pairs.shape[0]
+
+
+def gather_records(rec: Records):
+    """The flat per-record tensors ``_advance`` takes, gathered from the tables, with the
+    speed bound |v_a - v_b| + |w_a| r_a + |w_b| r_b + 1e-6 (the order K8 computes it in)."""
+    dev = rec.a.f.device
+    if rec.pairs is None:
+        r = torch.arange(rec.n, device=dev)
+        ia, ib = r // rec.b.rows, r % rec.b.rows
+        exists = rec.b.i[2, ib] != 0
+    else:
+        ia, ib = rec.pairs[:, 0].long(), rec.pairs[:, 1].long()
+        exists = rec.exists.bool()
+    fa, fb = rec.a.f[:, ia], rec.b.f[:, ib]
+    v = lambda f, c: Vec3(f[c], f[c + 1], f[c + 2])
+    q = lambda f, c: Quat(f[c], f[c + 1], f[c + 2], f[c + 3])
+    hull = lambda row: torch.where((row >= 0)[:, None],
+                                   rec.hull_rows[row.clamp_min(0).long()], -1)
+    a_vel, a_omega, o_vel, o_omega = v(fa, 7), v(fa, 10), v(fb, 7), v(fb, 10)
+    speed_bound = ((a_vel - o_vel).length() + a_omega.length() * fa[13]
+                   + o_omega.length() * fb[13] + 1e-6)
+    return dict(
+        sweep=dict(pos=v(fa, 0), orn=q(fa, 3), vel=a_vel, omega=a_omega),
+        type_a=rec.a.i[0, ia], params_a=fa[14:26].T, type_b=rec.b.i[0, ib],
+        params_b=fb[14:26].T, hull_points=rec.hull_points, hull_a=hull(rec.a.i[1, ia]),
+        hull_b=hull(rec.b.i[1, ib]), o_pos=v(fb, 0), o_orn=q(fb, 3), o_vel=o_vel,
+        o_omega=o_omega, lpos=v(fb, 26), lorn=q(fb, 29), speed_bound=speed_bound,
+        exists=exists, max_t=torch.full((rec.n,), rec.max_t, dtype=torch.float32, device=dev))
+
+
+def conservative_advance_plain(rec: Records, iters: int = SWEEP_ITERS,
+                               miss_max_t: bool = False):
+    """K8's plain version: the flat records gathered from the tables, then ``_advance``."""
+    return _advance(gather_records(rec), (), iters, miss_max_t)
+
+
+def conservative_advance(rec: Records, iters: int = SWEEP_ITERS, miss_max_t: bool = False,
+                         work=None, counters=None):
+    """Kernel K8: ``conservative_advance_plain(rec, iters, miss_max_t)`` for records of the
+    built-in convex types (sphere, capsule, box, cylinder, triangle, convex hull): (n,)
+    time of impact, or the miss value. On a CUDA tensor it launches K8's two passes, one
+    call counted in ``conservative_advance.launches``; on a CPU tensor it runs the plain
+    version. Card only: ``work``, an (n, 2) int32 tensor that K8 fills with each record's
+    advancement and GJK iterations; ``counters``, a (2,) int32 tensor K8 takes for its
+    queue's length (the records pass 1 left to pass 2) and head."""
+    dev = rec.a.f.device
     if dev.type != "cuda":
         if dev.type != "cpu":
             raise ValueError(f"conservative_advance runs on cuda or cpu, not {dev.type}")
-        return _advance(x, (), iters, miss_max_t)
-    n = speed_bound.shape[0]
-    f32 = torch.float32
-    cols = [c for path in _F_FIELDS for c in _field(x, path)]
-    f = torch.stack([c.to(f32) for c in cols] + [speed_bound.to(f32), x["max_t"].to(f32)], -1)
-    ti = torch.stack([x["type_a"].to(torch.int32), x["type_b"].to(torch.int32),
-                      x["exists"].to(torch.int32)], -1)
-    params_a, pa_stride = _shared_rows(x["params_a"].to(f32))
-    params_b = x["params_b"].to(f32).contiguous()
-    hull_a, ha_stride = _shared_rows(x["hull_a"].to(torch.int32))
-    hull_b = x["hull_b"].to(torch.int32).contiguous()
-    hx, hy, hz = (c.to(f32).contiguous() for c in x["hull_points"])
-    width = hull_b.shape[1]
-    if params_b.shape != (n, 12) or hull_b.shape[0] != n or hull_a.shape[-1] != width:
-        raise ValueError(f"conservative_advance: params_b {tuple(params_b.shape)}, hull_a "
-                         f"{tuple(hull_a.shape)}, hull_b {tuple(hull_b.shape)} for {n} records")
-    for name, t in (("f", f), ("params_a", params_a), ("hull_a", hull_a), ("hull_x", hx)):
-        if t.device != dev:
-            raise ValueError(f"conservative_advance: {name} is on {t.device}, expected {dev}")
-    if work is not None and (work.shape != (n, 2) or work.dtype != torch.int32
-                             or work.device != dev or not work.is_contiguous()):
-        raise ValueError(f"conservative_advance: work must be ({n}, 2) int32 on {dev}")
+        return conservative_advance_plain(rec, iters, miss_max_t)
+    n = rec.n
+    f32, i32 = torch.float32, torch.int32
+    a, b = rec.a, rec.b
+    hx, hy, hz = rec.hull_points
+    checks = [("a.f", a.f, f32, (A_COLS, a.rows)), ("a.i", a.i, i32, (3, a.rows)),
+              ("b.f", b.f, f32, (B_COLS, b.rows)), ("b.i", b.i, i32, (3, b.rows)),
+              ("hull_rows", rec.hull_rows, i32, rec.hull_rows.shape),
+              ("hull_x", hx, f32, hx.shape), ("hull_y", hy, f32, hx.shape),
+              ("hull_z", hz, f32, hx.shape)]
+    if a.f.shape[0] == B_COLS:  # a B table may serve as the A side
+        checks[0] = ("a.f", a.f, f32, (B_COLS, a.rows))
+    if rec.pairs is not None:
+        checks += [("pairs", rec.pairs, i32, (n, 2)), ("exists", rec.exists, torch.bool, (n,))]
+    elif n >= 2 ** 31:
+        raise ValueError(f"conservative_advance: {n} records in the product form")
+    if work is not None:
+        checks.append(("work", work, i32, (n, 2)))
+    if counters is None:
+        counters = torch.empty(2, dtype=i32, device=dev)
+    checks.append(("counters", counters, i32, (2,)))
+    for name, t, dtype, shape in checks:
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape)
+                or not t.is_contiguous()):
+            raise ValueError(f"conservative_advance: {name} must be {tuple(shape)} {dtype}, "
+                             f"contiguous, on {dev}; got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
     out = torch.empty(n, dtype=f32, device=dev)
+    queue = torch.empty(n, 2, dtype=i32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     launch = build.bind("conservative_advance", "conservative_advance_launch", _K8_ARGS)
-    err = launch(f.data_ptr(), ti.data_ptr(), params_a.data_ptr(), pa_stride,
-                 params_b.data_ptr(), hx.data_ptr(), hy.data_ptr(), hz.data_ptr(),
-                 hull_a.data_ptr(), ha_stride, hull_b.data_ptr(), width, n, iters,
-                 int(miss_max_t), out.data_ptr(), None if work is None else work.data_ptr(),
-                 build.raw_stream(dev))
+    err = launch(a.f.data_ptr(), a.i.data_ptr(), a.rows, b.f.data_ptr(), b.i.data_ptr(),
+                 b.rows, ptr(rec.pairs), ptr(rec.exists), n, rec.hull_rows.data_ptr(),
+                 rec.hull_rows.shape[1], hx.data_ptr(), hy.data_ptr(), hz.data_ptr(),
+                 rec.max_t, iters, int(miss_max_t), out.data_ptr(), ptr(work),
+                 queue.data_ptr(), counters.data_ptr(), 3, build.raw_stream(dev))
     if err:
         raise RuntimeError(f"conservative_advance kernel launch failed: CUDA error {err}")
     conservative_advance.launches += 1
@@ -161,23 +251,18 @@ def conservative_advance(x, iters: int = SWEEP_ITERS, miss_max_t: bool = False, 
 conservative_advance.launches = 0
 
 
-def _field(x, path):
-    v = x
-    for k in path:
-        v = v[k]
-    return v
-
-
-def advance(x, custom_ids, iters: int = SWEEP_ITERS, miss_max_t: bool = False):
-    """The advancement of every record (``conservative_advance``'s ``x``). ``custom_ids``
-    (a tuple): the custom shape types that may occur in the records, decided on the host
-    from the types present. Without one, K8 (or its plain version on the CPU); with one,
-    the masked loop in PyTorch ops, replayed as a CUDA graph on the card."""
+def advance(rec: Records, custom_ids, iters: int = SWEEP_ITERS, miss_max_t: bool = False):
+    """The advancement of every record (``conservative_advance``'s ``rec``).
+    ``custom_ids`` (a tuple): the custom shape types that may occur in the records,
+    decided on the host from the types present. Without one, K8 (or its plain version on
+    the CPU); with one, the masked loop in PyTorch ops over the gathered records, replayed
+    as a CUDA graph on the card."""
     if not custom_ids:
-        return conservative_advance(x, iters, miss_max_t)
+        return conservative_advance(rec, iters, miss_max_t)
     fns = tuple(CUSTOM_SUPPORTS[t] for t in custom_ids)
     return replay.run(("advance", iters, miss_max_t, custom_ids, fns),
-                      lambda d: _advance(d, custom_ids, iters, miss_max_t), x)
+                      lambda d: _advance(d, custom_ids, iters, miss_max_t),
+                      gather_records(rec))
 
 
 def sweep_shape_all(
@@ -209,6 +294,7 @@ def sweep_shape_all(
         pos, orn, vel, omega = pos[None], orn[None], vel[None], omega[None]
     n_sweeps = pos.x.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
+    max_t_f = float(max_t)
     max_t = torch.as_tensor(max_t, **f32)
     sweep_radius = torch.as_tensor(sweep_radius, **f32)
 
@@ -220,7 +306,7 @@ def sweep_shape_all(
     tg_owner = torch.arange(n, device=dev)
     tg_type = tgt_type
     tg_params = shapes.params[tgt_shape]
-    tg_hull = shapes.hull_rows[tgt_shape]
+    tg_row = tgt_shape
     tg_radius = shapes.max_radius[tgt_shape]
     tg_exists = state.exists & (state.shape >= 0) & ~is_comp
     zero = torch.zeros(n, **f32)
@@ -240,7 +326,7 @@ def sweep_shape_all(
         tri12 = torch.nn.functional.pad(shapes.child_tri[cr], (0, 3))
         tg_params = torch.cat([tg_params,
                                torch.where(is_tri[:, None], tri12, shapes.params[cs_c])])
-        tg_hull = torch.cat([tg_hull, torch.where(is_tri[:, None], -1, shapes.hull_rows[cs_c])])
+        tg_row = torch.cat([tg_row, torch.where(is_tri, -1, cs_c)])
         tg_radius = torch.cat([tg_radius, torch.sqrt(far[:, 0] ** 2 + far[:, 1] ** 2
                                                      + far[:, 2] ** 2)])
         tg_exists = torch.cat([tg_exists, (co >= 0) & state.exists[co.clamp_min(0)]])
@@ -248,15 +334,19 @@ def sweep_shape_all(
                                                                      cp[:, 2]))))
         tg_lorn = Quat(*(torch.cat([a, cq[:, i]]) for i, a in enumerate(tg_lorn)))
 
-    # Every target per sweep: (R, T) by broadcasting, or (R, K) after the prune.
+    # The tables: the R sweeps (A) and the T targets (B), each row once.
     o_pos, o_orn = state.pos[tg_owner], state.orn[tg_owner]
     o_vel, o_omega = state.vel[tg_owner], state.omega[tg_owner]
-    row = lambda v: type(v)(*(c[:, None] for c in v))
-    a_pos, a_orn, a_vel, a_omega = row(pos), row(orn), row(vel), row(omega)
+    targets = table(o_pos, o_orn, o_vel, o_omega, tg_radius, tg_type, tg_params, tg_row,
+                    tg_exists, tg_lpos, tg_lorn)
+    swept = table(pos, orn, vel, omega, sweep_radius, shape_type,
+                  torch.as_tensor(shape_params, **f32)[None], shape_row)
     n_tg = tg_owner.shape[0]
-    saturated = None
-    expand = lambda x: x.expand(n_sweeps, *x.shape)
+    pairs = exists = saturated = None
+    owners = tg_owner.expand(n_sweeps, n_tg)
     if prune_k and prune_k < n_tg:
+        row = lambda v: type(v)(*(c[:, None] for c in v))
+        a_pos, a_vel, a_omega = row(pos), row(vel), row(omega)
         b0 = o_pos + o_orn.rotate(tg_lpos)
         gap = (b0 - a_pos).length() - tg_radius - sweep_radius
         sb_ = ((a_vel - o_vel).length() + a_omega.length() * sweep_radius
@@ -266,47 +356,16 @@ def sweep_shape_all(
         ranked = torch.sort(entry, dim=-1, stable=True)
         sel = ranked.indices[:, :prune_k]
         kth = ranked.values[:, prune_k - 1]
-        kth_live = kth < _INF
-        pick = lambda v: type(v)(*(c[sel] for c in v)) if not torch.is_tensor(v) else v[sel]
-        tg_owner, tg_type, tg_params, tg_hull, tg_radius = (
-            pick(tg_owner), pick(tg_type), pick(tg_params), pick(tg_hull), pick(tg_radius))
-        tg_lpos, tg_lorn = pick(tg_lpos), pick(tg_lorn)
-        o_pos, o_orn, o_vel, o_omega = pick(o_pos), pick(o_orn), pick(o_vel), pick(o_omega)
-        tg_exists = ranked.values[:, :prune_k] < _INF
-        n_tg = prune_k
-        saturated = kth_live, kth
-    else:
-        tg_owner, tg_type, tg_params, tg_hull, tg_radius, tg_exists = (
-            expand(tg_owner), expand(tg_type), expand(tg_params), expand(tg_hull),
-            expand(tg_radius), expand(tg_exists))
-        tg_lpos, tg_lorn, o_pos, o_orn, o_vel, o_omega = (
-            type(v)(*(expand(c) for c in v))
-            for v in (tg_lpos, tg_lorn, o_pos, o_orn, o_vel, o_omega))
-
-    # Flatten to (R·T,) records; the swept shape is the A side of every record.
-    n_rec = n_sweeps * n_tg
-    flat = lambda v: (v.reshape(n_rec, *v.shape[2:]) if torch.is_tensor(v)
-                      else type(v)(*(c.expand(n_sweeps, n_tg).reshape(n_rec) for c in v)))
-    rel_v = a_vel - o_vel
-    speed_bound = (rel_v.length() + a_omega.length() * sweep_radius
-                   + o_omega.length() * tg_radius + 1e-6)
-    params_a = torch.as_tensor(shape_params, **f32)
-    hull_a = (shapes.hull_rows[shape_row] if shape_row >= 0
-              else torch.full_like(shapes.hull_rows[0], -1))
-    inputs = dict(
-        sweep=dict(pos=flat(a_pos), orn=flat(a_orn), vel=flat(a_vel), omega=flat(a_omega)),
-        type_a=torch.full((n_rec,), shape_type, dtype=torch.int32, device=dev),
-        params_a=params_a.expand(n_rec, params_a.shape[0]), type_b=flat(tg_type),
-        params_b=flat(tg_params), hull_points=Vec3(shapes.hull_x, shapes.hull_y, shapes.hull_z),
-        hull_a=hull_a.expand(n_rec, hull_a.shape[0]), hull_b=flat(tg_hull),
-        o_pos=flat(o_pos), o_orn=flat(o_orn), o_vel=flat(o_vel), o_omega=flat(o_omega),
-        lpos=flat(tg_lpos), lorn=flat(tg_lorn),
-        speed_bound=flat(speed_bound.expand(n_sweeps, n_tg)), exists=flat(tg_exists),
-        max_t=max_t.expand(n_rec),
-    )
+        # The (R, K) records: each sweep's K earliest targets.
+        sweep_rows = torch.arange(n_sweeps, device=dev)[:, None].expand(n_sweeps, prune_k)
+        pairs = torch.stack([sweep_rows, sel], -1).reshape(-1, 2).to(torch.int32)
+        exists = (ranked.values[:, :prune_k] < _INF).reshape(-1)
+        owners = tg_owner[sel]
+        saturated = kth < _INF, kth
+    rec = Records(swept, targets, pairs, exists, max_t_f, shapes.hull_rows,
+                  Vec3(shapes.hull_x, shapes.hull_y, shapes.hull_z))
     custom = tuple(CUSTOM_SUPPORTS) if custom_ids is None else tuple(custom_ids)
-    hit_t = advance(inputs, custom, SWEEP_ITERS)
-    hit_t = hit_t.reshape(n_sweeps, n_tg)
+    hit_t = advance(rec, custom, SWEEP_ITERS).reshape(n_sweeps, -1)
 
     best = torch.argmin(hit_t, dim=-1)
     best_t = hit_t.gather(-1, best[:, None])[:, 0]
@@ -315,7 +374,7 @@ def sweep_shape_all(
     if saturated is not None:
         kth_live, kth = saturated
         sat_out = kth_live & (kth <= torch.minimum(best_t, max_t))
-    owner = tg_owner.gather(-1, best[:, None])[:, 0]
+    owner = owners.gather(-1, best[:, None])[:, 0]
     out = SweepHit(
         hit=found,
         t=torch.where(found, best_t, max_t),
@@ -348,33 +407,32 @@ def pair_toi(state: BodyState, shapes: ShapeData, a, b, live, max_t, iters: int 
     from .compound import _select_children_clustered
 
     a, b = a.long(), b.long()
-    type_of = lambda body: torch.where(state.shape[body] >= 0,
-                                       shapes.type[state.shape[body].clamp_min(0).long()], -1)
-    # Canonical: if A is the only composite, swap it onto B.
-    swap = _is_composite(type_of(a)) & ~_is_composite(type_of(b))
-    a, b = torch.where(swap, b, a), torch.where(swap, a, b)
-    sa = state.shape[a].clamp_min(0).long()
-    sb = state.shape[b].clamp_min(0).long()
-    type_a, type_b = type_of(a), type_of(b)
-    comp_pair = _is_composite(type_b) & ~_is_composite(type_a)
-    ra, rb = shapes.max_radius[sa], shapes.max_radius[sb]
-    pos_a0, pos_b0 = state.pos[a], state.pos[b]
-    orn_a0, orn_b0 = state.orn[a], state.orn[b]
-    vel_a, vel_b = state.vel[a], state.vel[b]
-    om_a, om_b = state.omega[a], state.omega[b]
-    speed_bound = (vel_a - vel_b).length() + om_a.length() * ra + om_b.length() * rb + 1e-6
-    n = a.shape[0]
+    n_bodies = state.pos.x.shape[0]
     dev = a.device
     f32 = dict(dtype=torch.float32, device=dev)
+    shape = state.shape.clamp_min(0).long()
+    btype = torch.where(state.shape >= 0, shapes.type[shape], -1)
+    # Canonical: if A is the only composite, swap it onto B.
+    swap = _is_composite(btype[a]) & ~_is_composite(btype[b])
+    a, b = torch.where(swap, b, a), torch.where(swap, a, b)
+    sb = shape[b]
+    type_a, type_b = btype[a], btype[b]
+    comp_pair = _is_composite(type_b) & ~_is_composite(type_a)
+    ra, rb = shapes.max_radius[shape[a]], shapes.max_radius[sb]
+    pos_a0, pos_b0 = state.pos[a], state.pos[b]
+    orn_b0 = state.orn[b]
+    vel_a, vel_b = state.vel[a], state.vel[b]
+    om_a, om_b = state.omega[a], state.omega[b]
+    n = a.shape[0]
     hull_points = Vec3(shapes.hull_x, shapes.hull_y, shapes.hull_z)
-    zero = torch.zeros(n, **f32)
-    body = dict(
-        sweep=dict(pos=pos_a0, orn=orn_a0, vel=vel_a, omega=om_a),
-        type_a=type_a.to(torch.int32), params_a=shapes.params[sa], type_b=type_b.to(torch.int32),
-        params_b=shapes.params[sb], hull_points=hull_points, hull_a=shapes.hull_rows[sa],
-        hull_b=shapes.hull_rows[sb], o_pos=pos_b0, o_orn=orn_b0, o_vel=vel_b, o_omega=om_b,
-        lpos=Vec3(zero, zero, zero), lorn=Quat(zero, zero, zero, torch.ones(n, **f32)),
-        speed_bound=speed_bound, exists=live & ~comp_pair, max_t=torch.full((n,), max_t, **f32))
+    # Every body once, the A side of both levels and the B side of the body level.
+    zero = torch.zeros(n_bodies, **f32)
+    bodies = table(state.pos, state.orn, state.vel, state.omega, shapes.max_radius[shape],
+                   btype, shapes.params[shape], shape, None, Vec3(zero, zero, zero),
+                   Quat(zero, zero, zero, torch.ones(n_bodies, **f32)))
+    max_t_f = float(max_t)
+    body = Records(bodies, bodies, torch.stack([a, b], -1).to(torch.int32), live & ~comp_pair,
+                   max_t_f, shapes.hull_rows, hull_points)
     hit_body = advance(body, custom_ids, iters, miss_max_t=True)
 
     if max_children > 0 and composites:
@@ -395,19 +453,16 @@ def pair_toi(state: BodyState, shapes: ShapeData, a, b, live, max_t, iters: int 
         live_child = comp_pair[:, None] & live[:, None] & cand_ok & (rows >= 0)
         flat = lambda v: (v[:, None].expand(n, k).reshape(-1) if torch.is_tensor(v)
                           else type(v)(*(flat(c) for c in v)))
-        fsa = flat(sa)
-        child = dict(
-            sweep=dict(pos=flat(pos_a0), orn=flat(orn_a0), vel=flat(vel_a), omega=flat(om_a)),
-            type_a=flat(type_a).to(torch.int32), params_a=shapes.params[fsa],
-            type_b=torch.where(is_tri, TRIANGLE, shapes.type[cs_c]).reshape(-1).to(torch.int32),
-            params_b=cparams.reshape(n * k, -1), hull_points=hull_points,
-            hull_a=shapes.hull_rows[fsa],
-            hull_b=torch.where(is_tri[..., None], -1, shapes.hull_rows[cs_c]).reshape(n * k, -1),
-            o_pos=flat(pos_b0), o_orn=flat(orn_b0), o_vel=flat(vel_b), o_omega=flat(om_b),
-            lpos=Vec3(*(cp[..., i].reshape(-1) for i in range(3))),
-            lorn=Quat(*(cq[..., i].reshape(-1) for i in range(4))),
-            speed_bound=flat(speed_bound), exists=live_child.reshape(-1),
-            max_t=torch.full((n * k,), max_t, **f32))
+        # One B row per (pair, candidate child): the owner's motion, the child's pose.
+        children = table(
+            flat(pos_b0), flat(orn_b0), flat(vel_b), flat(om_b), flat(rb),
+            torch.where(is_tri, TRIANGLE, shapes.type[cs_c]).reshape(-1),
+            cparams.reshape(n * k, -1), torch.where(is_tri, -1, cs_c).reshape(-1), None,
+            Vec3(*(cp[..., i].reshape(-1) for i in range(3))),
+            Quat(*(cq[..., i].reshape(-1) for i in range(4))))
+        pairs = torch.stack([flat(a), torch.arange(n * k, device=dev)], -1).to(torch.int32)
+        child = Records(bodies, children, pairs, live_child.reshape(-1), max_t_f,
+                        shapes.hull_rows, hull_points)
         hit_child = advance(child, custom_ids, iters, miss_max_t=True).reshape(n, k).amin(1)
         hit_body = torch.where(comp_pair, hit_child, hit_body)
 

@@ -1,48 +1,74 @@
-// K8: conservative advancement to the time of impact, one thread per record, for NVIDIA
-// Hopper (sm_90a).
+// K8: conservative advancement to the time of impact over factored records, in two
+// passes, for NVIDIA Hopper (sm_90a).
 //
 // Replaces no TPU kernel. The JAX package computes this loop in XLA, which compiles its
 // fori_loop of gjk_closest into one device loop (bepuphysics2_tpu/collision/sweeps.py:
-// sweep_shape_all's advancement and pair_toi's _advance). The port ran the same loop as
-// eager PyTorch ops: every GJK iteration of every advancement iteration is a few hundred
-// small masked kernels (~28,600 an advancement iteration), so one 32-iteration sweep
-// call launched ~915,000 kernels, and a CCD pass of 12 iterations ~340,000. This kernel
-// runs the whole loop of one record in one thread: collision/sweeps.py _advance, with
-// collision/convex.py's support mappings and gjk_closest inlined.
+// sweep_shape_all's advancement and pair_toi's _advance). This kernel runs
+// collision/sweeps.py _advance, with collision/convex.py's support mappings and
+// gjk_closest inlined, over records that name a row of an A table (the swept side) and a
+// row of a B table (the target):
 //
-// What bounds it: operations. Each record reads ~70 words and writes one, but runs up
-// to `iters` GJK calls of up to 24 iterations, each a distance subalgorithm over 4
-// vertices, 6 edges and 4 faces (~600 flops) and two support mappings; a hull's support
-// walks its pool rows. A thread stops at its record's impact or miss, as the masked
-// version's result stops changing there, so a record costs what it needs.
+//   pass 1, one thread a record: the first advancement iteration (at t = 0). A record
+//     that ends there (no target, an impact at t = 0, a miss within max_t) writes its
+//     output; every other one is appended to a queue in global memory (one atomicAdd a
+//     warp: a ballot, the leader adds the warp's count, each lane its rank).
+//   pass 2, a persistent grid of a few blocks an SM: each lane carries one queued record
+//     (its id, t and iteration count in registers) one advancement iteration at a time;
+//     when the record ends the lane writes its output and takes the next queued record
+//     (one atomicAdd on the queue's head a warp). A warp so waits for its slowest lane's
+//     advancement iteration, not for its slowest record's whole loop.
+//
+// What bounds it: operations. The tables are a few MB (phase 33's call of 3,170,304
+// records reads 12,384 target rows and 256 sweep rows); each record runs up to `iters`
+// GJK calls of up to 24 iterations, each a distance subalgorithm over 4 vertices, 6
+// edges and 4 faces (~600 flops) and two support mappings; a hull's support walks its
+// pool rows. A record costs what it needs: it stops at its impact or miss, as the masked
+// version's result stops changing there. The queue's order is the atomics' and differs
+// from run to run; each record runs the same arithmetic whatever lane or pass takes it,
+// so the output does not (atomics index the queue only, no float is summed by them).
+// The GJK simplex lives in registers: every array is indexed by constants after
+// unrolling, and a new vertex goes to its slot by four selects.
 //
 // Rounding: every operation is written in the plain version's order (utils/vec.py's
 // formulas, left to right), and the file is built with -fmad=false (ops/build.py), so
 // no multiply-add is contracted: each operation rounds as one PyTorch op does. sinf,
-// cosf, sqrtf and division are the IEEE-rounded ones PyTorch's CUDA ops call.
+// cosf, sqrtf and division are the IEEE-rounded ones PyTorch's CUDA ops call. The speed
+// bound is computed here in sweeps.py gather_records' order.
 //
-// Layouts (row-major, float32 unless said): f (n, 35) per record: the swept body's
-// position 0-2, orientation 3-6 (x, y, z, w), velocity 7-9, angular velocity 10-12; the
-// target owner's position 13-15, orientation 16-19, velocity 20-22, angular velocity
-// 23-25; the target's local position 26-28 and orientation 29-32; the speed bound 33;
-// max_t 34. ti (n, 3) int32: A's type, B's type, exists. params_a (n or 1, 12) with row
-// stride pa_stride (12, or 0 for one row shared by all), params_b (n, 12); hull_x/y/z
-// (P,) the hull pool; hull_a (n or 1, H) int32 pool rows (-1 padded) with row stride
-// ha_stride (H or 0), hull_b (n, H). out (n,): the time of impact, or the miss value
-// (3e38, or the record's max_t where miss_max_t is 1). work (n, 2) int32, or null: the
-// advancement iterations and the GJK iterations the record ran (the work its data needs,
-// for the bound a measurement states).
+// Layouts: a table is structure-of-arrays, float32 column c of row j at f[c * rows + j]:
+// position 0-2, orientation 3-6 (x, y, z, w), velocity 7-9, angular velocity 10-12, the
+// radius of the speed bound 13, packed params 14-25; a B table adds the target's pose in
+// its owner's frame, position 26-28 and orientation 29-32. Its int32 columns i[c * rows +
+// j]: type 0, registry row into hull_rows 1 (-1: none), exists 2 (B tables). Records:
+// with pairs null, every A row against every B row, record r = (r / nb, r % nb) and
+// exists from B; else pairs (n, 2) int32 (A row, B row) and exists (n,) bytes. hull_rows
+// (S, H) int32 pool rows (-1 padded); hull_x/y/z (P,) the pool. out (n,): the time of
+// impact, or the miss value (3e38, or max_t where miss_max_t is 1). work (n, 2) int32, or
+// null: the advancement and GJK iterations each record ran (the work its data needs, for
+// a measurement's bound). queue (n, 2) int32 scratch; counters (2,) int32: the queue's
+// length and head, zeroed here (cudaMemsetAsync on the stream).
 
 #include <cuda_runtime.h>
+
+// How a pass is launched; a host build of this file (tools/k8_host_check.py) defines it
+// as a loop.
+#ifndef K8_LAUNCH
+#define K8_LAUNCH(kernel, blocks, args, stream) \
+  kernel<<<(blocks), NTHREADS, 0, (cudaStream_t)(stream)>>>(args)
+#endif
 
 namespace {
 
 constexpr int NTHREADS = 128;
-constexpr int NF = 35;
 constexpr int GJK_ITERS = 24;
+constexpr unsigned FULL_MASK = 0xffffffffu;
 // shapes/registry.py's type ids.
 constexpr int SPHERE = 0, CAPSULE = 1, TRIANGLE = 3, CYLINDER = 4, CONVEX_HULL = 5;
 constexpr float INF_T = 3.0e38f;
+// Table columns (collision/sweeps.py A_COLS, B_COLS, the int columns).
+constexpr int C_POS = 0, C_ORN = 3, C_VEL = 7, C_OMEGA = 10, C_RADIUS = 13, C_PARAMS = 14,
+              C_LPOS = 26, C_LORN = 29;
+constexpr int I_TYPE = 0, I_HULL = 1, I_EXISTS = 2;
 
 struct V3 {
   float x, y, z;
@@ -59,6 +85,7 @@ __device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y 
 __device__ __forceinline__ V3 cross(V3 a, V3 b) {
   return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
 }
+__device__ __forceinline__ V3 pick(bool c, V3 a, V3 b) { return c ? a : b; }
 
 __device__ __forceinline__ Q qmul(Q a, Q b) {
   return {a.w * b.x + a.x * b.w + a.y * b.z - a.z * b.y,
@@ -75,10 +102,11 @@ __device__ __forceinline__ V3 rotate(Q q, V3 v) {
   return add(add(v, scale(t, q.w)), cross(qv, t));
 }
 __device__ __forceinline__ V3 rotate_inverse(Q q, V3 v) { return rotate(conj(q), v); }
+__device__ __forceinline__ float length(V3 v) { return sqrtf(dot(v, v)); }
 
 // utils/vec.py integrate_orientation.
 __device__ __forceinline__ Q integrate_orientation(Q orn, V3 omega, float dt) {
-  const float speed = sqrtf(dot(omega, omega));
+  const float speed = length(omega);
   const float half = speed * dt * 0.5f;
   const bool spins = speed > 1e-15f;
   const float s = spins ? sinf(half) / fmaxf(speed, 1e-15f) : 0.0f;
@@ -89,10 +117,12 @@ __device__ __forceinline__ Q integrate_orientation(Q orn, V3 omega, float dt) {
   return spins ? out : orn;
 }
 
-// One side of a record: its type, packed params and hull pool rows.
+// One side of a record: its type, packed params (column k at p[k * stride]) and its
+// shape's hull pool rows (null: none).
 struct Side {
   int type;
   const float* p;
+  int stride;
   const int* hull;
 };
 
@@ -105,41 +135,43 @@ struct Pool {
 __device__ __forceinline__ V3 support_core(const Side& s, const Pool& pool, V3 d,
                                            float* margin) {
   const float* p = s.p;
+  const int k = s.stride;
   *margin = (s.type == SPHERE || s.type == CAPSULE) ? p[0] : 0.0f;
   switch (s.type) {
     case SPHERE:
       return {0.0f, 0.0f, 0.0f};
     case CAPSULE:
-      return {0.0f, d.y >= 0.0f ? p[1] : -p[1], 0.0f};
+      return {0.0f, d.y >= 0.0f ? p[k] : -p[k], 0.0f};
     case CYLINDER: {
       const float horiz = sqrtf(d.x * d.x + d.z * d.z);
       const float inv_h = horiz > 1e-12f ? 1.0f / fmaxf(horiz, 1e-12f) : 0.0f;
-      return {d.x * inv_h * p[0], d.y >= 0.0f ? p[1] : -p[1], d.z * inv_h * p[0]};
+      return {d.x * inv_h * p[0], d.y >= 0.0f ? p[k] : -p[k], d.z * inv_h * p[0]};
     }
     case TRIANGLE: {
-      const V3 va = {p[0], p[1], p[2]}, vb = {p[3], p[4], p[5]}, vc = {p[6], p[7], p[8]};
+      const V3 va = {p[0], p[k], p[2 * k]}, vb = {p[3 * k], p[4 * k], p[5 * k]},
+               vc = {p[6 * k], p[7 * k], p[8 * k]};
       const float da = dot(d, va), db = dot(d, vb), dc = dot(d, vc);
       return (da >= db && da >= dc) ? va : (db >= dc ? vb : vc);
     }
     case CONVEX_HULL: {
-      // The first maximal vertex of the record's pool rows (-1 rows rank last).
-      int best = 0;
+      // The first maximal vertex of the shape's pool rows (-1 rows rank last).
+      int best_row = -1;
       float best_dot = 0.0f;
       for (int j = 0; j < pool.width; ++j) {
-        const int r = s.hull[j];
+        const int r = s.hull ? s.hull[j] : -1;
         const float v = r >= 0 ? d.x * pool.x[r] + d.y * pool.y[r] + d.z * pool.z[r]
                                : -3.0e38f;
         if (j == 0 || v > best_dot) {
-          best = j;
+          best_row = r;
           best_dot = v;
         }
       }
-      const int r = max(s.hull[best], 0);
+      const int r = max(best_row, 0);
       return {pool.x[r], pool.y[r], pool.z[r]};
     }
     default:  // the box, and the plain version's fallback for any other type
-      return {d.x >= 0.0f ? p[0] : -p[0], d.y >= 0.0f ? p[1] : -p[1],
-              d.z >= 0.0f ? p[2] : -p[2]};
+      return {d.x >= 0.0f ? p[0] : -p[0], d.y >= 0.0f ? p[k] : -p[k],
+              d.z >= 0.0f ? p[2 * k] : -p[2 * k]};
   }
 }
 
@@ -161,20 +193,25 @@ __device__ __forceinline__ V3 minkowski(const Ctx& c, const Pool& pool, V3 d, fl
 
 // convex.py _closest_on_simplex: the nearest point to the origin over every live
 // vertex, edge and face, in that order, a later candidate replacing the best only when
-// strictly nearer. keep: bit k set where the nearest feature keeps point k.
-__device__ __forceinline__ V3 closest_on_simplex(const V3 pts[4], int mask, int* keep) {
+// strictly nearer. keep: bit k set where the nearest feature keeps point k. Every loop
+// has constant bounds and is unrolled, so pts and bary are registers.
+__device__ __forceinline__ V3 closest_on_simplex(const V3 (&pts)[4], int mask, int* keep) {
   float best_d2 = 3.0e38f;
   float bary[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   int best_keep = 0;
+#pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float d2 = dot(pts[i], pts[i]);
     if (((mask >> i) & 1) && d2 < best_d2) {
       best_d2 = d2;
+#pragma unroll
       for (int k = 0; k < 4; ++k) bary[k] = k == i ? 1.0f : 0.0f;
       best_keep = 1 << i;
     }
   }
+#pragma unroll
   for (int i = 0; i < 4; ++i) {
+#pragma unroll
     for (int j = i + 1; j < 4; ++j) {
       const V3 a = pts[i], b = pts[j];
       const V3 ab = sub(b, a);
@@ -186,13 +223,17 @@ __device__ __forceinline__ V3 closest_on_simplex(const V3 pts[4], int mask, int*
       const float d2 = dot(p, p);
       if (ok && d2 < best_d2) {
         best_d2 = d2;
+#pragma unroll
         for (int k = 0; k < 4; ++k) bary[k] = k == i ? 1.0f - t : (k == j ? t : 0.0f);
         best_keep = (1 << i) | (1 << j);
       }
     }
   }
+#pragma unroll
   for (int i = 0; i < 4; ++i) {
+#pragma unroll
     for (int j = i + 1; j < 4; ++j) {
+#pragma unroll
       for (int k = j + 1; k < 4; ++k) {
         const V3 a = pts[i], b = pts[j], c = pts[k];
         const V3 ab = sub(b, a), ac = sub(c, a);
@@ -213,6 +254,7 @@ __device__ __forceinline__ V3 closest_on_simplex(const V3 pts[4], int mask, int*
         const float d2 = dot(p, p);
         if (ok && d2 < best_d2) {
           best_d2 = d2;
+#pragma unroll
           for (int q = 0; q < 4; ++q)
             bary[q] = q == i ? u : (q == j ? v : (q == k ? w : 0.0f));
           best_keep = (1 << i) | (1 << j) | (1 << k);
@@ -222,6 +264,7 @@ __device__ __forceinline__ V3 closest_on_simplex(const V3 pts[4], int mask, int*
   }
   *keep = best_keep;
   V3 out = {0.0f, 0.0f, 0.0f};
+#pragma unroll
   for (int i = 0; i < 4; ++i) {
     out.x = out.x + bary[i] * pts[i].x;
     out.y = out.y + bary[i] * pts[i].y;
@@ -237,7 +280,8 @@ __device__ __forceinline__ bool same_side(V3 a, V3 b, V3 c, V3 d) {
 
 // convex.py gjk_closest, its distance only: the surface distance (the cores' distance
 // less the margins).
-__device__ float gjk_surface_distance(const Ctx& c, const Pool& pool, int* gjk_iters) {
+__device__ __forceinline__ float gjk_surface_distance(const Ctx& c, const Pool& pool,
+                                                      int* gjk_iters) {
   const V3 d0 = dot(c.pos_ab, c.pos_ab) > 1e-12f ? neg(c.pos_ab) : V3{0.0f, 1.0f, 0.0f};
   float margin, unused;
   V3 pts[4] = {minkowski(c, pool, d0, &margin), {0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f},
@@ -252,11 +296,16 @@ __device__ float gjk_surface_distance(const Ctx& c, const Pool& pool, int* gjk_i
     const bool progress = (-dot(w, closest) + dist2) > 1e-6f * fmaxf(dist2, 1e-6f);
     // Done is absorbing: the simplex and so the closest point stay as they are.
     if (!progress || dist2 < 1e-12f) break;
-    int slot = 0;  // the first slot the nearest feature does not keep
-    while (slot < 3 && ((keep >> slot) & 1)) ++slot;
-    if ((keep >> slot) & 1) slot = 0;
-    pts[slot] = w;
-    mask = keep | (1 << slot);
+    // w goes into the first slot the nearest feature does not keep (slot 0 if it keeps
+    // all four), written by selects: a runtime index would put pts in local memory.
+    const bool f0 = !(keep & 1), f1 = !(keep & 2), f2 = !(keep & 4), f3 = !(keep & 8);
+    const bool w1 = !f0 && f1, w2 = !f0 && !f1 && f2, w3 = !f0 && !f1 && !f2 && f3;
+    const bool w0 = !w1 && !w2 && !w3;
+    pts[0] = pick(w0, w, pts[0]);
+    pts[1] = pick(w1, w, pts[1]);
+    pts[2] = pick(w2, w, pts[2]);
+    pts[3] = pick(w3, w, pts[3]);
+    mask = keep | (w0 ? 1 : 0) | (w1 ? 2 : 0) | (w2 ? 4 : 0) | (w3 ? 8 : 0);
   }
   int keep;
   const V3 closest = closest_on_simplex(pts, mask, &keep);
@@ -275,80 +324,252 @@ __device__ float gjk_surface_distance(const Ctx& c, const Pool& pool, int* gjk_i
   return dist - margin;
 }
 
-__device__ __forceinline__ V3 v3_at(const float* f, int i) { return {f[i], f[i + 1], f[i + 2]}; }
-__device__ __forceinline__ Q q_at(const float* f, int i) {
-  return {f[i], f[i + 1], f[i + 2], f[i + 3]};
+// Everything a pass reads: the tables, the records and the outputs.
+struct Args {
+  const float* a_f;
+  const int* a_i;
+  int na;
+  const float* b_f;
+  const int* b_i;
+  int nb;
+  const int* pairs;
+  const unsigned char* exists;
+  int n;
+  const int* hull_rows;
+  int hull_width;
+  const float *hull_x, *hull_y, *hull_z;
+  float max_t;
+  int iters;
+  int miss_max_t;
+  float* out;
+  int* work;
+  int2* queue;
+  int* counters;  // [0] the queue's length, [1] its head
+};
+
+// One record's inputs, loaded once into registers.
+struct Rec {
+  Side a, b;
+  V3 a_pos, a_vel, a_omega, o_pos, o_vel, o_omega, lpos;
+  Q a_orn, o_orn, lorn;
+  float speed_bound;
+};
+
+// The record's A and B rows and whether it has a target.
+__device__ __forceinline__ bool resolve(const Args& g, int r, int* ia, int* ib) {
+  if (g.pairs) {
+    *ia = g.pairs[2 * r];
+    *ib = g.pairs[2 * r + 1];
+    return g.exists[r] != 0;
+  }
+  *ia = r / g.nb;
+  *ib = r - *ia * g.nb;
+  return g.b_i[I_EXISTS * g.nb + *ib] != 0;
 }
 
-__global__ void __launch_bounds__(NTHREADS)
-    advance_kernel(const float* __restrict__ f, const int* __restrict__ ti,
-                   const float* __restrict__ params_a, int pa_stride,
-                   const float* __restrict__ params_b, const float* __restrict__ hull_x,
-                   const float* __restrict__ hull_y, const float* __restrict__ hull_z,
-                   const int* __restrict__ hull_a, int ha_stride,
-                   const int* __restrict__ hull_b, int hull_width, int n, int iters,
-                   int miss_max_t, float* __restrict__ out, int* __restrict__ work) {
+__device__ __forceinline__ V3 v3_col(const float* f, int rows, int c, int j) {
+  return {f[c * rows + j], f[(c + 1) * rows + j], f[(c + 2) * rows + j]};
+}
+__device__ __forceinline__ Q q_col(const float* f, int rows, int c, int j) {
+  return {f[c * rows + j], f[(c + 1) * rows + j], f[(c + 2) * rows + j],
+          f[(c + 3) * rows + j]};
+}
+
+__device__ __forceinline__ Side side_of(const Args& g, const float* f, const int* i, int rows,
+                                        int j) {
+  const int row = i[I_HULL * rows + j];
+  return {i[I_TYPE * rows + j], f + C_PARAMS * rows + j, rows,
+          row >= 0 ? g.hull_rows + (size_t)row * g.hull_width : nullptr};
+}
+
+// The speed bound is sweeps.py's: |v_a - v_b| + |w_a| r_a + |w_b| r_b + 1e-6, left to right.
+__device__ __forceinline__ Rec load_record(const Args& g, int ia, int ib) {
+  Rec c;
+  c.a = side_of(g, g.a_f, g.a_i, g.na, ia);
+  c.b = side_of(g, g.b_f, g.b_i, g.nb, ib);
+  c.a_pos = v3_col(g.a_f, g.na, C_POS, ia);
+  c.a_orn = q_col(g.a_f, g.na, C_ORN, ia);
+  c.a_vel = v3_col(g.a_f, g.na, C_VEL, ia);
+  c.a_omega = v3_col(g.a_f, g.na, C_OMEGA, ia);
+  c.o_pos = v3_col(g.b_f, g.nb, C_POS, ib);
+  c.o_orn = q_col(g.b_f, g.nb, C_ORN, ib);
+  c.o_vel = v3_col(g.b_f, g.nb, C_VEL, ib);
+  c.o_omega = v3_col(g.b_f, g.nb, C_OMEGA, ib);
+  c.lpos = v3_col(g.b_f, g.nb, C_LPOS, ib);
+  c.lorn = q_col(g.b_f, g.nb, C_LORN, ib);
+  const float ra = g.a_f[C_RADIUS * g.na + ia], rb = g.b_f[C_RADIUS * g.nb + ib];
+  c.speed_bound = length(sub(c.a_vel, c.o_vel)) + length(c.a_omega) * ra +
+                  length(c.o_omega) * rb + 1e-6f;
+  return c;
+}
+
+// The surface distance at time t (sweeps.py _advance's ctx_at, then GJK).
+__device__ __forceinline__ float distance_at(const Rec& c, const Pool& pool, float t,
+                                             int* gjk_iters) {
+  const V3 pa = add(c.a_pos, scale(c.a_vel, t));
+  const Q qa = integrate_orientation(c.a_orn, c.a_omega, t);
+  const V3 ow_pos = add(c.o_pos, scale(c.o_vel, t));
+  const Q ow_orn = integrate_orientation(c.o_orn, c.o_omega, t);
+  const V3 pb = add(ow_pos, rotate(ow_orn, c.lpos));
+  const Q qb = qmul(ow_orn, c.lorn);
+  Ctx x;
+  x.a = c.a;
+  x.b = c.b;
+  x.orn_ab = qmul(conj(qa), qb);
+  x.pos_ab = rotate_inverse(qa, sub(pb, pa));
+  return gjk_surface_distance(x, pool, gjk_iters);
+}
+
+__device__ __forceinline__ int lane_id() { return threadIdx.x & 31; }
+
+// One atomicAdd for the warp's lanes that ask (`want`): each gets base + its rank.
+__device__ __forceinline__ int warp_claim(bool want, int* counter) {
+  const unsigned m = __ballot_sync(FULL_MASK, want);
+  if (!m) return 0;
+  const int lane = lane_id(), leader = __ffs(m) - 1;
+  int base = 0;
+  if (lane == leader) base = atomicAdd(counter, __popc(m));
+  base = __shfl_sync(FULL_MASK, base, leader);
+  return base + __popc(m & ((1u << lane) - 1u));
+}
+
+__global__ void __launch_bounds__(NTHREADS) advance_first(const Args g) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const float* rec = f + (size_t)r * NF;
-  const float speed_bound = rec[33], max_t = rec[34];
-  float hit_t = miss_max_t ? max_t : INF_T;
-  int adv_iters = 0, gjk_iters = 0;
-  if (ti[3 * r + 2] == 0) {  // no such target: done from the start
-    out[r] = hit_t;
-    if (work) work[2 * r] = work[2 * r + 1] = 0;
-    return;
-  }
-  const Pool pool = {hull_x, hull_y, hull_z, hull_width};
-  Ctx c;
-  c.a = {ti[3 * r], params_a + (size_t)r * pa_stride, hull_a + (size_t)r * ha_stride};
-  c.b = {ti[3 * r + 1], params_b + (size_t)r * 12, hull_b + (size_t)r * hull_width};
-  const V3 a_pos = v3_at(rec, 0), a_vel = v3_at(rec, 7), a_omega = v3_at(rec, 10);
-  const Q a_orn = q_at(rec, 3);
-  const V3 o_pos = v3_at(rec, 13), o_vel = v3_at(rec, 20), o_omega = v3_at(rec, 23);
-  const Q o_orn = q_at(rec, 16);
-  const V3 lpos = v3_at(rec, 26);
-  const Q lorn = q_at(rec, 29);
-  float t = 0.0f;
-  for (int it = 0; it < iters; ++it) {
-    ++adv_iters;
-    // Both poses at time t (sweeps.py _advance's ctx_at).
-    const V3 pa = add(a_pos, scale(a_vel, t));
-    const Q qa = integrate_orientation(a_orn, a_omega, t);
-    const V3 ow_pos = add(o_pos, scale(o_vel, t));
-    const Q ow_orn = integrate_orientation(o_orn, o_omega, t);
-    const V3 pb = add(ow_pos, rotate(ow_orn, lpos));
-    const Q qb = qmul(ow_orn, lorn);
-    c.orn_ab = qmul(conj(qa), qb);
-    c.pos_ab = rotate_inverse(qa, sub(pb, pa));
-    const float dist = gjk_surface_distance(c, pool, &gjk_iters);
-    if (dist < 1e-4f) {  // impact
-      hit_t = t;
-      break;
+  bool queued = false;
+  float t_next = 0.0f;
+  if (r < g.n) {
+    int ia, ib;
+    const bool exists = resolve(g, r, &ia, &ib);
+    float hit_t = g.miss_max_t ? g.max_t : INF_T;
+    int adv_iters = 0, gjk_iters = 0;
+    if (exists && g.iters > 0) {
+      const Pool pool = {g.hull_x, g.hull_y, g.hull_z, g.hull_width};
+      const Rec c = load_record(g, ia, ib);
+      const float t = 0.0f;
+      adv_iters = 1;
+      const float dist = distance_at(c, pool, t, &gjk_iters);
+      if (dist < 1e-4f) {  // impact
+        hit_t = t;
+      } else {
+        const float new_t = t + fmaxf(fmaxf(dist, 0.0f) / c.speed_bound, 1e-5f);
+        // Not a miss within max_t, and iterations left: pass 2 carries it on.
+        queued = !(new_t > g.max_t) && g.iters > 1;
+        t_next = new_t;
+      }
     }
-    const float new_t = t + fmaxf(fmaxf(dist, 0.0f) / speed_bound, 1e-5f);
-    if (new_t > max_t) break;  // a miss within max_t
-    t = new_t;
+    if (!queued) {
+      g.out[r] = hit_t;
+      if (g.work) {
+        g.work[2 * r] = adv_iters;
+        g.work[2 * r + 1] = gjk_iters;
+      }
+    } else if (g.work) {
+      g.work[2 * r + 1] = gjk_iters;  // pass 2 adds its own
+    }
   }
-  out[r] = hit_t;
-  if (work) {
-    work[2 * r] = adv_iters;
-    work[2 * r + 1] = gjk_iters;
+  const int slot = warp_claim(queued, &g.counters[0]);
+  if (queued) g.queue[slot] = make_int2(r, __float_as_int(t_next));
+}
+
+__global__ void __launch_bounds__(NTHREADS) advance_rest(const Args g) {
+  const int total = g.counters[0];
+  const Pool pool = {g.hull_x, g.hull_y, g.hull_z, g.hull_width};
+  const float miss = g.miss_max_t ? g.max_t : INF_T;
+  int r = -1, it = 0, gjk_iters = 0;
+  float t = 0.0f;
+  bool drained = false;
+  Rec c;
+  for (;;) {
+    const bool want = r < 0 && !drained;
+    const int q = warp_claim(want, &g.counters[1]);
+    if (want) {
+      if (q < total) {
+        const int2 e = g.queue[q];
+        r = e.x;
+        t = __int_as_float(e.y);
+        it = 1;  // pass 1 ran the first iteration
+        int ia, ib;
+        resolve(g, r, &ia, &ib);
+        c = load_record(g, ia, ib);
+        gjk_iters = g.work ? g.work[2 * r + 1] : 0;
+      } else {
+        drained = true;
+      }
+    }
+    if (!__any_sync(FULL_MASK, r >= 0)) break;
+    if (r >= 0) {
+      ++it;
+      float hit_t = miss;
+      bool ends = false;
+      const float dist = distance_at(c, pool, t, &gjk_iters);
+      if (dist < 1e-4f) {  // impact
+        hit_t = t;
+        ends = true;
+      } else {
+        const float new_t = t + fmaxf(fmaxf(dist, 0.0f) / c.speed_bound, 1e-5f);
+        if (new_t > g.max_t) {  // a miss within max_t
+          ends = true;
+        } else {
+          t = new_t;
+          ends = it >= g.iters;
+        }
+      }
+      if (ends) {
+        g.out[r] = hit_t;
+        if (g.work) {
+          g.work[2 * r] = it;
+          g.work[2 * r + 1] = gjk_iters;
+        }
+        r = -1;
+      }
+    }
   }
+}
+
+// Pass 2's grid: as many blocks as fit on the card at once.
+int rest_blocks() {
+  static int cached[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (!cached[dev]) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, advance_rest, NTHREADS, 0);
+    cached[dev] = (sms > 0 ? sms : 1) * (per_sm > 0 ? per_sm : 1);
+  }
+  return cached[dev];
 }
 
 }  // namespace
 
-extern "C" int conservative_advance_launch(const float* f, const int* ti, const float* params_a,
-                                           int pa_stride, const float* params_b,
-                                           const float* hull_x, const float* hull_y,
-                                           const float* hull_z, const int* hull_a,
-                                           int ha_stride, const int* hull_b, int hull_width,
-                                           int n, int iters, int miss_max_t, float* out,
-                                           int* work, void* stream) {
+// passes: 1 pass 1 alone (the counters zeroed first), 2 pass 2 alone over the queue pass
+// 1 left (its head zeroed first), 3 both: one call of the kernel.
+extern "C" int conservative_advance_launch(
+    const float* a_f, const int* a_i, int na, const float* b_f, const int* b_i, int nb,
+    const int* pairs, const unsigned char* exists, int n, const int* hull_rows,
+    int hull_width, const float* hull_x, const float* hull_y, const float* hull_z,
+    float max_t, int iters, int miss_max_t, float* out, int* work, int* queue,
+    int* counters, int passes, void* stream) {
   if (n == 0) return 0;
-  advance_kernel<<<(n + NTHREADS - 1) / NTHREADS, NTHREADS, 0, (cudaStream_t)stream>>>(
-      f, ti, params_a, pa_stride, params_b, hull_x, hull_y, hull_z, hull_a, ha_stride, hull_b,
-      hull_width, n, iters, miss_max_t, out, work);
-  return (int)cudaGetLastError();
+  const Args g = {a_f, a_i, na, b_f, b_i, nb, pairs, exists, n, hull_rows, hull_width,
+                  hull_x, hull_y, hull_z, max_t, iters, miss_max_t, out, work,
+                  reinterpret_cast<int2*>(queue), counters};
+  cudaError_t err = cudaSuccess;
+  if (passes & 1) {
+    err = cudaMemsetAsync(counters, 0, 2 * sizeof(int), (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    K8_LAUNCH(advance_first, (n + NTHREADS - 1) / NTHREADS, g, stream);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (passes & 2) {
+    if (!(passes & 1)) {
+      err = cudaMemsetAsync(counters + 1, 0, sizeof(int), (cudaStream_t)stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+    K8_LAUNCH(advance_rest, rest_blocks(), g, stream);
+    err = cudaGetLastError();
+  }
+  return (int)err;
 }

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.vec import Sym3
 from .custom import CustomShape, is_custom
 
 SHAPE_NONE = -1
@@ -629,3 +630,8 @@ class ShapeRegistry:
                 t(cl_min), t(cl_max), t(cl_first), t(cl_count), t(shape_cluster_row),
             )
         return self._device[key]
+
+
+def inertia_from_diag(inv_mass, diag) -> tuple:
+    """(inv_mass, the diagonal inverse inertia ``diag`` as a Sym3)."""
+    return inv_mass, Sym3.diag(diag[0], diag[1], diag[2])

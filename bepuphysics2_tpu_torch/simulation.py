@@ -388,6 +388,20 @@ def _step_impl(state: SimState, shapes, joint_banks, dt, config: SimConfig, pres
 step = _step_impl
 
 
+def step_n(state: SimState, shapes, joint_banks, dt, config: SimConfig, present_types, n: int):
+    """``n`` steps in one call (the JAX package scans them in one dispatch; here ``step``
+    n times). Returns (state', the last step's diagnostics with ``overflow`` and
+    ``overflow_src`` sticky over the n steps and ``demand`` their peak), as
+    ``Simulation.run`` reports a run."""
+    overflow = src = peak = None
+    for _ in range(n):
+        state, diag = _step_impl(state, shapes, joint_banks, dt, config, present_types)
+        overflow = diag.overflow if overflow is None else overflow | diag.overflow
+        src = diag.overflow_src if src is None else src | diag.overflow_src
+        peak = diag.demand if peak is None else torch.maximum(peak, diag.demand)
+    return state, diag._replace(overflow=overflow, overflow_src=src, demand=peak)
+
+
 def _leaves(tree):
     """Tensor leaves of a NamedTuple tree, in field order (dicts in key order; a None
     field has none)."""

@@ -1,11 +1,12 @@
 """Device-side constraint graph coloring: incremental, fixed shapes, deterministic.
 
-Counterpart of ``color_constraints_incremental`` and ``jacobi_valence_kary`` in
-``bepuphysics2_tpu/solver/coloring.py`` (reference Solver.cs:984-1093,
-SequentialFallbackBatch.cs:37). Rows keep last frame's color; the rest propose the lowest
-free color (from a per-row hashed offset) in a few rounds, arbitrated per (body, color) by
-the lowest slot; rows past a segment's per-color capacity demote to the Jacobi bucket
-(color ``num_colors``). Integer results equal the JAX function's exactly: every sort is
+Counterpart of ``bepuphysics2_tpu/solver/coloring.py`` (reference Solver.cs:984-1093,
+SequentialFallbackBatch.cs:37). ``color_constraints_incremental``: rows keep last frame's
+color; the rest propose the lowest free color (from a per-row hashed offset) in a few
+rounds, arbitrated per (body, color) by the lowest slot; rows past a segment's per-color
+capacity demote to the Jacobi bucket (color ``num_colors``). ``color_constraints`` and
+``color_constraints_kary``: the fresh round-based coloring (round c offers color c; a row
+wins where it holds the lowest slot on each of its dynamic bodies). Integer results equal the JAX function's exactly: every sort is
 stable, every integer scatter reduces (min, add) so the order of writers never matters,
 and ``mode="drop"`` scatters go to a sink row that is sliced off.
 """
@@ -21,6 +22,51 @@ I32 = torch.int32
 
 def _segment_cumsum(x):
     return torch.cumsum(x.to(I32), dim=0, dtype=I32)
+
+
+def color_constraints(body_a, body_b, dynamic_a, dynamic_b, valid, n_bodies: int,
+                      num_colors: int):
+    """Per-constraint color in [0, num_colors] of two-body constraints (num_colors: the
+    Jacobi bucket). A one-body constraint passes body_b = body_a with dynamic_b False;
+    only dynamic endpoints conflict (reference Solver.GetBlockingBodyHandles)."""
+    refs = torch.stack([body_a, body_b], -1)
+    dyn = torch.stack([dynamic_a, dynamic_b], -1)
+    return color_constraints_kary(refs, dyn, valid, n_bodies, num_colors)[0]
+
+
+def color_constraints_kary(refs, dyn, valid, n_bodies: int, num_colors: int, segments=None):
+    """The fresh coloring of K-body constraints: ``refs`` (M, K) int32 body slots, ``dyn``
+    (M, K) bool dynamic endpoints, ``valid`` (M,) bool. In round c every uncolored row
+    proposes color c and wins where its slot is the least proposer's on each of its
+    dynamic bodies. ``segments``: (start, size, cap) sub-ranges of the table; a round's
+    winners in a segment beyond ``cap`` defer to a later round. Returns (color, rank):
+    rank is the row's win rank within its segment's round, -1 outside any segment."""
+    m, k = refs.shape
+    dev = refs.device
+    slot = torch.arange(m, dtype=I32, device=dev)
+    flat_tgt = torch.where(dyn, refs, n_bodies).reshape(-1).long()
+    body_rows = refs.long()
+    color = torch.full((m,), num_colors, dtype=I32, device=dev)
+    rank = torch.full((m,), -1, dtype=I32, device=dev)
+    unassigned = valid.bool()
+    for c in range(num_colors):
+        prio = torch.where(unassigned, slot, _BIG)
+        body_min = torch.full((n_bodies + 1,), _BIG, dtype=I32, device=dev).scatter_reduce(
+            0, flat_tgt, prio[:, None].expand(m, k).reshape(-1), "amin")[:n_bodies]
+        win = unassigned & (~dyn | (body_min[body_rows] == prio[:, None])).all(1)
+        if segments:
+            new_rank = rank.clone()
+            for start, size, cap in segments:
+                seg_win = win[start:start + size]
+                seg_rank = _segment_cumsum(seg_win) - 1
+                keep = seg_win & (seg_rank < cap)
+                win = torch.cat([win[:start], keep, win[start + size:]])
+                new_rank[start:start + size] = torch.where(keep, seg_rank,
+                                                           rank[start:start + size])
+            rank = new_rank
+        color = torch.where(win, c, color)
+        unassigned = unassigned & ~win
+    return color, rank
 
 
 def color_constraints_incremental(refs, dyn, valid, prev_color, n_bodies: int, num_colors: int,
@@ -146,6 +192,13 @@ def color_constraints_incremental(refs, dyn, valid, prev_color, n_bodies: int, n
             rank = torch.cat([rank[:start], torch.where(in_color & ~demote, r, -1).to(I32),
                               rank[start + size:]])
     return color, rank
+
+
+def jacobi_valence(body_a, body_b, dynamic_a, dynamic_b, in_jacobi, n_bodies: int):
+    """``jacobi_valence_kary`` of two-body constraints."""
+    refs = torch.stack([body_a, body_b], -1)
+    dyn = torch.stack([dynamic_a, dynamic_b], -1)
+    return jacobi_valence_kary(refs, dyn, in_jacobi, n_bodies)
 
 
 def jacobi_valence_kary(refs, dyn, in_jacobi, n_bodies: int, extra_counts=None):

@@ -841,3 +841,11 @@ def solve_all(
             "to hold it to (ROADMAP queue 3)")
     return solve_bucketed(state, contact_banks, joint_banks, integrator_cfg, cfg, dt,
                           store_bank, base_used, use_win)
+
+
+def solve_contacts(state, prestep, imp, integrator_cfg, cfg, dt):
+    """One contact bank solved alone (the JAX package keeps it for tests and minimal
+    configurations): ``solve_all`` over ``[(prestep, imp)]``, fresh colors, no joints.
+    Returns (state, impulses)."""
+    out = solve_all(state, [(prestep, imp)], {}, integrator_cfg, cfg, dt)
+    return out[0], out[1][0]

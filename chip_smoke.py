@@ -25,8 +25,9 @@ Then slice 12: 4,096 bodies with compound dumbbells on a 7,200-triangle mesh (th
 bank with compound-vs-compound records beside the store's, one K1 launch a step), every
 scene query of ``Simulation`` on that pile held to a CPU copy of its state, and 64
 characters on the mesh (K3). Then slice 13: the sweeps' and CCD's conservative
-advancement in one hand-written kernel, K8 (held against its plain version on phase 33's
-own call; a sweep or CCD pass with a registered custom shape type keeps the masked
+advancement in one hand-written kernel, K8 (two passes over factored records since slice
+15, held bit for bit against its plain version on phase 33's own call and on phase 35's
+last; a sweep or CCD pass with a registered custom shape type keeps the masked
 PyTorch loop, replayed as a CUDA graph, and the phases here, which have none, are
 required never to run it), CCD at full width (phase 35: 256 continuous spheres at 120
 m/s through the 4,096-body pile toward a wall, K1 and K8 once a step) and the utilities
@@ -41,8 +42,9 @@ sizes; the masked solve reaches no kernel). On the card the joint sweep and the 
 phase replay as CUDA graphs from a layout's second call
 (``bepuphysics2_tpu_torch/utils/replay.py``); no kernel K1-K8 runs inside one. The CPU
 sides of the card-vs-CPU phases run in a process of their own while the card runs
-(``_start_cpu_side``), as does phase 33's. Phase 31's car and tank, bound by the host's
-launches, step in a process of their own on the card beside phases 34-40.
+(``_start_cpu_side``), as does phase 33's. Phases 32-33 and K8's hold run before phases
+29-30; from there phase 31's car and tank, bound by the host's launches, step in a
+process each on the card beside phases 29-30 and 34-40.
 
     python3 chip_smoke.py
 
@@ -929,7 +931,7 @@ _CPU_SIDE = {}
 
 def _start_cpu_side(keys=None):
     """Starts ``_cpu_side_worker`` on every CPU side of the run (or those of ``keys``), in
-    phase order."""
+    the order the run takes them (phases 32 and 31 before phase 30)."""
     import multiprocessing as mp
 
     win = dict(solver_backend="pallas_win", broadphase="grid2")
@@ -945,10 +947,10 @@ def _start_cpu_side(keys=None):
          "positions", 0, 20),
         ("27", cloth, "states", 0, 30),
         ("28", ("build_joint_rigs", (), dict(steps=0)), "states", 0, 3),
-        ("30", ("build_pile", (256,), dict(shapes=five_shapes())), "positions", 0, 20),
+        ("32", ("build_terrain_pile_sim", (64, 10), {}), "states", 0, 10),
         ("31 car", ("vehicle_world", ("car",), {}), "states", 10, 3),
         ("31 tank", ("vehicle_world", ("tank",), {}), "states", 10, 3),
-        ("32", ("build_terrain_pile_sim", (64, 10), {}), "states", 0, 10),
+        ("30", ("build_pile", (256,), dict(shapes=five_shapes())), "positions", 0, 20),
         ("35", ("ccd_world", (64, 8), dict(ccd_pairs=512)), "states", 0, 10),
         ("37", ("build_pile", (256,), LEGACY), "positions", 0, 20),
         ("37t", ("legacy_tube", (4,), {}), "states", 0, 6),
@@ -2454,11 +2456,13 @@ def phase_vehicles(dev, name, smi, cpu_states, frames=3, tol=1e-4):
     that pushes the gates' host edits and reads; ``frames`` card steps from the CPU's
     state (after 10 CPU steps: the wheels reach the ground) within ``tol``. Returns the
     K3 launches by scene and the tank's K8 launches. ``cpu_states``: the CPU sides
-    "31 car" and "31 tank" by scene ("car", "tank")."""
+    "31 car" and "31 tank" by scene ("car", "tank"); the scenes it holds are run."""
     from bepuphysics2_tpu_torch.collision import sweeps
 
     out = {}
     for kind, drive in (("car", _drive_car), ("tank", _drive_tank)):
+        if kind not in cpu_states:
+            continue
         sim, model = vehicle_world(kind, dev)
         worst, _ = _card_steps_from_states(sim, cpu_states[kind])
         cfg = sim.config.solve_config()
@@ -2500,9 +2504,9 @@ def phase_vehicles(dev, name, smi, cpu_states, frames=3, tol=1e-4):
 
 
 def _vehicles_proc(out_path, name, smi, cpu_states, start):
-    """Phase 31 in a process of its own: ``phase_vehicles`` on card 0, its lines timed
-    from the main process's ``start`` (the same monotonic clock), its result or its
-    failure pickled to ``out_path``."""
+    """Phase 31's scenes of ``cpu_states`` in a process of their own: ``phase_vehicles``
+    on card 0, its lines timed from the main process's ``start`` (the same monotonic
+    clock), its result or its failure pickled to ``out_path``."""
     import pickle
     import traceback
 
@@ -2519,25 +2523,29 @@ def _vehicles_proc(out_path, name, smi, cpu_states, start):
 
 
 def _start_vehicles(name, smi):
-    """Starts phase 31 (``_vehicles_proc``) with its CPU sides. The car and the tank are
-    bound by the host's ~160,000 launches a step, with the card idle most of that time,
-    so they step beside the phases that follow. Returns the handle ``_join_procs``
-    takes."""
+    """Starts phase 31 with its CPU sides: the car and the tank, each in a process of its
+    own (``_vehicles_proc``). Both are bound by the host's ~160,000 launches a step, with
+    the card idle most of that time, so they step beside the phases that follow and beside
+    each other. Returns the handle ``_join_procs`` takes."""
     import multiprocessing as mp
 
-    cpu_states = {kind: _cpu_result(f"31 {kind}") for kind in ("car", "tank")}
     root = Path("build") / f"vehicles_{time.time_ns()}"
     root.mkdir(parents=True)
-    out = root / "phase31.pkl"
-    proc = mp.get_context("spawn").Process(target=_vehicles_proc, daemon=True, args=(
-        str(out), name, smi, cpu_states, _START))
-    proc.start()
-    return dict(procs=[proc], outs=[out])
+    procs, outs = [], []
+    for kind in ("car", "tank"):
+        cpu_states = {kind: _cpu_result(f"31 {kind}")}
+        outs.append(root / f"phase31_{kind}.pkl")
+        procs.append(mp.get_context("spawn").Process(
+            target=_vehicles_proc, daemon=True,
+            args=(str(outs[-1]), name, smi, cpu_states, _START)))
+        procs[-1].start()
+    return dict(procs=procs, outs=outs)
 
 
 def _vehicle_paths(handle):
-    """Phase 31's result from its process → each of its paths' (kernel, launches)."""
-    (vehicles,) = _join_procs(handle, "phase 31's process")
+    """Phase 31's results from its processes → each of its paths' (kernel, launches)."""
+    vehicles = {k: v for res in _join_procs(handle, "phase 31's process") for k, v in
+                res.items()}
     paths = {"tank's 345 steps, CCD on (phase 31)": ("K8", vehicles.pop("tank K8"))}
     paths.update((k, ("K3", n)) for k, n in vehicles.items())
     return paths
@@ -3039,7 +3047,10 @@ def phase_characters(dev, name, smi, land=60, walk=60, stand=60, flight=30, spee
 K8_SOURCE = "bepuphysics2_tpu_torch/csrc/conservative_advance.cu"
 # No TPU kernel: the JAX package compiles this loop with XLA (its fori_loop in pair_toi).
 K8_REPLACES = "none: XLA's loops, bepuphysics2_tpu/collision/sweeps.py:228 and :325"
-K8_TOL = 1e-4  # on the stable records, where K8 and its plain version are not bit-equal
+# K8's own keys in the kernels line: each pass alone, the share pass 1 finishes, the bound
+# of the wrapper before the tables, the lane efficiency of one thread a record, ptxas's.
+K8_EXTRA = ("pass1_ms", "pass2_ms", "pass1_finished", "per_record_bound_ms",
+            "lane_efficiency_one_thread", "ptxas")
 
 
 class _capture_k8:
@@ -3051,9 +3062,9 @@ class _capture_k8:
 
         self.real, calls = sweeps.advance, []
 
-        def spy(x, custom_ids, iters=sweeps.SWEEP_ITERS, miss_max_t=False):
-            calls.append((x, iters, miss_max_t))
-            return self.real(x, custom_ids, iters, miss_max_t)
+        def spy(rec, custom_ids, iters=sweeps.SWEEP_ITERS, miss_max_t=False):
+            calls.append((rec, iters, miss_max_t))
+            return self.real(rec, custom_ids, iters, miss_max_t)
 
         sweeps.advance = spy
         return calls
@@ -3066,7 +3077,7 @@ class _capture_k8:
 
 
 def _records(x, rows):
-    """The records ``rows`` of K8's input ``x`` (the hull pool whole)."""
+    """The records ``rows`` of K8's flat input ``x`` (the hull pool whole)."""
     if torch.is_tensor(x):
         return x[rows]
     if isinstance(x, dict):
@@ -3074,12 +3085,16 @@ def _records(x, rows):
     return type(x)(*(_records(v, rows) for v in x))
 
 
-def _k8_ops(x):
+def _k8_ops(rec):
     """(operations of one advancement iteration outside GJK's loop, of one GJK iteration),
-    counted on the plain version (``sweeps._advance``) for the first record of ``x``."""
+    counted on the plain version (``sweeps._advance``) for the first record of ``rec``."""
     from bepuphysics2_tpu_torch.collision import convex, sweeps
 
-    one = _to_cpu(_records(x, slice(0, 1)))
+    dev = rec.a.f.device
+    first = (torch.zeros(1, 2, dtype=torch.int32, device=dev) if rec.pairs is None
+             else rec.pairs[:1])
+    one = _to_cpu(sweeps.gather_records(rec._replace(
+        pairs=first, exists=torch.ones(1, dtype=torch.bool, device=dev))))
     full = convex.GJK_ITERS
     try:
         convex.GJK_ITERS = 0
@@ -3099,63 +3114,158 @@ def _to_cpu(x):
     return type(x)(*(_to_cpu(v) for v in x))
 
 
-def phase_kernel_k8(dev, call, launches):
-    """K8 against its plain version (``sweeps._advance``) on phase 33's own K8 call: the
-    256 capsule sweeps at ``prune_k`` 0 against every body and mesh triangle of the
-    4,096-body terrain pile. Bit for bit equal, or within ``K8_TOL`` on every record
-    whose plain result a 1e-7 nudge of the positions leaves in place (the counts
-    printed); deterministic on a repeat. Times: the wrapper and the C entry point alone
-    (CUDA events), the plain version (one call, host clock). Bound: the bytes (each input
-    read once, the output written once) against the operations the records needed (each
-    record's advancement and GJK iterations, counted by K8, times their operations
-    counted on the plain version)."""
+def _ptxas(name):
+    """{kernel: (registers, stack frame bytes, spill store bytes, spill load bytes)} from
+    the newest build log of ``csrc/<name>.cu`` (``-Xptxas=-v``)."""
+    import re
+
+    from bepuphysics2_tpu_torch.ops import build
+
+    out, kernel, frame = {}, None, None
+    for line in build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = next((k for k in ("advance_first", "advance_rest") if k in m.group(1)),
+                          m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and kernel:
+            frame = tuple(int(g) for g in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out[kernel] = (int(m.group(1)),) + (frame or (0, 0, 0))
+            kernel, frame = None, None
+    return out
+
+
+def _lane_efficiency(work):
+    """Sum of ``work`` over sum over warps (32 consecutive records) of 32 x the warp's
+    largest: the share of a one-thread-a-record kernel's lane time that does work, in
+    the records' own order."""
+    n = work.shape[0]
+    w = torch.nn.functional.pad(work.double(), (0, -n % 32)).reshape(-1, 32)
+    return float(w.sum() / (32 * w.amax(1)).sum())
+
+
+def _k8_parts_ms(call, reps):
+    """CUDA-event ms of K8's C entry point alone, on the arguments its wrapper makes
+    (``call`` runs the wrapper once): both passes, pass 1 alone, then pass 2 alone over
+    the queue pass 1 left."""
+    from bepuphysics2_tpu_torch.collision import sweeps
+    from bepuphysics2_tpu_torch.ops import build
+
+    key = ("conservative_advance", "conservative_advance_launch")
+    real, out = build._bound[key], {}
+    at = len(sweeps._K8_ARGS) - 2  # the passes argument
+
+    def spy(*args):
+        err = real(*args)
+        for label, passes in (("both", 3), ("pass 1", 1), ("pass 2", 2)):
+            a = list(args)
+            a[at] = passes
+            out[label] = _time_ms(lambda: real(*a), reps)
+        return err
+
+    build._bound[key] = spy
+    try:
+        call()
+    finally:
+        build._bound[key] = real
+    return out
+
+
+def _k8_hold(dev, rec, iters, miss, label):
+    """K8 against its plain version on the records ``rec``: every record bit for bit
+    equal, and bit-identical on a repeat. Returns (work, queued, plain ms)."""
     from bepuphysics2_tpu_torch.collision import sweeps
 
-    x, iters, miss = call
-    n = x["speed_bound"].shape[0]
-    work = torch.empty(n, 2, dtype=torch.int32, device=dev)
-    got = sweeps.conservative_advance(x, iters, miss, work=work)
-    again = sweeps.conservative_advance(x, iters, miss)
+    n = rec.n
+    work = torch.zeros(n, 2, dtype=torch.int32, device=dev)
+    counters = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = sweeps.conservative_advance(rec, iters, miss, work=work, counters=counters)
+    again = sweeps.conservative_advance(rec, iters, miss)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = sweeps._advance(x, (), iters, miss)
+    want = sweeps.conservative_advance_plain(rec, iters, miss)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    both_miss = (got >= 1e30) & (want >= 1e30)
-    gap = torch.where(both_miss, 0.0, (got - want).abs())
-    unequal = torch.nonzero(got != want)[:, 0]
-    err = float(gap.max())
-    note = f"{n - unequal.numel()} of {n} records bit for bit equal"
-    if unequal.numel():
-        sub = _records(x, unequal)
-        nudge = lambda e: {**sub, "sweep": {**sub["sweep"], "pos": type(sub["sweep"]["pos"])(
-            *(c * (1 + e) for c in sub["sweep"]["pos"]))}}
-        moves = torch.stack([(sweeps._advance(nudge(e), (), iters, miss) - want[unequal]).abs()
-                             for e in (1e-7, -1e-7)]).amax(0)
-        stable = moves <= 1e-5
-        err = float(gap[unequal][stable].max(initial=0.0)) if stable.any() else 0.0
-        note += f"; {int(stable.sum())} of the other {unequal.numel()} stable, within {err:.3e}"
-        _require(err <= K8_TOL,
-                 f"K8 parts from its plain version by {err:.3e} on a stable record")
-    _require(bool((got == again).all()), "K8 differs from itself on a repeat")
-    ms = _time_ms(lambda: sweeps.conservative_advance(x, iters, miss), 5)
-    kernel_ms = _bare_ms("conservative_advance",
-                         lambda: sweeps.conservative_advance(x, iters, miss), 5)
-    adv_ops, gjk_ops = _k8_ops(x)
+    unequal = int((got != want).sum())
+    _require(unequal == 0, f"K8 parts from its plain version on {unequal} of {n} records of "
+                           f"{label}")
+    _require(bool((got == again).all()), f"K8 differs from itself on a repeat of {label}")
+    return work, int(counters[0]), plain_ms
+
+
+def _k8_bytes(rec):
+    """The bytes K8's function must move: each table read once (the hull pool and the
+    registry's pool rows too, and an explicit form's pairs and exists), the output
+    written once."""
+    t = [rec.a.f, rec.a.i, rec.b.f, rec.b.i, rec.hull_rows, *rec.hull_points]
+    if rec.a.f.data_ptr() == rec.b.f.data_ptr():
+        t = t[2:]  # one table on both sides
+    if rec.pairs is not None:
+        t += [rec.pairs, rec.exists]
+    return _nbytes(*t) + 4 * rec.n
+
+
+def phase_kernel_k8(dev, call, launches):
+    """K8 against its plain version (``sweeps.conservative_advance_plain``: the records
+    gathered from the tables, then ``sweeps._advance``) on phase 33's own K8 call, the
+    256 capsule sweeps at ``prune_k`` 0 against every body and mesh triangle of the
+    4,096-body terrain pile (the product form; phase 35 holds one of its CCD calls, the
+    explicit form): every record bit for bit equal, and bit-identical on a repeat. Times
+    on phase 33's call: the wrapper, the C entry point alone, pass 1 alone and pass 2
+    alone over the queue pass 1 left (CUDA events), the plain version (one call, host
+    clock); the share of records pass 1 finishes; the lane efficiency a one-thread-a-record
+    kernel had on these records in their order (``_lane_efficiency`` of the advancement
+    and of the GJK iterations); ptxas's registers, stack frame and spills of both passes.
+    Bound: the bytes (each table read once, the output written once) against the
+    operations the records needed (each record's advancement and GJK iterations, counted
+    by K8, times their operations counted on the plain version); beside it the bound of
+    the wrapper before the tables (every record's own 51 + H words read)."""
+    from bepuphysics2_tpu_torch.collision import sweeps
+
+    rec, iters, miss = call
+    n = rec.n
+    work, queued, plain_ms = _k8_hold(dev, rec, iters, miss, "phase 33's call")
+    ms = _time_ms(lambda: sweeps.conservative_advance(rec, iters, miss), 5)
+    parts = _k8_parts_ms(lambda: sweeps.conservative_advance(rec, iters, miss), 5)
+    adv_ops, gjk_ops = _k8_ops(rec)
     w = work.sum(0).tolist()
     ops = w[0] * adv_ops + w[1] * gjk_ops
-    pa, _ = sweeps._shared_rows(x["params_a"])
-    ha, _ = sweeps._shared_rows(x["hull_a"])
-    nbytes = (n * (35 + 3 + 12 + x["hull_b"].shape[1] + 1) * 4 + _nbytes(pa, ha)
-              + _nbytes(*x["hull_points"]))
-    bound_ms, bound_by = _bound(nbytes, ops)
+    bound_ms, bound_by = _bound(_k8_bytes(rec), ops)
+    hull_width = rec.hull_rows.shape[1]
+    old_bytes = n * (35 + 3 + 12 + hull_width + 1) * 4 + _nbytes(*rec.hull_points)
+    old_bound_ms, old_by = _bound(old_bytes, ops)
+    eff_adv, eff_gjk = _lane_efficiency(work[:, 0]), _lane_efficiency(work[:, 1])
+    longest = work[int(torch.argmax(work[:, 1]))].tolist()
+    ptx = _ptxas("conservative_advance")
+    ptx_note = "; ".join(f"{k} {v[0]} registers, {v[1]} bytes stack, {v[2]} + {v[3]} bytes "
+                         f"spill stores + loads" for k, v in sorted(ptx.items()))
+    finished = 1.0 - queued / n
     print(f"[33 K8] conservative advancement on phase 33's call ({n} records, {iters} "
-          f"iterations): {note}; {w[0]} advancement and {w[1]} GJK iterations run "
-          f"({adv_ops} and {gjk_ops} operations each); {ms:.3f} ms through the wrapper, "
-          f"{kernel_ms:.3f} ms alone, plain {plain_ms:.1f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by})")
-    return dict(max_abs_err=err, ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, launches=launches, library_ms=None)
+          f"iterations): every record bit for bit equal, repeat bit-identical; {w[0]} "
+          f"advancement and {w[1]} GJK iterations run ({adv_ops} and {gjk_ops} operations "
+          f"each); {ms:.3f} ms through the wrapper, {parts['both']:.3f} ms alone (pass 1 "
+          f"{parts['pass 1']:.3f}, pass 2 {parts['pass 2']:.3f}), plain {plain_ms:.1f} ms; "
+          f"pass 1 finished {finished:.4f} of the records ({queued} to pass 2); one thread "
+          f"a record would have run its lanes at {eff_adv:.4f} (advancement) and "
+          f"{eff_gjk:.4f} (GJK iterations); the longest record ran {longest[0]} "
+          f"advancement and {longest[1]} GJK iterations; bound {bound_ms:.4f} ms ({bound_by}; the "
+          f"per-record layout's {old_bound_ms:.4f}, {old_by}); ptxas: {ptx_note}")
+    for k, v in ptx.items():
+        if v[1] or v[2] or v[3]:
+            print(f"[33 K8] ptxas: {k} keeps {v[1]} bytes of stack and spills {v[2]} + {v[3]} "
+                  f"bytes")
+    return dict(max_abs_err=0.0, ms=ms, kernel_ms=parts["both"], pass1_ms=parts["pass 1"],
+                pass2_ms=parts["pass 2"], pass1_finished=finished, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, per_record_bound_ms=old_bound_ms,
+                lane_efficiency_one_thread=dict(advancement=eff_adv, gjk=eff_gjk),
+                ptxas={k: dict(registers=v[0], stack=v[1], spill_stores=v[2],
+                               spill_loads=v[3]) for k, v in ptx.items()},
+                launches=launches, library_ms=None)
 
 
 CCD_SPHERES = 256
@@ -3244,14 +3354,16 @@ def phase_ccd(dev, name, smi, steps=48, ccd_pairs=16384):
     must let a sphere through the wall, or the wall's gate proves nothing; the same scene
     with CCD and a 0.4 m wall, its crossings printed (the solver's overshoot, ROADMAP
     queue 3); and 64 bodies with 8 spheres, 10 card steps each from the CPU's state within
-    1e-4 of the CPU's. Returns K8's launches over the timed steps."""
+    1e-4 of the CPU's. K8 on the last timed step's call (the explicit form) bit for bit
+    equal to its plain version and to itself on a repeat. Returns K8's launches over the
+    timed steps."""
     from bepuphysics2_tpu_torch.collision import sweeps
 
     sim, spheres, far = ccd_world(4096, CCD_SPHERES, dev, ccd_pairs)
     calls, restore = _count_plain_calls()
     before, k8_before = _kernel_launches(), sweeps.conservative_advance.launches
     try:
-        with _risk_peak(ccd_pairs) as risk:
+        with _risk_peak(ccd_pairs) as risk, _capture_k8() as k8_calls:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             sim.run(steps, DT)
@@ -3265,6 +3377,15 @@ def phase_ccd(dev, name, smi, steps=48, ccd_pairs=16384):
     min_y, pairs, contacts = _pile_gates(sim, "the CCD pile")
     past = _past(sim, spheres, far)
     peak = int(risk.peak)
+    # K8 held on the last step's call (the explicit form: the body table on both sides).
+    rec, iters, miss = k8_calls[-1]
+    del k8_calls
+    _, queued, _ = _k8_hold(dev, rec, iters, miss, "phase 35's last CCD call")
+    k8_ms = _time_ms(lambda: sweeps.conservative_advance(rec, iters, miss), 5)
+    held = (f"K8 on the last step's call ({rec.n} records, {int(rec.exists.sum())} live, "
+            f"{iters} iterations) bit for bit equal to its plain version and to itself on a "
+            f"repeat, {queued} records left to pass 2, {k8_ms:.3f} ms through the wrapper")
+    del rec
     hashes = []
     for _ in range(2):
         small, _, _ = ccd_world(512, 32, dev, 2048)
@@ -3284,7 +3405,7 @@ def phase_ccd(dev, name, smi, steps=48, ccd_pairs=16384):
           f"{peak} (max_ccd_pairs {ccd_pairs}); pairs {pairs}, contacts {contacts}, min "
           f"dynamic y {min_y:.3f}; launches {launches} and K8 {k8} over {steps} steps "
           f"({k8 / steps:g} a step), plain calls {len(calls)}, host syncs per step "
-          f"{syncs:g}; 512 bodies and 32 spheres, 30 steps twice: state_hash "
+          f"{syncs:g}; {held}; 512 bodies and 32 spheres, 30 steps twice: state_hash "
           f"{hashes[0]:#018x} / {hashes[1]:#018x}; the control (max_ccd_pairs 0, "
           f"discrete contacts alone): {through} of 32 spheres through the wall; CCD on and a "
           f"{2 * THIN_WALL:g} m wall: {thin_through} of 32 through; 64 bodies "
@@ -3738,10 +3859,14 @@ def slice12_phases(dev, name, smi):
 
 
 def slice11_phases(dev, name, smi):
-    """Phases 29-30 (phase 31 steps in a process of its own: ``_start_vehicles``).
-    Returns each new path's (kernel, launches)."""
+    """Phases 29-30 (phase 31 steps in a process of its own: ``_start_vehicles``), then
+    their replayed graphs cleared, as phase 33 clears its own. Returns each new path's
+    (kernel, launches)."""
+    from bepuphysics2_tpu_torch.utils import replay
+
     k1, _, _ = phase_five_shape_pile(dev, name, smi, timed=48)
     phase_five_shape_small(dev)
+    replay.clear()
     return {"4k five-shape pile": ("K1", k1)}
 
 
@@ -3820,15 +3945,16 @@ def _phases(dev, name, smi, t_start):
                       WIN_TOL, **_schedule_overrides(callback=False), **win)
     # Slice 10: the colosseum through K1 and K2, the cloth through K3, every joint type.
     paths = slice10_phases(dev, name, smi)
-    # Slice 11: the five-shape pile over the generic narrow phase (K1).
-    paths.update(slice11_phases(dev, name, smi))
-    # Slice 12: the mesh-terrain pile (K1), the queries on it (K8).
+    # Slice 12 before slice 11: the mesh-terrain pile (K1), the queries on it and K8's hold
+    # on their sweeps run first, so that phase 31's processes (the car and the tank, K3,
+    # K8), which would share the card with K8's timed calls, start right after them and
+    # step beside phases 29-30 and 34-40.
     new, k8 = slice12_phases(dev, name, smi)
     paths.update(new)
-    # Phase 31, slice 11's car and tank (K3, K8), steps in a process of its own from here,
-    # beside phases 34-40: after K8's hold, whose times it would share the card with.
     vehicles = _start_vehicles(name, smi)
     try:
+        # Slice 11: the five-shape pile over the generic narrow phase (K1).
+        paths.update(slice11_phases(dev, name, smi))
         # Slice 12: 64 characters (K3).
         paths["64 characters"] = ("K3", phase_characters(dev, name, smi)[0])
         # Slice 13: CCD on the 4k pile (K1, K8); the utilities on phase 4's pile.
@@ -3863,6 +3989,7 @@ def _phases(dev, name, smi, t_start):
         max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
         bound_ms=k["bound_ms"], bound_by=k["bound_by"], library_ms=k["library_ms"],
         kernel_ms=k.get("kernel_ms"), launches_by_path=k.get("paths"),
+        **{key: k[key] for key in K8_EXTRA if key in k},
     ) for n, src, rep, k in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -244,6 +244,33 @@ def test_each_legacy_stage_matches_jax(carried, frame):
     assert bool(got["rovfl"]) == bool(want["rovfl"])
 
 
+def test_solve_contacts_matches_jax(carried):
+    """``solve.solve_contacts`` (one contact bank alone, fresh colors) on the stages of the
+    pile's frame 10 (the JAX package's own, from the stage test's compiled function),
+    against the JAX ``solve_contacts`` with ``backend="pallas"`` run eagerly: bodies within
+    1e-5 (per body), impulses within 1e-5."""
+    from bepuphysics2_tpu_torch.interop import _to_torch
+    from bepuphysics2_tpu_torch.solver.solve import solve_contacts
+
+    run = carried[False]
+    jcfg, present = run["config"], run["present"]
+    cfg = _port_config(jcfg)
+    before, _ = run[FRAMES[0]]
+    js = _STAGES(jax.tree_util.tree_map(jnp.asarray, before),
+                 jax.tree_util.tree_map(jnp.asarray, run["shapes"]),
+                 jax.tree_util.tree_map(jnp.asarray, run["banks"]), jcfg, present)
+    wb, wimp = jsolve.solve_contacts(js["bodies"], js["ps"], js["imp"], jcfg.integrator,
+                                     dataclasses.replace(jcfg.solve_config(), backend="pallas"),
+                                     jnp.float32(DT))
+    bodies, ps, imp = (_to_torch(_np(js[k]), "cpu") for k in ("bodies", "ps", "imp"))
+    got_b, got_imp = solve_contacts(bodies, ps, imp, cfg.integrator, cfg.solve_config(),
+                                    float(np.float32(DT)))
+    for f in ("pos", "orn", "vel", "omega"):
+        _close_per_body(getattr(got_b, f), _np(getattr(wb, f)), 1e-5, f)
+    _hold_tree(got_imp, _np(wimp), 1e-5, "impulses")
+    assert np.abs(np.stack(_np(wb.pos)) - np.stack(before.bodies.pos)).max() > 1e-6
+
+
 @pytest.mark.parametrize("joint,frame", [(False, FRAMES[0]), (False, FRAMES[1]),
                                          (True, FRAMES[0])],
                          ids=["pile-10", "pile-130", "ball_socket-10"])

@@ -10,7 +10,8 @@
   ``exclude`` (the whole cast replays), on a 64-body pile on a mesh, called three times
   (eager, captured, replayed). A batch of capsule sweeps on that pile runs its
   conservative advancement in kernel K8 and replays nothing: its three calls give the
-  bits of the same calls through K8's plain version (``sweeps._advance``), run eagerly.
+  bits of the same calls through K8's plain version (``sweeps.conservative_advance_plain``),
+  run eagerly.
 """
 import numpy as np
 import pytest
@@ -123,7 +124,7 @@ def _query_results(query, device, enabled):
     replay.enabled = enabled
     kernel = sweeps.conservative_advance
     if not enabled:
-        sweeps.conservative_advance = lambda x, iters, miss: sweeps._advance(x, (), iters, miss)
+        sweeps.conservative_advance = sweeps.conservative_advance_plain
     try:
         sim, _ = build_terrain_pile_sim(64, 10, device=device)
         sim.run(20, 1 / 60)
